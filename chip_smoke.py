@@ -9,31 +9,76 @@ Phases, each of which raises on failure (the script then exits non-zero):
 
 1. device check: exits 1 unless ``torch.cuda.is_available()``; prints the
    card's name and power limit as ``nvidia-smi`` reports them;
-2. build: compiles the CUDA kernels under ``tracer_torch/csrc`` with nvcc;
+2. build: compiles the CUDA kernels under ``tracer_torch/csrc`` with nvcc,
+   one process per source, all at once;
 3. kernel vs plain on the card: ``compact_cuda`` at the phase-A shapes of
-   the 100k-sphere query, ``leafcull_cuda`` on phase-A rows at 20k spheres
-   x 64k rays (default budgets, group-mode rows, and C > 1 chunks);
-4. the slice at full size: 100k spheres x 512k origin rays through prep,
-   phase A and the leaf walk, with launch counters reset just before and
-   read just after; overflow, hit fraction, and agreement with the brute
-   force oracle on the first 16k rays;
-5. the headline measurement (``tracer_torch.bench``) and its JSON line;
-6. one JSON line of per-kernel results, then the final status line.
+   the 100k-sphere query; ``leafcull_cuda`` and ``anyhit_cuda`` on phase-A
+   rows at 20k spheres x 64k rays (default budgets, group-mode rows, C > 1
+   chunks, and for any-hit a dense scene where whole subpackets are
+   occluded); ``routed_cuda`` on TLAS rows at 20k spheres in 8 chunks,
+   where the routed query must also equal the dense multi-chunk one;
+4. the closest-hit slice at full size: 100k spheres x 512k origin rays
+   through prep, phase A and the leaf walk, with launch counters reset
+   just before and read just after; overflow, hit fraction, and agreement
+   with the brute-force oracle on the first 16k rays; kernel vs plain on
+   its rows;
+5. the shadow slice at full size: the same rays with t_max = 500 through
+   prep, phase A and the any-hit walk, counters reset and read the same
+   way; overflow, agreement with "closest-hit t < 500" from phase 4 on
+   every ray and with ``any_hit_brute`` on the first 16k rays; kernel vs
+   plain on its rows;
+6. the 10M TLAS slice at full size: 10M spheres, device LBVH, 131k origin
+   rays through prep, routing, routed phase A, the routed walk and the
+   merge, counters reset and read the same way; overflow, slots equal to
+   the dense multi-chunk query on every ray, agreement with brute force on
+   the first 4096 rays; kernel vs plain on its rows;
+7. the headline measurement (``tracer_torch.bench``, with its shadow and
+   LBVH extras) and the large-scene measurement
+   (``tracer_torch.bench.large``), one JSON line each;
+8. one JSON line of per-kernel results, then the final status line.
 
-Kernel and oracle disagreements are allowed only as ties (both t within
-1e-5 relative) or grazes (for the prim one side chose, the quadratic's
-discriminant is within 1e-5 * b'^2 of 0), on at most 0.01% of rays.
+Closest-hit disagreements with an oracle are allowed only as ties (both t
+within 1e-5 relative) or grazes (for the prim one side chose, the
+quadratic's discriminant is within 1e-5 * b'^2 of 0), on at most 0.01% of
+rays; occlusion disagreements only as grazes or a hit t within 1e-5 of
+t_max, on at most 0.01% of rays (0.5% against ``any_hit_brute``, whose
+reference quadratic rounds differently, see MIN_AGREE_REFERENCE). Every
+kernel equals its plain version
+exactly (the closest-hit walks allow the same tie and graze classes, and
+measured none).
+
+Each kernel's ``bound_ms`` is the larger of its bytes (each input read
+once, each output written once) over 3.35 TB/s and its operations over
+67 TFLOP/s (the H100's fp32 rate outside the tensor cores): 19 fp32
+operations per (ray, prim) test, counted over the tests this run's rows
+need (for the any-hit walk, up to the leaf where every ray of the
+subpacket is occluded), and for the compactor 3 32-bit operations per id.
 """
 
 import json
 import subprocess
 import sys
+import time
 
 TIE_RTOL = 1e-5         # t of two different prims this close: a tie
 GRAZE_RTOL = 1e-5       # |disc| <= GRAZE_RTOL * b'^2: a graze
 T_RTOL = 1e-5           # t where both sides chose the same prim
+TMAX_RTOL = 1e-5        # hit t this close to t_max: a clip flip
 MIN_AGREE = 0.9999      # share of rays whose choice must be equal
+# any_hit_brute computes the reference quadratic (b = 2 oc.d, disc =
+# b^2 - 4ac), whose f32 rounding differs from the kernels' u-form: on the
+# card ~1 % of hits at this scene's distances lie in that graze band. Its
+# flips are held to the JAX shadow test's budget (tests/test_shadow.py).
+MIN_AGREE_REFERENCE = 0.995
 BRUTE_RAYS = 16384
+BRUTE_RAYS_10M = 4096
+SMALL_T_MAX = 150.0     # shadow t_max in the 20k settings (world 500)
+DENSE_MG = 2048         # dense 10M comparison: group budget (no overflow)
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+OPS_PER_TEST = 19       # fp32 operations of one (ray, prim) test
+OPS_PER_ID = 3          # compactor: compare, scan add, store index
+PLAIN_ELEMS = 1 << 26   # slice size of the plain walks on the card
 
 
 def log(*a):
@@ -63,7 +108,6 @@ def check_choices(name, o, d, prim_of, ta, sa, tb, sb, miss):
     """Hold two closest-hit results against each other; returns the max
     abs t difference where both chose the same prim. ``prim_of(s)`` maps
     choices to (centers, ccr); ``miss`` is the no-hit choice value."""
-    import torch
     same = sa == sb
     agree = same.float().mean().item()
     hit = same & (sa != miss)
@@ -83,10 +127,45 @@ def check_choices(name, o, d, prim_of, ta, sa, tb, sb, miss):
     return terr.max().item() if hit.any() else 0.0
 
 
+def check_occlusion(name, o, d, occ_a, occ_b, centers, radii, t_max,
+                    min_agree=MIN_AGREE):
+    """Hold two occlusion results (R,) bool against each other: a ray may
+    differ only where some sphere grazes it or is hit within TMAX_RTOL of
+    t_max, on at most 1 - min_agree of the rays."""
+    import torch
+    bad = (occ_a != occ_b).nonzero().reshape(-1)
+    share = 1.0 - bad.numel() / occ_a.numel()
+    if share < min_agree:
+        raise AssertionError(f"{name}: occlusion agrees on {share:.6f}")
+    explained = 0
+    for i in bad.tolist():
+        o64, d64 = o[i].double(), d[i].double()
+        oc = o64[None] - centers.double()
+        a = (d64 * d64).sum()
+        bp = oc @ d64
+        cq = (oc * oc).sum(1) - radii.double() ** 2
+        disc = bp * bp - a * cq
+        graze = disc.abs() <= GRAZE_RTOL * torch.maximum(bp * bp,
+                                                         (a * cq).abs())
+        t = (-bp - disc.clamp(min=0).sqrt()) / a
+        near = (disc > 0) & ((t - t_max).abs() <= TMAX_RTOL * t_max)
+        explained += bool((graze | near).any())
+    log(f"{name}: {occ_a.numel()} rays, {int(occ_b.sum())} occluded, "
+        f"agree on {share:.6f}; {bad.numel()} mismatch(es), "
+        f"{explained} at a graze or at t_max")
+    if explained < bad.numel():
+        raise AssertionError(f"{name}: occlusion results disagree")
+
+
 def walk_rays(feats):
     """Per-ray (o, d) in the leaf walk's (G, SP, S) output order."""
     f = feats.permute(0, 2, 1, 3).reshape(-1, feats.shape[-1])
     return -0.5 * f[:, 3:6], f[:, 0:3]
+
+
+def walk_args(feats, rows, cull):
+    return (feats, rows, cull.prims, cull.leaf_size, cull.leaves_per_chunk,
+            cull.leaves_per_group)
 
 
 def compare_walk(name, feats, rows, cull):
@@ -94,10 +173,9 @@ def compare_walk(name, feats, rows, cull):
     import torch
     from tracer_torch.kernels.leafcull import (leafcull_cuda, leafcull_plain,
                                                _NOSLOT)
-    args = (feats, rows, cull.prims, cull.leaf_size, cull.leaves_per_chunk,
-            cull.leaves_per_group)
+    args = walk_args(feats, rows, cull)
     tk, sk = leafcull_cuda(*args)
-    tp, sp = leafcull_plain(*args)
+    tp, sp = leafcull_plain(*args, pair_elems=PLAIN_ELEMS)
     torch.cuda.synchronize()
     C = rows.shape[0]
     o, d = walk_rays(feats)
@@ -110,6 +188,40 @@ def compare_walk(name, feats, rows, cull):
 
     return check_choices(name, o, d, prim_of, tk.reshape(-1), sk.reshape(-1),
                          tp.reshape(-1), sp.reshape(-1), _NOSLOT)
+
+
+def compare_anyhit(name, feats, rows, cull):
+    """anyhit_cuda vs anyhit_plain: flags equal exactly. Returns the
+    number of subpackets whose rays are all occluded (where the kernel
+    can exit early)."""
+    import torch
+    from tracer_torch.kernels.leafcull import anyhit_cuda, anyhit_plain
+    args = walk_args(feats, rows, cull)
+    ok = anyhit_cuda(*args)
+    op = anyhit_plain(*args, pair_elems=PLAIN_ELEMS)
+    torch.cuda.synchronize()
+    if not torch.equal(ok, op):
+        raise AssertionError(f"{name}: anyhit_cuda != plain on "
+                             f"{int((ok != op).sum())} rays")
+    full = int(op.bool().all(dim=1).sum())
+    log(f"{name}: flags equal on {ok.numel()} rays, {int(op.sum())} "
+        f"occluded, {full} fully occluded subpacket(s)")
+    return full
+
+
+def compare_routed(name, args):
+    """routed_cuda vs routed_plain: (t, slot) equal bit for bit."""
+    import torch
+    from tracer_torch.kernels.tlas import routed_cuda, routed_plain
+    tk, sk = routed_cuda(*args)
+    tp, sp = routed_plain(*args, pair_elems=PLAIN_ELEMS)
+    torch.cuda.synchronize()
+    if not (torch.equal(sk, sp) and torch.equal(tk, tp)):
+        raise AssertionError(f"{name}: routed_cuda != plain on "
+                             f"{int((sk != sp).sum())} slot(s), "
+                             f"{int((tk != tp).sum())} t value(s)")
+    log(f"{name}: {args[0].shape[0]} pairs, {int((sk < 2 ** 30).sum())} "
+        f"hits; t and slots equal bit for bit")
 
 
 def tie_breaks(device):
@@ -156,8 +268,56 @@ def masked_rows(P, M, gen, device):
     return ids.to(device), sentinel
 
 
+# -- bounds ----------------------------------------------------------------
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes, n_ops):
+    """(bound_ms, bound_by) of work moving n_bytes and doing n_ops."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def walked_leaves(rows, lpg):
+    """Leaves each count-embedded row walks, (rows,) int64."""
+    nc = rows[..., 0].reshape(-1).long()
+    return nc.clamp(min=0) + (-nc).clamp(min=0) * lpg
+
+
+def anyhit_leaves_needed(feats, rows, cull):
+    """Leaves the any-hit walk needs per row: up to and including the leaf
+    at which every ray of the subpacket is occluded, else all."""
+    import torch
+    from tracer_torch.kernels.leafcull import anyhit_pairs
+    q, occ = anyhit_pairs(*walk_args(feats, rows, cull),
+                          pair_elems=PLAIN_ELEMS)
+    total = walked_leaves(rows, cull.leaves_per_group)
+    start = torch.cumsum(total, 0) - total
+    # Rays occluded so far, per pair: a cumulative count within each row.
+    cs = torch.cat([torch.zeros_like(occ[:1], dtype=torch.int32),
+                    torch.cumsum(occ.to(torch.int32), 0, dtype=torch.int32)])
+    i = torch.arange(q.shape[0], device=q.device)
+    done = ((cs[i + 1] - cs[start[q]]) > 0).all(dim=1)
+    first = torch.full_like(total, q.shape[0])
+    first.scatter_reduce_(0, q, torch.where(done, i, q.shape[0]), "amin")
+    return torch.where(first < q.shape[0], first - start + 1, total)
+
+
+def walk_bound(name, feats, rows, cull, leaves, out_bytes, extra=()):
+    """Bound of a leaf walk that tests ``leaves`` leaves per row."""
+    tests = int(leaves.sum()) * cull.leaf_size * feats.shape[2]
+    n_bytes = nbytes(feats, rows, cull.prims, *extra) + out_bytes
+    log(f"{name}: {tests} (ray, prim) tests needed, {n_bytes} bytes")
+    return bound(n_bytes, tests * OPS_PER_TEST)
+
+
 def main() -> int:
     import torch
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
@@ -175,16 +335,33 @@ def main() -> int:
     log(f"kernels built in {_lib.build_seconds:.1f} s")
     print(_lib.build_log, file=sys.stderr, flush=True)
 
-    from tracer_torch.bench import headline
+    from tracer_torch.bench import headline, large
     from tracer_torch.bench.timing import time_cuda
-    from tracer_torch.intersect.brute import brute_t_fast
-    from tracer_torch.kernels.conecull import (cone_candidates, compact_cuda,
-                                               compact_ascending_rows_plain)
-    from tracer_torch.kernels.leafcull import leafcull_cuda, leafcull_plain
+    from tracer_torch.intersect.brute import any_hit_brute, brute_t_fast
+    from tracer_torch.core.types import Ray
+    from tracer_torch.kernels.conecull import (
+        cone_candidates, compact_cuda, compact_ascending_rows_plain,
+        nearest_hit_hybrid_feats)
+    from tracer_torch.kernels.leafcull import (
+        anyhit_cuda, anyhit_plain, leafcull_cuda, leafcull_plain,
+        prep_feats_bucketed)
+    from tracer_torch.kernels.tlas import (
+        nearest_hit_tlas_feats, routed_cuda, routed_plain, tlas_candidates)
+    results = {}
+
+    def shadow_prep(o, d, t_max):
+        tm = torch.full((o.shape[0],), t_max, device=o.device)
+        return prep_feats_bucketed(o, d, headline.S, headline.SP,
+                                   cell_bits=headline.CELL_BITS, t_max=tm)[0]
+
+    def phase_a_rows(feats, tables, mc=headline.MC):
+        rows = cone_candidates(feats, tables, headline.MG, mc)[0]
+        return rows.reshape(tables.cull.num_chunks, feats.shape[0],
+                            headline.S, rows.shape[-1])
 
     # -- 3a. compact_cuda vs plain at the 100k query's phase-A shapes -----
     gen = torch.Generator().manual_seed(7)
-    compact_ms = compact_plain_ms = 0.0
+    cres = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
     for P, M, keep in ((4608, 384, 384), (4608, 1024, 512)):
         ids, sentinel = masked_rows(P, M, gen, dev)
         ok, ck = compact_cuda(ids, sentinel, keep)
@@ -192,48 +369,78 @@ def main() -> int:
         torch.cuda.synchronize()
         if not (torch.equal(ok, op) and torch.equal(ck, cp)):
             raise AssertionError(f"compact_cuda != plain at ({P}, {M})")
+        # torch.sort puts survivors first: the sentinel exceeds every id.
+        if not torch.equal(torch.sort(ids, dim=1).values[:, :keep], op):
+            raise AssertionError("torch.sort is not the compactor's yardstick")
         ms = time_cuda(compact_cuda, ids, sentinel, keep)
         pms = time_cuda(compact_ascending_rows_plain, ids, sentinel, keep)
-        compact_ms += ms
-        compact_plain_ms += pms
+        lms = time_cuda(torch.sort, ids, 1)
+        bms, _ = bound(nbytes(ids, ok, ck), P * M * OPS_PER_ID)
+        for key, v in zip(("ms", "plain_ms", "library_ms", "bound_ms"),
+                          (ms, pms, lms, bms)):
+            cres[key] += v
         log(f"compact ({P}, {M}) keep {keep}: equal; cuda {ms:.4f} ms, "
-            f"plain {pms:.4f} ms")
+            f"plain {pms:.4f} ms, torch.sort {lms:.4f} ms, bound "
+            f"{bms:.4f} ms")
+    results["compact_cuda"] = dict(cres, bound_by="bytes", max_abs_err=0)
 
-    # -- 3b. leafcull_cuda vs plain on phase-A rows ----------------------
+    # -- 3b. the walks vs their plain versions at 20k spheres -------------
     walk_err = 0.0
-    for name, mc, table_args in (
-            ("walk 20k x 64k", headline.MC, {}),
-            ("walk 20k x 64k, group mode", 7, {}),
-            ("walk 20k x 64k, C > 1", headline.MC,
-             {"max_chunk_bytes": 256 << 10})):
+    for name, mc, world, table_args in (
+            ("20k x 64k", headline.MC, 500.0, {}),
+            ("20k x 64k, group mode", 7, 500.0, {}),
+            ("20k x 64k, C > 1", headline.MC, 500.0,
+             {"max_chunk_bytes": 256 << 10}),
+            ("20k x 64k, dense", headline.MC, 40.0, {})):
         _, tables, o, d, _ = headline.benchmark_inputs(
-            dev, n_spheres=20_000, n_rays=65_536, world=500.0, **table_args)
+            dev, n_spheres=20_000, n_rays=65_536, world=world, **table_args)
+        C = tables.cull.num_chunks
         feats, _ = headline.prep(o, d)
-        rows, _, _ = cone_candidates(feats, tables, headline.MG, mc)
-        rows = rows.reshape(tables.cull.num_chunks, feats.shape[0],
-                            headline.S, rows.shape[-1])
+        rows = phase_a_rows(feats, tables, mc)
         if mc == 7 and not (rows[..., 0] < 0).any():
             raise AssertionError("budget 7 made no group-mode row")
-        if table_args and tables.cull.num_chunks < 2:
+        if table_args and C < 2:
             raise AssertionError("small max_chunk_bytes kept one chunk")
-        walk_err = max(walk_err, compare_walk(
-            f"{name} ({tables.cull.num_chunks} chunk(s))", feats, rows,
-            tables.cull))
+        if world == 500.0:
+            walk_err = max(walk_err, compare_walk(
+                f"walk {name} ({C} chunk(s))", feats, rows, tables.cull))
+        sfeats = shadow_prep(o, d, SMALL_T_MAX if world == 500.0 else 500.0)
+        full = compare_anyhit(f"any-hit {name} ({C} chunk(s))", sfeats,
+                              phase_a_rows(sfeats, tables, mc), tables.cull)
+        if world == 40.0 and not full:
+            raise AssertionError("the dense scene left the early exit idle")
+        if C > 1:
+            # Budgets that hold every pair: this setting checks results.
+            cull = tables.cull
+            npairs = C * feats.shape[0]
+            trows, pc, pg, _, _ = tlas_candidates(
+                feats, tables, headline.MG, headline.MC, npairs, C)
+            compare_routed(f"routed {name} ({C} chunks)",
+                           (pc, pg, trows, feats, cull.prims, cull.leaf_size,
+                            cull.leaves_per_chunk, cull.leaves_per_group))
+            _, s_r, o_r = nearest_hit_tlas_feats(
+                feats, tables, headline.MG, headline.MC, npairs, C)
+            _, s_d, o_d = nearest_hit_hybrid_feats(feats, tables)
+            if bool(o_r) or bool(o_d) or not torch.equal(s_r, s_d):
+                raise AssertionError(
+                    f"routed and dense queries disagree (overflow {bool(o_r)}"
+                    f", {bool(o_d)}; {int((s_r != s_d).sum())} slot(s))")
+            log(f"TLAS {name}: slots equal the dense query on "
+                f"{s_r.numel()} rays")
 
     tie_breaks(dev)
 
-    # -- 4. the slice at full size ---------------------------------------
+    # -- 4. the closest-hit slice at full size -----------------------------
     scene, tables, o, d, build_ms = headline.benchmark_inputs(dev)
     cull = tables.cull
     log(f"100k scene: bvh build {build_ms:.1f} ms, {cull.num_chunks} "
         f"chunk(s), {cull.num_real_leaves} leaves")
-    leafcull_cuda.launches = 0
-    compact_cuda.launches = 0
+    leafcull_cuda.launches = compact_cuda.launches = 0
     t, slot, dest, overflow = headline.query(o, d, tables)
     torch.cuda.synchronize()
     launches = {"leafcull_cuda": leafcull_cuda.launches,
                 "compact_cuda": compact_cuda.launches}
-    log(f"slice launches: {launches}")
+    log(f"closest-hit slice launches: {launches}")
     if min(launches.values()) < 1:
         raise AssertionError("the slice did not run through every kernel")
     if bool(overflow):
@@ -248,46 +455,157 @@ def main() -> int:
     n = BRUTE_RAYS
     tb, ib = brute_t_fast(o[:n], d[:n], scene.centers, scene.radii,
                           block=1024)
-    centers, radii = scene.centers, scene.radii
 
-    def sphere_of(s):
-        s = s.clamp(min=0).long()
-        c = centers[s]
-        return c, (c * c).sum(-1) - radii[s] * radii[s]
+    def sphere_of_in(sc):
+        def sphere_of(s):
+            s = s.clamp(min=0).long()
+            c = sc.centers[s]
+            return c, (c * c).sum(-1) - sc.radii[s] * sc.radii[s]
+        return sphere_of
 
     check_choices(f"slice vs brute_t_fast (first {n} rays)", o[:n], d[:n],
-                  sphere_of, tr[:n], sid[:n], tb, ib, -1)
+                  sphere_of_in(scene), tr[:n], sid[:n], tb, ib, -1)
 
-    # Kernel times at the query's own shapes, beside the plain versions.
     feats, _ = headline.prep(o, d)
-    rows = cone_candidates(feats, tables, headline.MG, headline.MC)[0]
-    rows = rows.reshape(cull.num_chunks, feats.shape[0], headline.S,
-                        rows.shape[-1])
+    rows = phase_a_rows(feats, tables)
     walk_err = max(walk_err, compare_walk("walk 100k x 512k", feats, rows,
                                           cull))
-    args = (feats, rows, cull.prims, cull.leaf_size, cull.leaves_per_chunk,
-            cull.leaves_per_group)
+    args = walk_args(feats, rows, cull)
     walk_ms = time_cuda(leafcull_cuda, *args)
     walk_plain_ms = time_cuda(leafcull_plain, *args, warmup=1, iters=3)
+    wb, wby = walk_bound("walk 100k x 512k", feats, rows, cull,
+                         walked_leaves(rows, cull.leaves_per_group),
+                         feats.shape[0] * feats.shape[1] * feats.shape[2]
+                         * rows.shape[0] * 8)
     log(f"walk 100k x 512k: cuda {walk_ms:.4f} ms, plain "
-        f"{walk_plain_ms:.4f} ms")
+        f"{walk_plain_ms:.4f} ms, bound {wb:.4f} ms ({wby})")
+    results["leafcull_cuda"] = dict(
+        ms=walk_ms, plain_ms=walk_plain_ms, library_ms=None, bound_ms=wb,
+        bound_by=wby, max_abs_err=walk_err,
+        launches=launches["leafcull_cuda"])
+    results["compact_cuda"]["launches"] = launches["compact_cuda"]
 
-    # -- 5. headline -------------------------------------------------------
-    log(json.dumps(headline.measure(tables, o, d, build_ms)))
+    # -- 5. the shadow slice at full size ----------------------------------
+    anyhit_cuda.launches = compact_cuda.launches = 0
+    occ, sdest, s_overflow = headline.shadow_query(o, d, tables)
+    torch.cuda.synchronize()
+    s_launches = {"anyhit_cuda": anyhit_cuda.launches,
+                  "compact_cuda": compact_cuda.launches}
+    log(f"shadow slice launches: {s_launches}")
+    if min(s_launches.values()) < 1:
+        raise AssertionError("the shadow slice did not run through every "
+                             "kernel")
+    if bool(s_overflow):
+        raise AssertionError("phase A overflowed in the shadow slice")
+    occ = occ[sdest].bool()
+    t_max = headline.SHADOW_T_MAX
+    check_occlusion("shadow vs closest-hit t < 500", o, d, occ,
+                    tr < t_max, scene.centers, scene.radii, t_max)
+    ref = any_hit_brute(Ray(origin=o[:n], direction=d[:n]), scene, t_max,
+                        block=1024)
+    check_occlusion(f"shadow vs any_hit_brute (first {n} rays)", o[:n],
+                    d[:n], occ[:n], ref, scene.centers, scene.radii, t_max,
+                    MIN_AGREE_REFERENCE)
+    sfeats = shadow_prep(o, d, t_max)
+    srows = phase_a_rows(sfeats, tables)
+    compare_anyhit("any-hit 100k x 512k", sfeats, srows, cull)
+    sargs = walk_args(sfeats, srows, cull)
+    any_ms = time_cuda(anyhit_cuda, *sargs)
+    any_plain_ms = time_cuda(anyhit_plain, *sargs, warmup=1, iters=3)
+    ab, aby = walk_bound("any-hit 100k x 512k", sfeats, srows, cull,
+                         anyhit_leaves_needed(sfeats, srows, cull),
+                         sfeats[..., 0].numel() * 4)
+    log(f"any-hit 100k x 512k: cuda {any_ms:.4f} ms, plain "
+        f"{any_plain_ms:.4f} ms, bound {ab:.4f} ms ({aby})")
+    results["anyhit_cuda"] = dict(
+        ms=any_ms, plain_ms=any_plain_ms, library_ms=None, bound_ms=ab,
+        bound_by=aby, max_abs_err=0, launches=s_launches["anyhit_cuda"])
 
-    # -- 6. results ---------------------------------------------------------
+    # -- 6. the 10M TLAS slice at full size ---------------------------------
+    big, btables, bo, bd, lbvh_ms, tables_ms = large.benchmark_inputs(dev)
+    bcull = btables.cull
+    budget = large.budgets(large.N_SPHERES, bcull.num_chunks)
+    log(f"10M scene: device LBVH {lbvh_ms:.1f} ms, tables {tables_ms:.1f} "
+        f"ms, {bcull.num_chunks} chunks; budgets (mg, npairs, kc, block) "
+        f"{budget}")
+    routed_cuda.launches = compact_cuda.launches = 0
+    bt, bslot, bdest, b_overflow = large.query(bo, bd, btables, budget)
+    torch.cuda.synchronize()
+    b_launches = {"routed_cuda": routed_cuda.launches,
+                  "compact_cuda": compact_cuda.launches}
+    log(f"TLAS slice launches: {b_launches}")
+    if min(b_launches.values()) < 1:
+        raise AssertionError("the TLAS slice did not run through every "
+                             "kernel")
+    if bool(b_overflow):
+        raise AssertionError("the TLAS query overflowed at the harness "
+                             "budgets")
+    bfeats, _ = large.prep(bo, bd)
+    dt, ds, d_overflow = nearest_hit_hybrid_feats(bfeats, btables,
+                                                  DENSE_MG, large.MC)
+    if bool(d_overflow):
+        raise AssertionError("the dense 10M comparison overflowed")
+    if not torch.equal(bslot, ds):
+        raise AssertionError(f"TLAS and dense slots differ on "
+                             f"{int((bslot != ds).sum())} rays")
+    hit = ds >= 0
+    log(f"TLAS vs dense multi-chunk: slots equal on {ds.numel()} rays, "
+        f"max |t| difference {(bt[hit] - dt[hit]).abs().max().item():.3g}; "
+        f"hit fraction {torch.isfinite(bt[bdest]).float().mean().item():.4f}")
+    m = BRUTE_RAYS_10M
+    btr, bsr = bt[bdest], bslot[bdest]
+    bsid = torch.where(bsr >= 0,
+                       bcull.slot_to_sphere[bsr.clamp(min=0).long()], -1)
+    tb, ib = brute_t_fast(bo[:m], bd[:m], big.centers, big.radii, block=16)
+    check_choices(f"10M TLAS vs brute_t_fast (first {m} rays)", bo[:m],
+                  bd[:m], sphere_of_in(big), btr[:m], bsid[:m], tb, ib, -1)
+    del big, dt, ds, tb, ib
+
+    mg, npairs, kc, pblk = budget
+    npairs = min(npairs, bcull.num_chunks * bfeats.shape[0])
+    trows, pc, pg, _, _ = tlas_candidates(
+        bfeats, btables, mg, large.MC, npairs, min(kc, bcull.num_chunks),
+        pblk)
+    rargs = (pc, pg, trows, bfeats, bcull.prims, bcull.leaf_size,
+             bcull.leaves_per_chunk, bcull.leaves_per_group)
+    compare_routed("routed 10M", rargs)
+    routed_ms = time_cuda(routed_cuda, *rargs)
+    routed_plain_ms = time_cuda(
+        lambda *a: routed_plain(*a, pair_elems=PLAIN_ELEMS), *rargs,
+        warmup=1, iters=1)
+    rb, rby = walk_bound("routed 10M", bfeats, trows, bcull,
+                         walked_leaves(trows, bcull.leaves_per_group),
+                         trows.shape[0] * bfeats.shape[2]
+                         * bfeats.shape[1] * 8, extra=(pc, pg))
+    log(f"routed 10M: cuda {routed_ms:.4f} ms, plain {routed_plain_ms:.4f} "
+        f"ms, bound {rb:.4f} ms ({rby})")
+    results["routed_cuda"] = dict(
+        ms=routed_ms, plain_ms=routed_plain_ms, library_ms=None,
+        bound_ms=rb, bound_by=rby, max_abs_err=0,
+        launches=b_launches["routed_cuda"])
+
+    # -- 7. the bench lines --------------------------------------------------
+    log(json.dumps(headline.measure(scene, tables, o, d, build_ms)))
+    log(json.dumps(large.measure(btables, bo, bd, lbvh_ms, tables_ms)))
+
+    # -- 8. results ----------------------------------------------------------
+    meta = {
+        "leafcull_cuda": ("tracer_torch/csrc/leafcull.cu",
+                          "tracer/kernels/leafcull.py:515"),
+        "compact_cuda": ("tracer_torch/csrc/compact.cu",
+                         "tracer/kernels/conecull.py:414"),
+        "anyhit_cuda": ("tracer_torch/csrc/anyhit.cu",
+                        "tracer/kernels/leafcull.py:829"),
+        "routed_cuda": ("tracer_torch/csrc/routed.cu",
+                        "tracer/kernels/tlas.py:260"),
+    }
+    keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
+    log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [
-        {"name": "leafcull_cuda", "route": "cuda",
-         "source": "tracer_torch/csrc/leafcull.cu",
-         "replaces": "tracer/kernels/leafcull.py:515",
-         "launches": launches["leafcull_cuda"], "max_abs_err": walk_err,
-         "ms": walk_ms, "plain_ms": walk_plain_ms},
-        {"name": "compact_cuda", "route": "cuda",
-         "source": "tracer_torch/csrc/compact.cu",
-         "replaces": "tracer/kernels/conecull.py:414",
-         "launches": launches["compact_cuda"], "max_abs_err": 0,
-         "ms": compact_ms, "plain_ms": compact_plain_ms},
-    ]}))
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         **{k: results[name][k] for k in keys}}
+        for name, (src, rep) in meta.items()]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -31,7 +31,8 @@ def _assert_same_bvh(got, want):
 def test_build_bvh_numpy_matches_jax(leaf_size, n):
     c, r, _ = tp.scene_np(n, seed=leaf_size)
     want = jax_build_bvh(c, r, leaf_size=leaf_size, backend="numpy")
-    got = tt.build_bvh(c, r, leaf_size=leaf_size, backend="numpy")
+    got = tt.build_bvh(c, r, leaf_size=leaf_size, backend="numpy",
+                       device="cpu")
     _assert_same_bvh(got, want)
     tt.validate_bvh(got, c, r)
 
@@ -41,7 +42,7 @@ def test_build_bvh_native_matches_jax(leaf_size, n):
     c, r, _ = tp.scene_np(n, seed=11, world=200.0)
     want = jax_build_bvh(c, r, leaf_size=leaf_size, backend="native")
     got = tt.build_bvh(torch.as_tensor(c), torch.as_tensor(r),
-                       leaf_size=leaf_size, backend="native")
+                       leaf_size=leaf_size, backend="native", device="cpu")
     _assert_same_bvh(got, want)
     tt.validate_bvh(got, c, r)
     assert got.node_min.dtype == torch.float32
@@ -54,19 +55,20 @@ def test_native_builder_raises_without_compiler(monkeypatch, tmp_path):
     monkeypatch.setattr(native, "CXX", "no-such-compiler-xyz")
     monkeypatch.setattr(native, "_lib", None)
     with pytest.raises(RuntimeError, match="no-such-compiler-xyz"):
-        tt.build_bvh(c, r, leaf_size=8, backend="native")
+        tt.build_bvh(c, r, leaf_size=8, backend="native", device="cpu")
     # "auto" takes the NumPy builder when the native one cannot be built.
-    _assert_same_bvh(tt.build_bvh(c, r, leaf_size=8, backend="auto"),
-                     tt.build_bvh(c, r, leaf_size=8, backend="numpy"))
+    _assert_same_bvh(
+        tt.build_bvh(c, r, leaf_size=8, backend="auto", device="cpu"),
+        tt.build_bvh(c, r, leaf_size=8, backend="numpy", device="cpu"))
     with pytest.raises(ValueError):
-        tt.build_bvh(c, r, backend="cuda")
+        tt.build_bvh(c, r, backend="cuda", device="cpu")
     with pytest.raises(ValueError):
         tt.build_bvh(np.zeros((0, 3)), np.zeros(0))
 
 
 def test_validate_bvh_catches_corruption():
     c, r, _ = tp.scene_np(300)
-    bvh = tt.build_bvh(c, r, leaf_size=8, backend="numpy")
+    bvh = tt.build_bvh(c, r, leaf_size=8, backend="numpy", device="cpu")
     tt.validate_bvh(bvh, c, r)
     bad = tt.FlatBVH(bvh.node_min, bvh.node_max, bvh.escape, bvh.leaf_start,
                      bvh.prim_idx.clone(), bvh.leaf_size)

@@ -1,5 +1,6 @@
 """PyTorch port vs the JAX package: types, math, the oracle, scenes,
-interop, ray sorting and prep, plus the port's import and dispatch guards.
+interop, ray sorting and prep, plus the port's import, dispatch and device
+guards.
 
 Same seeded numpy inputs on both sides; integers must match exactly,
 floats to the stated tolerance.
@@ -29,6 +30,7 @@ from tracer_torch.core import vecmath as tvec
 from tracer_torch.core.sort import octahedral_codes, plan_bucket_pad
 from tracer_torch.kernels import conecull as tcone
 from tracer_torch.kernels import leafcull as tleaf
+from tracer_torch.kernels import tlas as ttlas
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -152,29 +154,29 @@ def test_brute_t_fast_matches_jax(block):
 
 def test_scene_factories_are_seeded_and_in_range():
     s1 = tt.benchmark_scene(torch.Generator().manual_seed(4), 500,
-                            world_size=100.0)
+                            world_size=100.0, device="cpu")
     s2 = tt.benchmark_scene(torch.Generator().manual_seed(4), 500,
-                            world_size=100.0)
+                            world_size=100.0, device="cpu")
     assert torch.equal(s1.centers, s2.centers)
     assert s1.centers.shape == (500, 3) and s1.num_spheres == 500
     assert s1.centers.abs().max() <= 50.0 and (s1.radii == 0.5).all()
-    rs = tt.random_scene(torch.Generator().manual_seed(4), 300)
+    rs = tt.random_scene(torch.Generator().manual_seed(4), 300, device="cpu")
     lo = torch.tensor([-40.0, -20.0, -10.0])
     hi = torch.tensor([40.0, 20.0, 5.0])
     assert ((rs.centers >= lo) & (rs.centers <= hi)).all()
     assert ((rs.radii >= 0.5) & (rs.radii <= 5.0)).all()
     assert ((rs.albedo >= 0) & (rs.albedo <= 1)).all()
-    fs = tt.fixed_scene([[0, 0, 0]], [1.0])
+    fs = tt.fixed_scene([[0, 0, 0]], [1.0], device="cpu")
     assert fs.albedo.shape == (1, 3) and (fs.albedo == 0).all()
 
 
 def test_interop_round_trips():
     c, r, a = tp.scene_np(200)
-    s = tt.scene_from_numpy(c, r, a)
+    s = tt.scene_from_numpy(c, r, a, device="cpu")
     for x, y in ((s.centers, c), (s.radii, r), (s.albedo, a)):
         assert x.dtype == torch.float32
         np.testing.assert_array_equal(tp.np_(x), y)
-    assert (tt.scene_from_numpy(c, r).albedo == 0).all()
+    assert (tt.scene_from_numpy(c, r, device="cpu").albedo == 0).all()
     jb, tb = tp.bvhs(c, r, 8)
     for f in ("node_min", "node_max", "escape", "leaf_start", "prim_idx"):
         np.testing.assert_array_equal(tp.np_(getattr(tb, f)),
@@ -273,7 +275,9 @@ SLICE_MODULES = [
     "tracer_torch.kernels._lib", "tracer_torch.kernels.leafcull",
     "tracer_torch.kernels.conecull", "tracer_torch.bench.timing",
     "tracer_torch.bench.headline", "tracer_torch.bench.profile",
-    "tracer_torch.bench.__main__",
+    "tracer_torch.bench.__main__", "tracer_torch.core.device",
+    "tracer_torch.bvh.device", "tracer_torch.kernels.tlas",
+    "tracer_torch.bench.large",
 ]
 
 
@@ -293,6 +297,8 @@ def test_port_never_imports_jax():
 
 def test_cpu_wrappers_run_plain_and_leave_counters_at_zero():
     tleaf.leafcull_cuda.launches = 0
+    tleaf.anyhit_cuda.launches = 0
+    ttlas.routed_cuda.launches = 0
     tcone.compact_cuda.launches = 0
     rng = np.random.default_rng(0)
     ids = np.sort(rng.integers(0, 500, (16, 256)), axis=1).astype(np.int32)
@@ -304,7 +310,8 @@ def test_cpu_wrappers_run_plain_and_leave_counters_at_zero():
 
     c, r, a = tp.scene_np(300)
     _, tscene = tp.scenes(c, r, a)
-    tables = tt.build_cone_tables(tscene, tt.build_bvh(c, r, leaf_size=8))
+    tables = tt.build_cone_tables(tscene, tt.build_bvh(c, r, leaf_size=8,
+                                                      device="cpu"))
     o, d = tp.origin_rays_np(512)
     feats, _ = tt.prep_feats_bucketed(torch.as_tensor(o), torch.as_tensor(d),
                                       tp.S, tp.SP, cell_bits=tp.CELL_BITS)
@@ -317,7 +324,23 @@ def test_cpu_wrappers_run_plain_and_leave_counters_at_zero():
     t, s = tt.leafcull_call(*args)
     tp_, sp_ = tleaf.leafcull_plain(*args)
     assert torch.equal(s, sp_[0]) and torch.equal(t, tp_[0])
-    assert tleaf.leafcull_cuda.launches == 0
+    assert torch.equal(tt.anyhit_call(*args), tleaf.anyhit_plain(*args))
+
+    G = feats.shape[0]
+    pc = torch.zeros(G, dtype=torch.int32)
+    pg = torch.arange(G, dtype=torch.int32)
+    rargs = (pc, pg, rows[0], feats, cull.prims, cull.leaf_size,
+             cull.leaves_per_chunk, cull.leaves_per_group)
+    tr, sr = tt.routed_call(*rargs)
+    trp, srp = ttlas.routed_plain(*rargs)
+    assert torch.equal(sr, srp) and torch.equal(tr, trp)
+    # One chunk, every packet routed: the routed walk is the leaf walk.
+    assert torch.equal(sr, s) and torch.equal(tr, t)
+    t2, s2, _ = tt.nearest_hit_tlas_feats(feats, tables)
+    assert torch.equal(s2, tt.nearest_hit_hybrid_feats(feats, tables)[1])
+    for counter in (tleaf.leafcull_cuda, tleaf.anyhit_cuda,
+                    ttlas.routed_cuda):
+        assert counter.launches == 0
     assert tcone.compact_cuda.launches == 0
 
 
@@ -336,13 +359,55 @@ def test_wrappers_refuse_tensors_off_cpu_and_cuda():
         tleaf.leafcull_cuda(torch.zeros_like(feats, device="cpu"),
                             torch.zeros_like(cand, device="cpu"),
                             torch.zeros_like(prims, device="cpu"), 8, 4, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        tt.anyhit_call(feats, cand, prims, 8, 4, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        tleaf.anyhit_cuda(torch.zeros_like(feats, device="cpu"),
+                          torch.zeros_like(cand, device="cpu"),
+                          torch.zeros_like(prims, device="cpu"), 8, 4, 16)
+    pair = torch.zeros((1,), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        tt.routed_call(pair, pair, cand[0], feats, prims, 8, 4, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        ttlas.routed_cuda(*(torch.zeros_like(x, device="cpu") for x in (
+            pair, pair, cand[0], feats, prims)), 8, 4, 16)
     assert tleaf.leafcull_cuda.launches == 0
+    assert tleaf.anyhit_cuda.launches == ttlas.routed_cuda.launches == 0
 
 
 def test_device_timing_and_bench_refuse_without_cuda(monkeypatch):
-    from tracer_torch.bench import headline
+    from tracer_torch.bench import headline, large
     from tracer_torch.bench.timing import time_cuda
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         time_cuda(lambda: None)
     assert headline.main() == 1
+    assert large.main() == 1
+
+
+def test_entry_points_build_on_cuda_unless_asked(monkeypatch):
+    """With no device given, scenes, trees and interop tensors go to the
+    CUDA device; without CUDA they refuse rather than build on the CPU."""
+    c, r, a = tp.scene_np(40)
+    jb = tp.bvhs(c, r, 4)[0]
+    bvh_arrays = [tp.np_(getattr(jb, f)) for f in (
+        "node_min", "node_max", "escape", "leaf_start", "prim_idx")]
+    calls = {
+        "fixed_scene": lambda **k: tt.fixed_scene(c, r, a, **k),
+        "random_scene": lambda **k: tt.random_scene(
+            torch.Generator().manual_seed(0), 10, **k),
+        "benchmark_scene": lambda **k: tt.benchmark_scene(
+            torch.Generator().manual_seed(0), 10, **k),
+        "build_bvh": lambda **k: tt.build_bvh(c, r, leaf_size=4, **k),
+        "scene_from_numpy": lambda **k: tt.scene_from_numpy(c, r, a, **k),
+        "flat_bvh_from_numpy": lambda **k: tt.flat_bvh_from_numpy(
+            *bvh_arrays, 4, **k),
+    }
+    for name, call in calls.items():
+        out = call(device="cpu")
+        first = out.centers if hasattr(out, "centers") else out.node_min
+        assert first.device.type == "cpu", name
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()

@@ -54,7 +54,7 @@ def origin_rays_np(b: int, seed: int = 0):
 
 def scenes(c, r, a):
     """The same scene for both packages: (JAX Scene, port Scene)."""
-    return fixed_scene(c, r, a), tt.scene_from_numpy(c, r, a)
+    return fixed_scene(c, r, a), tt.scene_from_numpy(c, r, a, device="cpu")
 
 
 def bvhs(c, r, leaf_size: int):
@@ -66,7 +66,8 @@ def bvhs(c, r, leaf_size: int):
 def bvh_from_jax(jb):
     return tt.flat_bvh_from_numpy(np_(jb.node_min), np_(jb.node_max),
                                   np_(jb.escape), np_(jb.leaf_start),
-                                  np_(jb.prim_idx), jb.leaf_size)
+                                  np_(jb.prim_idx), jb.leaf_size,
+                                  device="cpu")
 
 
 def assert_walk_t_close(t, t_ref, feats, slot, prims, rtol=1e-5):
@@ -77,6 +78,10 @@ def assert_walk_t_close(t, t_ref, feats, slot, prims, rtol=1e-5):
     below ``rtol`` except on grazing rays (disc < 1e-3 * b'^2), where the
     sqrt amplifies it: there t may also differ by the propagated bound
     2^-20 * b'^2 / (a * sqrt(disc)), i.e. 16 ulps of b'^2 through the root.
+    Off the origin, c' = -2 o.c + (|c|^2 - r^2) + |o|^2 and b' = o.d - c.d
+    cancel terms of size |2 o.c| + |o|^2 and |o.d|: 16 ulps of those
+    propagate as 2^-20 * (|2 o.c| + |o|^2) / (2 a sqrt(disc)) +
+    2^-20 * |o.d| / a, which is zero for rays from the origin.
     """
     f = np_(feats).transpose(0, 2, 1, 3).reshape(-1, feats.shape[-1])
     s = np_(slot).reshape(-1)
@@ -88,9 +93,12 @@ def assert_walk_t_close(t, t_ref, feats, slot, prims, rtol=1e-5):
     disc = bp * bp - f[:, 10] * cq
     graze = disc < 1e-3 * bp * bp
     got, want = np_(t).reshape(-1)[hit], np_(t_ref).reshape(-1)[hit]
+    root = np.sqrt(np.maximum(disc, 1e-30))
+    off = np.abs(f[:, 3:6] * q[:, 0:3]).sum(1) + np.abs(f[:, 9])
     tol = rtol * np.abs(want) + np.where(
-        graze, 2.0 ** -20 * bp * bp / (f[:, 10] * np.sqrt(np.maximum(
-            disc, 1e-30))), 0.0)
+        graze, 2.0 ** -20 * bp * bp / (f[:, 10] * root), 0.0) \
+        + 2.0 ** -20 * (off / (2.0 * f[:, 10] * root)
+                        + np.abs(f[:, 8]) / f[:, 10])
     bad = np.abs(got - want) > tol
     assert not bad.any(), (f"{bad.sum()} of {hit.sum()} hits outside "
                            f"tolerance ({graze.sum()} grazing)")
@@ -103,3 +111,32 @@ def entries_to_prims(entries, leaf_size: int) -> np.ndarray:
     C, E = e.shape[:2]
     e = e[..., :leaf_size].reshape(C, E, 2, 4, leaf_size)  # leaf, attr, prim
     return e.transpose(0, 1, 2, 4, 3).reshape(C, E * 2 * leaf_size, 4)
+
+
+def assert_occ_matches(occ, ref, o, d, centers, radii, t_max):
+    """Occlusion flags (R,) against a reference: equal, except rays where
+    some sphere sits within f32 rounding of the accept boundary (a graze,
+    or a hit t within 1e-5 relative of t_max), the flip class
+    tests/test_shadow.py allows; at most max(2, R // 200) of them."""
+    occ, ref = np_(occ).astype(bool), np_(ref).astype(bool)
+    bad = np.nonzero(occ != ref)[0]
+    o = np_(o).astype(np.float64).reshape(-1, 3)
+    d = np_(d).astype(np.float64).reshape(-1, 3)
+    c = np_(centers).astype(np.float64)
+    r = np_(radii).astype(np.float64)
+    tm = np.broadcast_to(np_(t_max).astype(np.float64).reshape(-1),
+                         occ.shape)
+    for i in bad:
+        oc = o[i][None] - c
+        a = float(d[i] @ d[i])
+        bp = oc @ d[i]
+        cq = (oc * oc).sum(1) - r * r
+        disc = bp * bp - a * cq
+        graze = np.abs(disc) <= 4e-7 * np.maximum(bp * bp, np.abs(a * cq))
+        with np.errstate(invalid="ignore"):
+            t = np.where(disc > 0, (-bp - np.sqrt(np.maximum(disc, 0))) / a,
+                         np.inf)
+        near_tmax = np.abs(t - tm[i]) <= 1e-5 * tm[i]
+        assert graze.any() or near_tmax.any(), \
+            f"ray {i}: {occ[i]} vs {ref[i]}, no boundary case"
+    assert len(bad) <= max(2, occ.size // 200), f"{len(bad)} flips"

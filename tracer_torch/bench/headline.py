@@ -7,6 +7,12 @@ rays from the origin with uniform-cube directions; src/benchmark.c:172-223,
 map), phase A (cone_candidates) and the leaf walk, on one CUDA device. The
 reference CPU does 7.85 Mrays/s at this size (results/benchmark_data.txt:3).
 
+Extras, as ``bench.py`` defines them: the shadow query (any-hit over the
+segment (EPSILON, 500) for the same rays, prep with t_max inside the timed
+call; ``shadow_mrays``, ``shadow_occluded_fraction``), and the device LBVH
+(``bvh_build_device_ms``; ``lbvh_e2e_mrays``, the same query on cone tables
+built from the LBVH tree with leaf size 32).
+
 Run ``python -m tracer_torch.bench``: it prints one JSON line and exits
 non-zero on any failure, including the absence of a CUDA device.
 """
@@ -22,10 +28,12 @@ import torch
 
 from tracer_torch.bench.timing import time_cuda
 from tracer_torch.bvh.builder import build_bvh
+from tracer_torch.bvh.device import build_bvh_device
 from tracer_torch.kernels.conecull import (build_cone_tables,
                                            cone_candidates,
                                            kernel_order_dest,
-                                           nearest_hit_hybrid_feats)
+                                           nearest_hit_hybrid_feats,
+                                           occluded_hybrid_feats)
 from tracer_torch.kernels.leafcull import leafcull_call, prep_feats_bucketed
 from tracer_torch.scene.scene import benchmark_scene
 
@@ -40,6 +48,7 @@ CELL_BITS = 9       # direction cells of the bucket pad
 MG, MC = 64, 119    # phase A group / leaf-candidate budgets
 LEAF_SIZE = 32
 SCENE_SEED, RAY_SEED = 1, 0
+SHADOW_T_MAX = 500.0
 
 
 def log(*a):
@@ -56,7 +65,7 @@ def benchmark_inputs(device, n_spheres: int = N_SPHERES, n_rays: int = B,
                             n_spheres, world_size=world, device=device)
     t0 = time.perf_counter()
     bvh = build_bvh(scene.centers, scene.radii, leaf_size=LEAF_SIZE,
-                    backend="native")
+                    backend="native", device=device)
     build_ms = (time.perf_counter() - t0) * 1e3
     tables = build_cone_tables(scene, bvh, **table_args)
     rng = np.random.default_rng(RAY_SEED)
@@ -82,8 +91,22 @@ def query(o, d, tables, max_groups: int = MG, max_candidates: int = MC):
     return t, slot, dest, overflow
 
 
-def measure(tables, o, d, build_ms: float) -> dict:
-    """Time the query and its stages; returns the headline record."""
+def shadow_query(o, d, tables, max_groups: int = MG,
+                 max_candidates: int = MC):
+    """The shadow query: (occ, dest, overflow); ray i is occluded over
+    (EPSILON, SHADOW_T_MAX) when occ[dest[i]] is 1."""
+    tm = torch.full((o.shape[0],), SHADOW_T_MAX, dtype=torch.float32,
+                    device=o.device)
+    feats, dest = prep_feats_bucketed(o, d, S, SP, cell_bits=CELL_BITS,
+                                      t_max=tm)
+    occ, overflow = occluded_hybrid_feats(feats, tables, max_groups,
+                                          max_candidates)
+    return occ, kernel_order_dest(dest, S, SP), overflow
+
+
+def measure(scene, tables, o, d, build_ms: float) -> dict:
+    """Time the query, its stages and the extras; returns the headline
+    record."""
     b = o.shape[0]
     ms = time_cuda(query, o, d, tables)
     t, _, dest, overflow = query(o, d, tables)
@@ -101,6 +124,21 @@ def measure(tables, o, d, build_ms: float) -> dict:
     value = b / (ms * 1e-3) / 1e6
     log(f"query {ms:.3f} ms -> {value:.2f} Mrays/s (prep {prep_ms:.3f}, "
         f"phase A {phase_a_ms:.3f}, kernel {kernel_ms:.3f} ms)")
+
+    shadow_ms = time_cuda(shadow_query, o, d, tables)
+    occ, sdest, s_overflow = shadow_query(o, d, tables)
+    occluded = occ[sdest].float().mean().item()
+    log(f"shadow {shadow_ms:.3f} ms -> {b / shadow_ms / 1e3:.2f} Mrays/s "
+        f"(occluded {occluded:.4f})")
+
+    build_device_ms = time_cuda(build_bvh_device, scene.centers,
+                                scene.radii, LEAF_SIZE)
+    ltables = build_cone_tables(scene, build_bvh_device(
+        scene.centers, scene.radii, leaf_size=LEAF_SIZE))
+    lbvh_ms = time_cuda(query, o, d, ltables)
+    l_overflow = query(o, d, ltables)[3]
+    log(f"device LBVH build {build_device_ms:.3f} ms; query on its tree "
+        f"{lbvh_ms:.3f} ms -> {b / lbvh_ms / 1e3:.2f} Mrays/s")
     return {
         "metric": METRIC,
         "value": value,
@@ -113,6 +151,12 @@ def measure(tables, o, d, build_ms: float) -> dict:
         "phase_a_ms": phase_a_ms,
         "kernel_ms": kernel_ms,
         "bvh_build_ms": build_ms,
+        "shadow_mrays": b / (shadow_ms * 1e-3) / 1e6,
+        "shadow_occluded_fraction": occluded,
+        "shadow_overflow": bool(s_overflow),
+        "bvh_build_device_ms": build_device_ms,
+        "lbvh_e2e_mrays": b / (lbvh_ms * 1e-3) / 1e6,
+        "lbvh_overflow": bool(l_overflow),
         "device": torch.cuda.get_device_name(o.device),
     }
 
@@ -122,10 +166,10 @@ def main() -> int:
         log("tracer_torch.bench needs a CUDA device")
         return 1
     device = torch.device("cuda")
-    _, tables, o, d, build_ms = benchmark_inputs(device)
+    scene, tables, o, d, build_ms = benchmark_inputs(device)
     cull = tables.cull
     log(f"bvh build {build_ms:.1f} ms; tables: {cull.num_chunks} chunk(s), "
         f"{cull.num_real_leaves} leaves, "
         f"{cull.prims.numel() * 4 / 1e6:.1f} MB of prims")
-    print(json.dumps(measure(tables, o, d, build_ms)), flush=True)
+    print(json.dumps(measure(scene, tables, o, d, build_ms)), flush=True)
     return 0

@@ -1,12 +1,13 @@
 """Where the headline query's time goes on the card, by torch.profiler.
 
 Run ``python -m tracer_torch.bench.profile`` on a CUDA machine. For the
-whole query and for each stage (prep, phase A, leaf walk) at the headline
-size it profiles ``ITERS`` back-to-back calls and prints, per call: the
-window's time on CUDA events, the summed device time of its kernels and
-copies, the device's idle share of the window, the number of device
-launches, and the kernels that take the most device time. The last line is
-one JSON object with those numbers. Exits non-zero without a CUDA device.
+whole query, for each stage (prep, phase A, leaf walk) and for the shadow
+query at the headline size it profiles ``ITERS`` back-to-back calls and
+prints, per call: the window's time on CUDA events, the summed device time
+of its kernels and copies, the device's idle share of the window, the
+number of device launches, and the kernels that take the most device time.
+The last line is one JSON object with those numbers. Exits non-zero
+without a CUDA device.
 """
 
 from __future__ import annotations
@@ -73,6 +74,7 @@ def main() -> int:
                     headline.MC),
         "walk": (leafcull_call, feats, rows, cull.prims, cull.leaf_size,
                  cull.leaves_per_chunk, cull.leaves_per_group),
+        "shadow": (headline.shadow_query, o, d, tables),
     }
     out = {"device": torch.cuda.get_device_name(0)}
     for name, (fn, *args) in stages.items():

@@ -18,6 +18,7 @@ import torch
 
 from tracer_torch.bvh import native
 from tracer_torch.bvh.flat import FlatBVH
+from tracer_torch.core.device import default_device
 
 
 def _surface_area(lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
@@ -50,6 +51,8 @@ def build_bvh(centers, radii, leaf_size: int = 4, num_bins: int = 8,
     cannot be built (no g++); "numpy" runs the NumPy builder; "auto" takes
     native when g++ or a built library is there, else NumPy. near_point
     (native only): children are emitted closer-to-this-point first.
+    The tree goes to the CUDA device unless ``device`` names another;
+    without CUDA and without ``device`` this raises before building.
     """
     if backend not in ("auto", "native", "numpy"):
         raise ValueError(f"unknown backend {backend!r}")
@@ -58,6 +61,7 @@ def build_bvh(centers, radii, leaf_size: int = 4, num_bins: int = 8,
     n = len(radii)
     if n == 0:
         raise ValueError("cannot build a BVH over an empty scene")
+    device = default_device(device)
 
     if backend == "native" or (backend == "auto" and native.available()):
         arrays = native.build_bvh_native_arrays(

@@ -34,7 +34,7 @@ def load() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             path, _ = build_shared_library(
-                CXX, ["-O3", "-shared", "-fPIC"], [SOURCE],
+                CXX, ["-O3", "-fPIC"], ["-shared"], [SOURCE],
                 "libtracer_bvh.so", timeout=120)
             lib = ctypes.CDLL(str(path))
             f32p = ctypes.POINTER(ctypes.c_float)

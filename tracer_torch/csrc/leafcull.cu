@@ -1,5 +1,5 @@
 // leafcull_cuda: closest hit of each ray against the prims of its
-// subpacket's candidate leaves.
+// subpacket's candidate leaves, per table chunk.
 //
 // Replaces the TPU kernel tracer/kernels/leafcull.py:_leafcull_kernel
 // (with _leafcull_step), reached through leafcull._leafcull_call. What it
@@ -10,7 +10,8 @@
 //     (cx, cy, cz, |c|^2 - r^2) float4 and the walk reads exactly the
 //     listed leaves;
 //   * the CTA stages a batch of its leaves' prims (512 float4 = 8 KB) in
-//     shared memory, then every thread tests every staged prim;
+//     shared memory, then every thread tests every staged prim
+//     (walk::closest_walk, shared with routed.cu);
 //   * a row count of 0 writes (3e38, 2^30) at once (no work in that chunk);
 //     a negative count is group mode: walk every member leaf of the listed
 //     groups.
@@ -27,15 +28,9 @@
 // exactly like the plain PyTorch version (leafcull_plain), at the cost of
 // the instructions FMA would save -- a trade for a later tuning pass.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "walk.cuh"
 
 namespace {
-
-constexpr float kBig = 3.0e38f;
-constexpr int kNoSlot = 1 << 30;
-constexpr int kFeat = 16;
-constexpr int kStage = 512;   // prims staged per batch (8 KB of float4)
 
 __global__ void leafcull_kernel(const float* __restrict__ feats,
                                 const int32_t* __restrict__ cand,
@@ -44,8 +39,8 @@ __global__ void leafcull_kernel(const float* __restrict__ feats,
                                 int32_t* __restrict__ slot_out,
                                 int G, int S, int SP, int rowlen,
                                 int leaf_size, int lpc, int lpg) {
-  __shared__ float4 s_prim[kStage];
-  __shared__ int32_t s_slot[kStage];
+  __shared__ float4 s_prim[walk::kStage];
+  __shared__ int32_t s_slot[walk::kStage];
 
   const int blk = blockIdx.x;
   const int s = blk % S;
@@ -54,63 +49,11 @@ __global__ void leafcull_kernel(const float* __restrict__ feats,
   const int r = threadIdx.x;
 
   const int32_t* row = cand + ((size_t)(c * G + g) * S + s) * rowlen;
-  const int nc = row[0];
   const size_t out = (((size_t)c * G + g) * SP + r) * S + s;
-  if (nc == 0) {
-    t_out[out] = kBig;
-    slot_out[out] = kNoSlot;
-    return;
-  }
-
-  // Ray features (leafcull._feature_rows): d, -2o, 1, 0, o.d, |o|^2, a,
-  // 1/a, eps*a.
-  const float* f = feats + (((size_t)g * S + s) * SP + r) * kFeat;
-  const float dx = f[0], dy = f[1], dz = f[2];
-  const float nox2 = f[3], noy2 = f[4], noz2 = f[5];
-  const float od = f[8], oo = f[9], av = f[10], inva = f[11], epsa = f[12];
-
-  const int total = nc > 0 ? nc : -nc * lpg;
-  const int leaves_per_stage = kStage / leaf_size;
-  const float4* cprims = prims + (size_t)c * lpc * leaf_size;
+  const float* f = feats + (((size_t)g * S + s) * SP + r) * walk::kFeat;
   const int chunk_slot0 = c * lpc * leaf_size;
-
-  float ub = -kBig;
-  int ib = kNoSlot;
-  for (int j0 = 0; j0 < total; j0 += leaves_per_stage) {
-    const int np = min(leaves_per_stage, total - j0) * leaf_size;
-    for (int i = threadIdx.x; i < np; i += blockDim.x) {
-      const int j = j0 + i / leaf_size;
-      const int leaf = nc > 0 ? row[1 + j] : row[1 + j / lpg] * lpg + j % lpg;
-      const int p = leaf * leaf_size + i % leaf_size;
-      s_prim[i] = cprims[p];
-      s_slot[i] = chunk_slot0 + p;
-    }
-    __syncthreads();
-    for (int i = 0; i < np; ++i) {
-      const float4 q = s_prim[i];
-      const float m1 = __fadd_rn(__fadd_rn(__fmul_rn(dx, q.x),
-                                           __fmul_rn(dy, q.y)),
-                                 __fmul_rn(dz, q.z));          // c.d
-      const float m2 = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(nox2, q.x),
-                                                     __fmul_rn(noy2, q.y)),
-                                           __fmul_rn(noz2, q.z)),
-                                 q.w);                         // -2o.c + ccr
-      const float bp = __fsub_rn(od, m1);                      // oc.d
-      const float cq = __fadd_rn(m2, oo);                      // |oc|^2 - r^2
-      const float disc = __fsub_rn(__fmul_rn(bp, bp), __fmul_rn(av, cq));
-      // t = (-bp - sqrt(disc)) / a = -u / a: the smallest valid t is the
-      // largest u below -eps*a.
-      const float u = __fadd_rn(bp, sqrtf(fmaxf(disc, 0.0f)));
-      const int slot = s_slot[i];
-      if (disc > 0.0f && u < -epsa && (u > ub || (u == ub && slot < ib))) {
-        ub = u;
-        ib = slot;
-      }
-    }
-    __syncthreads();
-  }
-  t_out[out] = ib < kNoSlot ? __fmul_rn(-ub, inva) : kBig;
-  slot_out[out] = ib;
+  walk::closest_walk(row, f, prims + chunk_slot0, chunk_slot0, leaf_size,
+                     lpg, s_prim, s_slot, t_out + out, slot_out + out);
 }
 
 }  // namespace

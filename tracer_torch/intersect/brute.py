@@ -1,4 +1,4 @@
-"""Brute-force closest hit over all spheres: the correctness oracle.
+"""Brute-force closest hit and occlusion over all spheres: the oracles.
 
 PyTorch counterpart of ``tracer/intersect/brute.py`` (the ``bvh == NULL``
 path of the reference's ``trace_ray``, src/renderer.c:36-44). Ties break to
@@ -32,6 +32,29 @@ def nearest_hit_brute(rays: Ray, scene: Scene) -> HitRecord:
     flat = Ray(origin=o[:, 0, :], direction=d[:, 0, :])
     rec = hit_record_from_t(flat, t_best, idx.to(torch.int32), scene.centers)
     return rec.reshape(batch_shape)
+
+
+def any_hit_brute(rays: Ray, scene: Scene, t_max,
+                  block: int = 8192) -> Tensor:
+    """Occlusion oracle: True where ANY sphere blocks (EPSILON, t_max).
+
+    "A closest hit would exist with t < t_max" under the reference
+    acceptance rule (src/hit.c:19-39), dense O(B*N) over ``block``-ray
+    slices. t_max is a scalar or one value per ray.
+    """
+    o = rays.origin.reshape(-1, 1, 3)
+    d = rays.direction.reshape(-1, 1, 3)
+    tm = torch.as_tensor(t_max, dtype=torch.float32, device=o.device)
+    tm = tm.reshape(-1, 1).expand(o.shape[0], 1)
+    occ = [torch.any(ray_sphere_t(o[i:i + block], d[i:i + block],
+                                  scene.centers[None, :, :],
+                                  scene.radii[None, :]) < tm[i:i + block],
+                     dim=-1)
+           for i in range(0, o.shape[0], block)]
+    if not occ:
+        return torch.zeros(rays.batch_shape, dtype=torch.bool,
+                           device=o.device)
+    return torch.cat(occ).reshape(rays.batch_shape)
 
 
 def brute_t_fast(o: Tensor, d: Tensor, centers: Tensor, radii: Tensor,

@@ -1,6 +1,7 @@
 """Builds and loads the hand-written CUDA kernels under ``tracer_torch/csrc``.
 
-The sources are compiled with nvcc for Hopper (``sm_90a``) into one shared
+Each source is compiled with nvcc for Hopper (``sm_90a``), one nvcc process
+per source, all started together, and the objects are linked into one shared
 library with a plain C interface, ``build/tracer_torch/libtracer_torch_cuda.so``,
 on first use, and loaded with ctypes. Pointers and the CUDA stream go in as
 ``c_void_p``; every entry point returns ``cudaGetLastError()`` after its
@@ -23,7 +24,7 @@ from tracer_torch._build import build_shared_library
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 LIB_NAME = "libtracer_torch_cuda.so"
 
 _lock = threading.Lock()
@@ -48,7 +49,8 @@ def load() -> ctypes.CDLL:
         if _lib is None:
             t0 = time.perf_counter()
             path, build_log = build_shared_library(
-                nvcc(), NVCC_FLAGS, sorted(CSRC.glob("*.cu")), LIB_NAME)
+                nvcc(), NVCC_FLAGS, ["-shared"], sorted(CSRC.glob("*.cu")),
+                LIB_NAME, depends=sorted(CSRC.glob("*.cuh")))
             build_seconds = time.perf_counter() - t0
             lib = ctypes.CDLL(str(path))
             vp, i = ctypes.c_void_p, ctypes.c_int
@@ -56,6 +58,10 @@ def load() -> ctypes.CDLL:
             lib.tracer_leafcull.argtypes = [vp] * 5 + [i] * 8 + [vp]
             lib.tracer_compact_rows.restype = i
             lib.tracer_compact_rows.argtypes = [vp] * 3 + [i] * 4 + [vp]
+            lib.tracer_anyhit.restype = i
+            lib.tracer_anyhit.argtypes = [vp] * 4 + [i] * 8 + [vp]
+            lib.tracer_routed.restype = i
+            lib.tracer_routed.argtypes = [vp] * 7 + [i] * 7 + [vp]
             lib.tracer_cuda_error_string.restype = ctypes.c_char_p
             lib.tracer_cuda_error_string.argtypes = [i]
             _lib = lib

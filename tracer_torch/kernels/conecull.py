@@ -1,4 +1,5 @@
-"""Phase A of the closest-hit query, the row compactor and the hybrid query.
+"""Phase A of the queries, the row compactor, and the hybrid closest-hit
+and any-hit (shadow) queries.
 
 PyTorch counterpart of the shipped half of ``tracer/kernels/conecull.py``:
 per-subpacket interval bounds from the feature planes, slab tests against
@@ -26,9 +27,9 @@ from tracer_torch.bvh.flat import FlatBVH
 from tracer_torch.core.types import Ray
 from tracer_torch.intersect.sphere import EPSILON
 from tracer_torch.kernels import _lib
-from tracer_torch.kernels.leafcull import (CullTables, build_cull_tables,
-                                           leafcull_call, pack_ray_features,
-                                           _NOSLOT)
+from tracer_torch.kernels.leafcull import (CullTables, anyhit_call,
+                                           build_cull_tables, leafcull_call,
+                                           pack_ray_features, _NOSLOT)
 from tracer_torch.scene.scene import Scene
 
 # Row and prefix widths are rounded to this many ids exactly as in the JAX
@@ -342,6 +343,25 @@ def nearest_hit_hybrid_feats(feats: Tensor, tables: ConeTables,
     t = torch.where(hit, t_k.reshape(-1),
                     torch.full_like(t_k.reshape(-1), float("inf")))
     return t, torch.where(hit, slot, torch.full_like(slot, -1)), overflow
+
+
+def occluded_hybrid_feats(feats: Tensor, tables: ConeTables,
+                          max_groups: int = 64, max_candidates: int = 119):
+    """Any-hit (shadow) query from prebuilt feature planes, in raw order.
+
+    feats must be packed with a finite t_max (``prep_feats_bucketed`` /
+    ``pack_ray_features`` with ``t_max=``). Returns (occluded (G*SP*S,) i32,
+    1 where a sphere blocks the segment (EPSILON, t_max); overflow 0-d bool
+    tensor). Index with ``kernel_order_dest`` for ray order.
+    """
+    cull = tables.cull
+    g, S, _, _ = feats.shape
+    rows, _, overflow = cone_candidates(feats, tables, max_groups,
+                                        max_candidates)
+    rows = rows.reshape(cull.num_chunks, g, S, rows.shape[-1])
+    occ = anyhit_call(feats, rows, cull.prims, cull.leaf_size,
+                      cull.leaves_per_chunk, cull.leaves_per_group)
+    return occ.reshape(-1), overflow
 
 
 def nearest_hit_hybrid_raw(rays: Ray, tables: ConeTables,

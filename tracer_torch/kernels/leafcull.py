@@ -1,13 +1,17 @@
-"""Leaf-granular cull: tables, ray features and the closest-hit leaf walk.
+"""Leaf-granular cull: tables, ray features and the leaf walks.
 
 PyTorch counterpart of ``tracer/kernels/leafcull.py`` for the closest-hit
-query. A subpacket of SP direction-sorted rays gets a count-embedded row of
-candidate leaves from phase A (``conecull.cone_candidates``); the leaf walk
-tests each ray against every prim of those leaves and keeps the nearest hit.
+and any-hit (shadow) queries. A subpacket of SP direction-sorted rays gets
+a count-embedded row of candidate leaves from phase A
+(``conecull.cone_candidates``); the closest-hit walk tests each ray against
+every prim of those leaves and keeps the nearest hit, the any-hit walk asks
+whether any of them blocks the segment (EPSILON, t_max).
 
-The walk is ``leafcull_cuda`` (hand-written CUDA, ``csrc/leafcull.cu``) on
-CUDA tensors and ``leafcull_plain`` (plain PyTorch, same contract) on CPU
-tensors; :func:`leafcull_call` picks by device and raises for any other.
+Each walk is a hand-written CUDA kernel on CUDA tensors (``leafcull_cuda``,
+``csrc/leafcull.cu``; ``anyhit_cuda``, ``csrc/anyhit.cu``) and a plain
+PyTorch version with the same contract on CPU tensors (``leafcull_plain``,
+``anyhit_plain``); :func:`leafcull_call` and :func:`anyhit_call` pick by
+device and raise for any other.
 
 Number semantics follow the reference acceptance rule (disc > 0, near root
 only, t > EPSILON; src/hit.c:19-39) in f32, in the kernels' u-form.
@@ -250,6 +254,96 @@ def _sqrt_rn(x: Tensor) -> Tensor:
     return torch.sqrt(x.double()).float()
 
 
+def _walk_pairs(rows: Tensor, leaves_per_group: int):
+    """Every (row, leaf) pair a walk visits, in walk order.
+
+    rows (Q, rowlen) count-embedded (count > 0: leaf ids; count < 0:
+    -count group ids whose member leaves are all walked; 0: nothing).
+    Returns (q, leaf), each (n,) int64: the row and its relative leaf id.
+    A host sync sizes the list.
+    """
+    lpg = leaves_per_group
+    rows = rows.long()
+    nc = rows[:, 0]
+    total = torch.where(nc > 0, nc, -nc * lpg)
+    q = torch.repeat_interleave(torch.arange(rows.shape[0],
+                                             device=rows.device), total)
+    j = torch.arange(q.shape[0], device=rows.device) \
+        - (torch.cumsum(total, 0) - total)[q]
+    grp = nc[q] < 0
+    entry = rows[q, torch.where(grp, 1 + j // lpg, 1 + j)]
+    return q, torch.where(grp, entry * lpg + j % lpg, entry)
+
+
+def _pair_slices(f: Tensor, fidx: Tensor, chunk: Tensor, rows: Tensor,
+                 prims: Tensor, leaf_size: int, leaves_per_group: int,
+                 pair_elems: int):
+    """The (ray, prim) tests of every walked pair, in slices.
+
+    f (R, SP, FEAT) feature rows; rows (Q, rowlen) candidate rows, row q
+    walking chunk ``chunk[q]`` for feature row ``fidx[q]``. Yields
+    (q, fb, u, disc, gslot) per slice of at most ``pair_elems`` (pair, ray,
+    prim) elements: q (n,), fb (n, SP, FEAT), u and disc (n, SP, ls) in
+    the kernels' rounding, gslot (n, ls) global prim slots.
+    """
+    ls = leaf_size
+    SP = f.shape[1]
+    spc = prims.shape[1]
+    q_all, leaf_all = _walk_pairs(rows, leaves_per_group)
+    lane = torch.arange(ls, device=f.device)
+    step = max(1, pair_elems // (SP * ls))
+    for i in range(0, q_all.shape[0], step):
+        q = q_all[i:i + step]
+        c = chunk[q]
+        fb = f[fidx[q]]                                  # (n, SP, FEAT)
+        pslot = leaf_all[i:i + step, None] * ls + lane   # (n, ls)
+        pr = prims[c[:, None], pslot]                    # (n, ls, 4)
+        cx, cy, cz, ccr = (pr[:, None, :, k] for k in range(4))
+        dx, dy, dz = fb[:, :, 0:1], fb[:, :, 1:2], fb[:, :, 2:3]
+        nox2, noy2, noz2 = fb[:, :, 3:4], fb[:, :, 4:5], fb[:, :, 5:6]
+        od, oo, av = fb[:, :, 8:9], fb[:, :, 9:10], fb[:, :, 10:11]
+        m1 = dx * cx + dy * cy + dz * cz                 # c.d
+        m2 = nox2 * cx + noy2 * cy + noz2 * cz + ccr     # -2 o.c + ccr
+        bp = od - m1                                     # oc.d
+        cq = m2 + oo                                     # |oc|^2 - r^2
+        disc = bp * bp - av * cq
+        u = bp + _sqrt_rn(torch.clamp(disc, min=0.0))
+        yield q, fb, u, disc, c[:, None] * spc + pslot
+
+
+def closest_rows_plain(f: Tensor, fidx: Tensor, chunk: Tensor, rows: Tensor,
+                       prims: Tensor, leaf_size: int, leaves_per_group: int,
+                       pair_elems: int = 1 << 24):
+    """The closest-hit walk of every row (see :func:`_pair_slices`):
+    (t, slot), each (Q, SP): the largest u (smallest t = -u/a) over the
+    walked prims, lowest global slot on ties; (3e38, 2^30) where nothing
+    hits. Per slice, each pair's best is merged into the rows' bests by max
+    u, then min slot among equal u."""
+    Q, SP = rows.shape[0], f.shape[1]
+    dev = f.device
+    best_u = torch.full((Q, SP), -_BIG, dtype=torch.float32, device=dev)
+    best_slot = torch.full((Q, SP), _NOSLOT, dtype=torch.int64, device=dev)
+    for q, fb, u, disc, gslot in _pair_slices(
+            f, fidx, chunk, rows, prims, leaf_size, leaves_per_group,
+            pair_elems):
+        ok = (disc > 0.0) & (u < -fb[:, :, 12:13])
+        uv = torch.where(ok, u, torch.full_like(u, -_BIG))
+        pu, arg = torch.max(uv, dim=2)                   # first max: low slot
+        pslot = torch.where(pu > -_BIG, torch.gather(gslot, 1, arg),
+                            torch.full_like(arg, _NOSLOT))
+        qi = q[:, None].expand(-1, SP)
+        before = best_u.clone()
+        best_u.scatter_reduce_(0, qi, pu, "amax")
+        best_slot.masked_fill_(best_u > before, _NOSLOT)  # a better u came
+        cand = torch.where(pu == best_u[q], pslot,
+                           torch.full_like(pslot, _NOSLOT))
+        best_slot.scatter_reduce_(0, qi, cand, "amin")
+    hit = best_slot < _NOSLOT
+    t = torch.where(hit, -best_u * f[:, :, 11][fidx],
+                    torch.full_like(best_u, _BIG))
+    return t, best_slot.to(torch.int32)
+
+
 def leafcull_plain(feats: Tensor, cand: Tensor, prims: Tensor,
                    leaf_size: int, leaves_per_chunk: int,
                    leaves_per_group: int, pair_elems: int = 1 << 24):
@@ -262,74 +356,19 @@ def leafcull_plain(feats: Tensor, cand: Tensor, prims: Tensor,
     the largest u (smallest t) over the walked prims, lowest global slot on
     ties; (3e38, 2^30) where nothing hits.
 
-    Every (subpacket, leaf) pair is enumerated (a host sync sizes the list),
-    tested in slices of ``pair_elems`` (pair, ray, prim) elements, and the
-    per-pair bests are reduced per ray by max u, then min slot.
+    Every (subpacket, leaf) pair is enumerated (a host sync sizes the list)
+    and tested in slices of ``pair_elems`` (pair, ray, prim) elements.
     """
     _check_walk_args(feats, cand, prims, leaf_size, leaves_per_chunk)
     G, S, SP, _ = feats.shape
     C, _, _, rowlen = cand.shape
-    ls, lpc, lpg = leaf_size, leaves_per_chunk, leaves_per_group
-    dev = feats.device
-    Q = C * G * S
-
-    rows = cand.reshape(Q, rowlen).long()
-    nc = rows[:, 0]
-    total = torch.where(nc > 0, nc, -nc * lpg)
-    q = torch.repeat_interleave(torch.arange(Q, device=dev), total)
-    n_pairs = q.shape[0]
-    j = torch.arange(n_pairs, device=dev) - (torch.cumsum(total, 0)
-                                             - total)[q]
-    grp = nc[q] < 0
-    entry = rows[q, torch.where(grp, 1 + j // lpg, 1 + j)]
-    leaf = torch.where(grp, entry * lpg + j % lpg, entry)
-    chunk = q // (G * S)
-    fidx = q % (G * S)                                   # g * S + s
-    f = feats.reshape(G * S, SP, FEAT)
-    lane = torch.arange(ls, device=dev)
-
-    pair_u = torch.empty((n_pairs, SP), dtype=torch.float32, device=dev)
-    pair_slot = torch.empty((n_pairs, SP), dtype=torch.int64, device=dev)
-    step = max(1, pair_elems // (SP * ls))
-    for i in range(0, n_pairs, step):
-        sl = slice(i, i + step)
-        fb = f[fidx[sl]]                                 # (n, SP, FEAT)
-        pslot = leaf[sl, None] * ls + lane               # (n, ls)
-        pr = prims[chunk[sl, None], pslot]               # (n, ls, 4)
-        cx, cy, cz, ccr = (pr[:, None, :, k] for k in range(4))
-        dx, dy, dz = fb[:, :, 0:1], fb[:, :, 1:2], fb[:, :, 2:3]
-        nox2, noy2, noz2 = fb[:, :, 3:4], fb[:, :, 4:5], fb[:, :, 5:6]
-        od, oo, av, epsa = (fb[:, :, 8:9], fb[:, :, 9:10], fb[:, :, 10:11],
-                            fb[:, :, 12:13])
-        m1 = dx * cx + dy * cy + dz * cz                 # c.d
-        m2 = nox2 * cx + noy2 * cy + noz2 * cz + ccr     # -2 o.c + ccr
-        bp = od - m1                                     # oc.d
-        cq = m2 + oo                                     # |oc|^2 - r^2
-        disc = bp * bp - av * cq
-        u = bp + _sqrt_rn(torch.clamp(disc, min=0.0))
-        ok = (disc > 0.0) & (u < -epsa)
-        uv = torch.where(ok, u, torch.full_like(u, -_BIG))
-        ub, arg = torch.max(uv, dim=2)                   # first max: low slot
-        gslot = chunk[sl, None] * (lpc * ls) + pslot     # (n, ls)
-        pair_u[sl] = ub
-        pair_slot[sl] = torch.where(ub > -_BIG, torch.gather(gslot, 1, arg),
-                                    torch.full_like(arg, _NOSLOT))
-
-    qi = q[:, None].expand(-1, SP)
-    best_u = torch.full((Q, SP), -_BIG, dtype=torch.float32, device=dev)
-    best_u.scatter_reduce_(0, qi, pair_u, "amax")
-    cand_slot = torch.where(pair_u == best_u[q], pair_slot,
-                            torch.full_like(pair_slot, _NOSLOT))
-    best_slot = torch.full((Q, SP), _NOSLOT, dtype=torch.int64, device=dev)
-    best_slot.scatter_reduce_(0, qi, cand_slot, "amin")
-
-    inva = f[:, :, 11].repeat(C, 1)                      # (Q, SP)
-    hit = best_slot < _NOSLOT
-    t = torch.where(hit, -best_u * inva, torch.full_like(best_u, _BIG))
-    t = t.reshape(C, G, S, SP).permute(0, 1, 3, 2).contiguous()
-    slot = best_slot.to(torch.int32).reshape(C, G, S, SP) \
-        .permute(0, 1, 3, 2).contiguous()
-    return t, slot
+    q = torch.arange(C * G * S, device=feats.device)
+    t, slot = closest_rows_plain(
+        feats.reshape(G * S, SP, FEAT), q % (G * S), q // (G * S),
+        cand.reshape(-1, rowlen), prims, leaf_size, leaves_per_group,
+        pair_elems)
+    return (t.reshape(C, G, S, SP).permute(0, 1, 3, 2).contiguous(),
+            slot.reshape(C, G, S, SP).permute(0, 1, 3, 2).contiguous())
 
 
 def leafcull_cuda(feats: Tensor, cand: Tensor, prims: Tensor,
@@ -383,3 +422,95 @@ def leafcull_call(feats: Tensor, cand: Tensor, prims: Tensor,
     tm = torch.where(slot_c < _NOSLOT, t_c, torch.full_like(t_c, _BIG))
     ci = torch.argmin(tm, dim=0, keepdim=True)           # first minimum
     return (torch.gather(t_c, 0, ci)[0], torch.gather(slot_c, 0, ci)[0])
+
+
+# ---------------------------------------------------------------------------
+# The any-hit (shadow) walk
+# ---------------------------------------------------------------------------
+
+def anyhit_pairs(feats: Tensor, cand: Tensor, prims: Tensor, leaf_size: int,
+                 leaves_per_chunk: int, leaves_per_group: int,
+                 pair_elems: int = 1 << 24):
+    """Occlusion by each walked (row, leaf) pair: (q (n,) int64 rows of the
+    flattened (C, G, S) row grid, in walk order; occ (n, SP) bool). A pair
+    occludes a ray when one of its prims gives disc > 0, u < -eps*a and
+    u > -a*t_max (feature column 13)."""
+    _check_walk_args(feats, cand, prims, leaf_size, leaves_per_chunk)
+    G, S, SP, _ = feats.shape
+    C, _, _, rowlen = cand.shape
+    rq = torch.arange(C * G * S, device=feats.device)
+    qs, occs = [], []
+    for q, fb, u, disc, _ in _pair_slices(
+            feats.reshape(G * S, SP, FEAT), rq % (G * S), rq // (G * S),
+            cand.reshape(-1, rowlen), prims, leaf_size, leaves_per_group,
+            pair_elems):
+        ok = (disc > 0.0) & (u < -fb[:, :, 12:13]) & (u > fb[:, :, 13:14])
+        qs.append(q)
+        occs.append(ok.any(dim=2))
+    if not qs:
+        return (torch.zeros(0, dtype=torch.int64, device=feats.device),
+                torch.zeros((0, SP), dtype=torch.bool, device=feats.device))
+    return torch.cat(qs), torch.cat(occs)
+
+
+def anyhit_plain(feats: Tensor, cand: Tensor, prims: Tensor, leaf_size: int,
+                 leaves_per_chunk: int, leaves_per_group: int,
+                 pair_elems: int = 1 << 24) -> Tensor:
+    """Plain PyTorch any-hit walk: the contract of ``anyhit_cuda``.
+
+    feats (G, S, SP, FEAT) f32 packed with a finite t_max; cand
+    (C, G, S, rowlen) i32 count-embedded rows as for :func:`leafcull_plain`;
+    prims (C, lpc*leaf_size, 4). Returns occ (G, SP, S) i32: 1 where any
+    walked prim of any chunk occludes the ray (see :func:`anyhit_pairs`).
+    It walks every listed leaf: the kernel's early exit changes no flag.
+    """
+    G, S, SP, _ = feats.shape
+    C = cand.shape[0]
+    q, occ = anyhit_pairs(feats, cand, prims, leaf_size, leaves_per_chunk,
+                          leaves_per_group, pair_elems)
+    rows = torch.zeros((C * G * S, SP), dtype=torch.int32,
+                       device=feats.device)
+    rows.index_put_((q,), occ.to(torch.int32), accumulate=True)
+    occ_rows = (rows > 0).reshape(C, G, S, SP).any(dim=0)   # OR over chunks
+    return occ_rows.permute(0, 2, 1).to(torch.int32).contiguous()
+
+
+def anyhit_cuda(feats: Tensor, cand: Tensor, prims: Tensor, leaf_size: int,
+                leaves_per_chunk: int, leaves_per_group: int) -> Tensor:
+    """The any-hit walk as the hand-written CUDA kernel (``csrc/anyhit.cu``).
+
+    Same arguments and (G, SP, S) i32 output as :func:`anyhit_plain`.
+    Raises for tensors that are not on one CUDA device. Adds one to
+    ``anyhit_cuda.launches`` per launch.
+    """
+    dev = _lib.require_cuda("anyhit_cuda", feats, cand, prims)
+    _check_walk_args(feats, cand, prims, leaf_size, leaves_per_chunk)
+    G, S, SP, _ = feats.shape
+    C, _, _, rowlen = cand.shape
+    if not 1 <= SP <= 1024:
+        raise ValueError(f"subpacket {SP} is not a valid CTA size")
+    feats, cand, prims = (x.contiguous() for x in (feats, cand, prims))
+    occ = torch.zeros((G, SP, S), dtype=torch.int32, device=dev)
+    lib = _lib.load()
+    with torch.cuda.device(dev):
+        rc = lib.tracer_anyhit(
+            _lib.ptr(feats), _lib.ptr(cand), _lib.ptr(prims), _lib.ptr(occ),
+            C, G, S, SP, rowlen, leaf_size, leaves_per_chunk,
+            leaves_per_group, _lib.stream(dev))
+    _lib.check(lib, rc, "anyhit_cuda")
+    anyhit_cuda.launches += 1
+    return occ
+
+
+anyhit_cuda.launches = 0
+
+
+def anyhit_call(feats: Tensor, cand: Tensor, prims: Tensor, leaf_size: int,
+                leaves_per_chunk: int, leaves_per_group: int) -> Tensor:
+    """Occlusion per ray over its subpacket's candidate rows, ORed over
+    chunks: (G, SP, S) i32, ray g*S*SP + s*SP + r at [g, r, s]. CPU tensors
+    run :func:`anyhit_plain`; anything else goes to :func:`anyhit_cuda`,
+    which launches the kernel or raises."""
+    walk = anyhit_plain if feats.device.type == "cpu" else anyhit_cuda
+    return walk(feats, cand, prims, leaf_size, leaves_per_chunk,
+                leaves_per_group)

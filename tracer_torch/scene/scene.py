@@ -8,6 +8,9 @@ The factories take an explicit ``torch.Generator``. They draw from the same
 distributions as the JAX factories but cannot reproduce ``jax.random``'s
 stream: tests that compare the two packages build one scene as numpy arrays
 and hand it to both (``tracer_torch.interop.scene_from_numpy``).
+
+Every factory puts its tensors on the CUDA device unless ``device`` names
+another, and raises without CUDA when it is not given.
 """
 
 from __future__ import annotations
@@ -16,6 +19,8 @@ from dataclasses import dataclass
 
 import torch
 from torch import Tensor
+
+from tracer_torch.core.device import default_device
 
 
 @dataclass
@@ -39,6 +44,7 @@ class Scene:
 def fixed_scene(centers, radii, albedo=None, device=None) -> Scene:
     """Scene from explicit arrays; reference ``create_sphere``
     (src/sphere.c:43-50), which zero-initializes color."""
+    device = default_device(device)
     centers = torch.as_tensor(centers, dtype=torch.float32,
                               device=device).reshape(-1, 3)
     radii = torch.as_tensor(radii, dtype=torch.float32,
@@ -61,6 +67,7 @@ def random_scene(generator: torch.Generator, n: int = 20,
     """The interactive-mode scene (src/sphere.c:52-59, src/main.c:18,218-221):
     center x in [-40,40], y in [-20,20], z in [-10,5]; radius in [0.5,5];
     albedo uniform. Drawn on the CPU from ``generator``, then moved."""
+    device = default_device(device)
     lo = torch.tensor([-40.0, -20.0, -10.0])
     hi = torch.tensor([40.0, 20.0, 5.0])
     centers = _uniform(generator, (n, 3), lo, hi)
@@ -76,6 +83,7 @@ def benchmark_scene(generator: torch.Generator, n: int,
     """The benchmark sweep's scene: n spheres of fixed radius uniform in a
     centered cube of side ``world_size`` (src/benchmark.c:306-314,
     src/sphere.c:34-41). Drawn on the CPU from ``generator``, then moved."""
+    device = default_device(device)
     half = world_size / 2.0
     centers = _uniform(generator, (n, 3), -half, half)
     radii = torch.full((n,), radius, dtype=torch.float32)
