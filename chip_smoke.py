@@ -32,16 +32,31 @@ Phases, each of which raises on failure (the script then exits non-zero):
    merge, counters reset and read the same way; overflow, slots equal to
    the dense multi-chunk query on every ray, agreement with brute force on
    the first 4096 rays; kernel vs plain on its rows;
-7. the headline measurement (``tracer_torch.bench``, with its shadow and
+7. the render slice at full size: 100k spheres in the 1000-unit world,
+   the default camera, 800x600, through ``tracer_torch.cli``'s own code
+   path, in path mode (depth 5) and direct mode, both with compaction,
+   each with ``--impl auto``, ``pallas`` and ``tilecull`` on one shared
+   noise tensor; counters reset before the six frames and read after; the
+   images held against each other and the primary ids against brute
+   force; ``traverse_cuda`` and ``tilecull_cuda`` held against their plain
+   versions on the frame's primary rays; one metrics JSON line per
+   (mode, impl);
+8. the headline measurement (``tracer_torch.bench``, with its shadow and
    LBVH extras) and the large-scene measurement
    (``tracer_torch.bench.large``), one JSON line each;
-8. one JSON line of per-kernel results, then the final status line.
+9. one JSON line of per-kernel results, then the final status line.
+
+Phase 3 also holds ``traverse_cuda`` and ``tilecull_cuda`` against their
+plain versions at 20k spheres x 64k rays: a ragged tail, a 2-D batch
+through the wrappers, a tile budget of one (overflowing rows) and rows that
+list the sentinel tile; t, slots and steps must be equal exactly.
 
 Closest-hit disagreements with an oracle are allowed only as ties (both t
 within 1e-5 relative) or grazes (for the prim one side chose, the
 quadratic's discriminant is within 1e-5 * b'^2 of 0), on at most 0.01% of
-rays; occlusion disagreements only as grazes or a hit t within 1e-5 of
-t_max, on at most 0.01% of rays (0.5% against ``any_hit_brute``, whose
+rays (against an oracle that rounds the quadratic another way, on rays off
+the origin, see MIN_AGREE_OTHER_ROUNDING); occlusion disagreements only as
+grazes or a hit t within 1e-5 of t_max, on at most 0.01% of rays (0.5% against ``any_hit_brute``, whose
 reference quadratic rounds differently, see MIN_AGREE_REFERENCE). Every
 kernel equals its plain version
 exactly (the closest-hit walks allow the same tie and graze classes, and
@@ -53,6 +68,11 @@ once, each output written once) over 3.35 TB/s and its operations over
 operations per (ray, prim) test, counted over the tests this run's rows
 need (for the any-hit walk, up to the leaf where every ray of the
 subpacket is occluded), and for the compactor 3 32-bit operations per id.
+The packet walk counts 25 operations per (ray, node) slab test over the
+nodes each packet visited (steps x 1024) and 25 per b-form (ray, prim)
+test over the leaves it tested (leaf visits x leaf size x 1024); the tile
+walk 20 per (ray, prim) test over the listed tiles (sum of counts x 128 x
+128).
 """
 
 import json
@@ -78,7 +98,23 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 OPS_PER_TEST = 19       # fp32 operations of one (ray, prim) test
 OPS_PER_ID = 3          # compactor: compare, scan add, store index
+OPS_PER_SLAB = 25       # packet walk: one (ray, node) slab test
+OPS_PER_BFORM = 25      # packet walk: one b-form (ray, prim) test
+OPS_PER_TILE_TEST = OPS_PER_TEST + 1    # tile walk: u-form plus t = -u/a
 PLAIN_ELEMS = 1 << 26   # slice size of the plain walks on the card
+# The packet walk keeps the JAX kernel's b-form quadratic, the leaf and
+# tile walks (and brute_t_fast) the u-form. At 100k spheres of r = 0.5 in a
+# 1000-unit world, seen from the default camera at (0, 4, 50), the
+# discriminant cancels terms of size |c|^2 ~ 1e5 down to r^2 = 0.25, so the
+# two roundings disagree on the sign of disc for a few tenths of a percent
+# of primary rays (46 of 20,000 in a numpy f32 model of this frame), every
+# one at a graze. Agreement between such differently rounded results is
+# held to this share; each path is also held at MIN_AGREE against an oracle
+# with its own rounding.
+MIN_AGREE_OTHER_ROUNDING = 0.99
+WALK_SPHERES, WALK_RAYS = 20_000, 65_536   # packet and tile walk settings
+RENDER_FRAMES = 3       # timed frames per (mode, impl); the first dropped
+PIXEL_ATOL = 1e-5       # two renders of a pixel agree within this
 
 
 def log(*a):
@@ -104,7 +140,8 @@ def classify(o, d, c, ccr, ta, tb, chosen_a, chosen_b):
     return int(tie.sum()), int((graze & ~tie).sum()), int((~(tie | graze)).sum())
 
 
-def check_choices(name, o, d, prim_of, ta, sa, tb, sb, miss):
+def check_choices(name, o, d, prim_of, ta, sa, tb, sb, miss,
+                  min_agree=MIN_AGREE):
     """Hold two closest-hit results against each other; returns the max
     abs t difference where both chose the same prim. ``prim_of(s)`` maps
     choices to (centers, ccr); ``miss`` is the no-hit choice value."""
@@ -122,7 +159,7 @@ def check_choices(name, o, d, prim_of, ta, sa, tb, sb, miss):
     log(f"{name}: {sa.numel()} rays, {int(hit.sum())} same hits, "
         f"slots agree on {agree:.6f}, max t rel err {rel:.3g}; "
         f"mismatches: {ties} tie(s), {grazes} graze(s), {other} other")
-    if agree < MIN_AGREE or other or rel > T_RTOL:
+    if agree < min_agree or other or rel > T_RTOL:
         raise AssertionError(f"{name}: kernel and reference disagree")
     return terr.max().item() if hit.any() else 0.0
 
@@ -315,6 +352,331 @@ def walk_bound(name, feats, rows, cull, leaves, out_bytes, extra=()):
     return bound(n_bytes, tests * OPS_PER_TEST)
 
 
+def traverse_bound(name, rays, packed, steps, leaves):
+    """Bound of a packet walk: steps x 1024 slab tests and leaf visits x
+    leaf size x 1024 quadratic tests, for the steps and leaves the plain
+    version counted on the same inputs."""
+    from tracer_torch.kernels.traverse import PACKET
+    slabs = int(steps.sum()) * PACKET
+    quads = int(leaves.sum()) * packed.leaf_size * PACKET
+    n_bytes = nbytes(rays, packed.nodes, packed.links, packed.prims, steps) \
+        + rays.shape[0] * PACKET * 8
+    log(f"{name}: {slabs} slab tests, {quads} quadratic tests, "
+        f"{n_bytes} bytes")
+    return bound(n_bytes, slabs * OPS_PER_SLAB + quads * OPS_PER_BFORM)
+
+
+def tilecull_bound(name, feats, cand, prims):
+    """Bound of a tile walk: sum of counts x 128 x 128 tests."""
+    from tracer_torch.kernels.tilecull import SUBPACKET
+    tests = int(cand[..., 0].sum()) * SUBPACKET * 128
+    n_bytes = nbytes(feats, cand, prims) + feats[..., 0].numel() * 8
+    log(f"{name}: {tests} (ray, prim) tests, {n_bytes} bytes")
+    return bound(n_bytes, tests * OPS_PER_TILE_TEST)
+
+
+def compare_traverse(name, rays, packed):
+    """traverse_cuda vs traverse_plain: t, slots and steps equal exactly.
+    Returns the plain version's (steps, leaf visits)."""
+    import torch
+    from tracer_torch.kernels.traverse import traverse_cuda, traverse_plain
+    tk, sk, stk = traverse_cuda(rays, packed)
+    tp, sp, stp, leaves = traverse_plain(rays, packed, leaf_visits=True)
+    torch.cuda.synchronize()
+    if not (torch.equal(sk, sp) and torch.equal(tk, tp)
+            and torch.equal(stk, stp)):
+        raise AssertionError(f"{name}: traverse_cuda != plain on "
+                             f"{int((sk != sp).sum())} slot(s), "
+                             f"{int((tk != tp).sum())} t value(s), "
+                             f"{int((stk != stp).sum())} step count(s)")
+    log(f"{name}: {rays.shape[0]} packets, {int((sk >= 0).sum())} hits, "
+        f"steps {int(stp.min())}-{int(stp.max())} (sum {int(stp.sum())}), "
+        f"{int(leaves.sum())} leaf visits; t, slots, steps equal bit for "
+        f"bit")
+    return stp, leaves
+
+
+def compare_tilecull(name, feats, cand, prims):
+    """tilecull_cuda vs tilecull_plain: t and slots equal exactly."""
+    import torch
+    from tracer_torch.kernels.tilecull import tilecull_cuda, tilecull_plain
+    tk, sk = tilecull_cuda(feats, cand, prims)
+    tp, sp = tilecull_plain(feats, cand, prims, pair_elems=PLAIN_ELEMS)
+    torch.cuda.synchronize()
+    if not (torch.equal(sk, sp) and torch.equal(tk, tp)):
+        raise AssertionError(f"{name}: tilecull_cuda != plain on "
+                             f"{int((sk != sp).sum())} slot(s), "
+                             f"{int((tk != tp).sum())} t value(s)")
+    log(f"{name}: {feats.shape[0] * feats.shape[1]} subpackets, "
+        f"{int(cand[..., 0].sum())} listed tiles, "
+        f"{int((sk < 2 ** 30).sum())} hits; t and slots equal bit for bit")
+
+
+def tile_rows(o, d, table, k, subpackets, escalate=False):
+    """Tile rows of rays in order (padded like the wrapper); with
+    ``escalate`` the budget doubles until nothing overflows, as the checked
+    driver does. Returns (feats, rows, overflow, budget)."""
+    from tracer_torch.kernels.leafcull import _pad_edge
+    from tracer_torch.kernels.tilecull import (pack_ray_features,
+                                               subpacket_candidates)
+    feats, _, pad = pack_ray_features(o, d, subpackets)
+    while True:
+        cand, ovf = subpacket_candidates(_pad_edge(o, pad), _pad_edge(d, pad),
+                                         table, k, subpackets)
+        if not (escalate and bool(ovf)) or k >= table.num_tiles:
+            return feats, cand, bool(ovf), k
+        k = min(2 * k, -(-table.num_tiles // 128) * 128)
+
+
+def wrapper_ids_match(name, rec, ids, o, d, scene):
+    """A wrapper's HitRecord on a 2-D batch against the plain walk's sphere
+    ids on the same rays, flattened. The wrapper recomputes t with the
+    reference quadratic (``ray_sphere_t``), which rounds differently from
+    either walk; where it finds no root at a graze the record is a miss.
+    Those rays, and only those, may differ."""
+    import torch
+    from tracer_torch.intersect.sphere import ray_sphere_t
+    got = rec.index.reshape(-1)
+    diff = got != ids
+    s = ids[diff].clamp(min=0).long()
+    t = ray_sphere_t(o[diff], d[diff], scene.centers[s], scene.radii[s])
+    dropped = (got[diff] == -1) & (ids[diff] >= 0) & torch.isinf(t)
+    log(f"{name} 2-D batch {tuple(rec.index.shape)}: ids equal the plain "
+        f"walk's on {int((~diff).sum())} rays; {int(diff.sum())} differ, "
+        f"{int(dropped.sum())} of them grazes the reference quadratic drops")
+    if not bool(dropped.all()):
+        raise AssertionError(f"{name}: 2-D wrapper != plain walk")
+
+
+def packet_and_tile_walks(dev):
+    """Phase 3c: traverse_cuda and tilecull_cuda vs their plain versions at
+    20k spheres x 64k origin rays (octahedral-sorted), 16-prim leaves."""
+    import torch
+    from tracer_torch.bench import headline
+    from tracer_torch.bvh.builder import build_bvh
+    from tracer_torch.core.sort import octahedral_codes
+    from tracer_torch.core.types import Ray
+    from tracer_torch.intersect.cull import build_leaf_table
+    from tracer_torch.kernels.tilecull import (_NOSLOT, nearest_hit_tilecull,
+                                               pack_prim_tiles,
+                                               tilecull_plain)
+    from tracer_torch.kernels.traverse import (nearest_hit_bvh_packets,
+                                               pack_bvh, pack_rays,
+                                               traverse_plain)
+    scene, _, o, d, _ = headline.benchmark_inputs(
+        dev, n_spheres=WALK_SPHERES, n_rays=WALK_RAYS, world=500.0)
+    perm = torch.argsort(octahedral_codes(d), stable=True)
+    o, d = o[perm], d[perm]
+    bvh = build_bvh(scene.centers, scene.radii, leaf_size=16,
+                    backend="native", device=dev)
+    packed = pack_bvh(scene, bvh)
+    table = build_leaf_table(bvh)
+    prims = pack_prim_tiles(packed)
+
+    n = o.shape[0] - 300                                   # ragged tail
+    rays, g, pad = pack_rays(o[:n], d[:n])
+    compare_traverse(f"packet walk {WALK_SPHERES} x {n} ({g} packets, "
+                     f"{pad} padding rays)", rays, packed)
+    # A 2-D batch through the wrapper, against the plain walk's slots.
+    o2, d2 = o.reshape(-1, 256, 3), d.reshape(-1, 256, 3)
+    rec, steps = nearest_hit_bvh_packets(Ray(o2, d2), scene, packed,
+                                         with_steps=True)
+    _, sp, stp = traverse_plain(pack_rays(o, d)[0], packed)
+    sp = sp.reshape(-1)[:o.shape[0]]
+    ids = torch.where(sp >= 0, packed.prim_idx[sp.clamp(min=0).long()], -1)
+    if not torch.equal(steps.reshape(-1),
+                       stp.repeat_interleave(1024)[:o.shape[0]]):
+        raise AssertionError("packet walk: 2-D wrapper steps != plain walk")
+    wrapper_ids_match("packet walk", rec, ids, o, d, scene)
+
+    feats, cand, ovf, _ = tile_rows(o[:n], d[:n], table, 64, 8)
+    compare_tilecull(f"tile walk {WALK_SPHERES} x {n}, budget 64 "
+                     f"(overflow {ovf})", feats, cand, prims)
+    feats1, cand1, ovf1, _ = tile_rows(o[:n], d[:n], table, 1, 8)
+    if not ovf1:
+        raise AssertionError("a tile budget of one did not overflow")
+    compare_tilecull(f"tile walk {WALK_SPHERES} x {n}, budget 1 "
+                     f"(overflowing rows)", feats1, cand1, prims)
+    # Rows that list the sentinel tile T after their own tiles.
+    T = table.num_tiles
+    cnt = cand[..., 0]
+    room = cnt + 1 < cand.shape[-1]
+    cs = cand.clone()
+    col = (cnt + 1).clamp(max=cand.shape[-1] - 1).long()[..., None]
+    cs.scatter_(2, col, torch.where(room[..., None], T, cs.gather(2, col)))
+    cs[..., 0] = torch.where(room, cnt + 1, cnt)
+    compare_tilecull(f"tile walk {WALK_SPHERES} x {n}, sentinel tile listed "
+                     f"({int(room.sum())} rows)", feats, cs, prims)
+    t0, s0 = tilecull_plain(feats, cand, prims, pair_elems=PLAIN_ELEMS)
+    t1, s1 = tilecull_plain(feats, cs, prims, pair_elems=PLAIN_ELEMS)
+    if not (torch.equal(s0, s1) and torch.equal(t0, t1)):
+        raise AssertionError("the sentinel tile changed a result")
+    rec2, ovf2 = nearest_hit_tilecull(Ray(o2, d2), scene, packed, table,
+                                      max_candidates=T)
+    feats_all, cand_all, _, _ = tile_rows(o, d, table, T, 8)
+    _, sa = tilecull_plain(feats_all, cand_all, prims, pair_elems=PLAIN_ELEMS)
+    sa = sa.permute(0, 2, 1).reshape(-1)[:o.shape[0]]
+    ida = torch.where(sa < _NOSLOT, packed.prim_idx[
+        torch.where(sa < _NOSLOT, sa, 0).long()], -1)
+    if bool(ovf2):
+        raise AssertionError("tile walk: the full budget overflowed")
+    wrapper_ids_match("tile walk", rec2, ida, o, d, scene)
+
+
+def epilogue_ids(o, d, ids, scene):
+    """Sphere ids after the renderer's epilogue: t recomputed with the
+    reference quadratic, -1 where it finds no root."""
+    from tracer_torch.intersect.brute import record_from_ids
+    return record_from_ids(o, d, ids, scene).index
+
+
+def render_slice(dev, results):
+    """Phase 7: the renderer at full size through the CLI's code path."""
+    import torch
+    from tracer_torch import cli
+    from tracer_torch.bench import render as brender
+    from tracer_torch.core.types import Ray
+    from tracer_torch.intersect.brute import nearest_hit_brute_fast
+    from tracer_torch.intersect.sphere import ray_sphere_t
+    from tracer_torch.integrator.wavefront import bounce_noise
+    from tracer_torch.kernels.conecull import compact_cuda
+    from tracer_torch.kernels.leafcull import anyhit_cuda, leafcull_cuda
+    from tracer_torch.kernels.tilecull import (pack_prim_tiles, tilecull_cuda,
+                                               tilecull_plain)
+    from tracer_torch.kernels.traverse import (pack_rays, traverse_cuda,
+                                               traverse_plain, _bform_t,
+                                               _ray_terms)
+    from tracer_torch.bench.timing import time_cuda
+    from tracer_torch.scene.camera import camera_rays
+    counters = {"traverse_cuda": traverse_cuda, "tilecull_cuda": tilecull_cuda,
+                "leafcull_cuda": leafcull_cuda, "compact_cuda": compact_cuda,
+                "anyhit_cuda": anyhit_cuda}
+
+    sessions, images = {}, {}
+    for mode in brender.MODES:
+        for impl in brender.IMPLS:
+            sessions[mode, impl] = cli.prepare(cli.build_parser().parse_args(
+                brender.argv(mode, impl) + ["--frames", str(RENDER_FRAMES)]))
+    s0 = sessions["path", "auto"]
+    cfg = s0.config
+    noise = bounce_noise(torch.Generator(device=dev).manual_seed(1),
+                         (cfg.height, cfg.width), cfg.max_depth, dev)
+    for c in counters.values():
+        c.launches = 0
+    per = {}
+    for key, sess in sessions.items():
+        before = {k: c.launches for k, c in counters.items()}
+        images[key] = sess.frame(sess.camera, noise)
+        torch.cuda.synchronize()
+        per[key] = {k: c.launches - before[k] for k, c in counters.items()}
+    launches = {k: c.launches for k, c in counters.items()}
+    log(f"render slice launches: {launches}")
+    for key, n in per.items():
+        log(f"  {key}: {n}; escalations {sessions[key].counts}")
+    if min(launches.values()) < 1:
+        raise AssertionError("the render slice did not run every kernel")
+    for key, img in images.items():
+        if not (tuple(img.shape) == (cfg.height, cfg.width, 3)
+                and bool(torch.isfinite(img).all())):
+            raise AssertionError(f"render {key}: bad image")
+
+    def agree(a, b):
+        return ((images[a] - images[b]).abs() <= PIXEL_ATOL).all(-1) \
+            .float().mean().item()
+
+    for mode in ("path", "direct"):
+        same = agree((mode, "auto"), (mode, "tilecull"))
+        other = agree((mode, "auto"), (mode, "pallas"))
+        log(f"render {mode}: auto vs tilecull agree on {same:.6f} of pixels,"
+            f" auto vs pallas on {other:.6f}")
+        if same < MIN_AGREE or other < MIN_AGREE_OTHER_ROUNDING:
+            raise AssertionError(f"render {mode}: images disagree")
+
+    # Primary ids against brute force on the first BRUTE_RAYS camera rays.
+    scene = s0.scene
+    rays = camera_rays(s0.camera, cfg)
+    o = rays.origin.reshape(-1, 3)[:BRUTE_RAYS].contiguous()
+    d = rays.direction.reshape(-1, 3)[:BRUTE_RAYS].contiguous()
+    # brute_t_fast's ids through the renderer's epilogue (t recomputed with
+    # the reference quadratic): nearest_hit_brute_fast.
+    ib = nearest_hit_brute_fast(Ray(o, d), scene, block=1024).index
+    # The packet walk's own rounding: the b-form over every sphere.
+    ro, rd, _, a, inv2a = _ray_terms(torch.cat([o, d, o[:, :2] * 0], 1))
+    terms = [x[:, None] for x in (*ro, *rd, a, inv2a)]
+    c, rsq = scene.centers, scene.radii * scene.radii
+    bb = []
+    for i in range(0, BRUTE_RAYS, 1024):
+        t = _bform_t(*(x[i:i + 1024] for x in terms), c[:, 0], c[:, 1],
+                     c[:, 2], rsq)
+        tm, j = t.min(1)                       # lowest id among equal t
+        bb.append(torch.where(torch.isfinite(tm), j, -1).to(torch.int32))
+    ib_b = torch.cat(bb)
+    ib_b = epilogue_ids(o, d, ib_b, scene)
+
+    def sphere_of(s):
+        s = s.clamp(min=0).long()
+        cc = scene.centers[s]
+        return cc, (cc * cc).sum(-1) - scene.radii[s] * scene.radii[s]
+
+    def t_of(ids):
+        s = ids.clamp(min=0).long()
+        t = ray_sphere_t(o, d, scene.centers[s], scene.radii[s])
+        return torch.where(ids >= 0, t, torch.full_like(t, float("inf")))
+
+    check_choices("b-form vs u-form brute force (first 16k primary rays)",
+                  o, d, sphere_of, t_of(ib_b), ib_b, t_of(ib), ib, -1,
+                  MIN_AGREE_OTHER_ROUNDING)
+    for impl in brender.IMPLS:
+        rec = sessions["path", impl].nearest(scene)(Ray(o, d))
+        ids = rec.index.reshape(-1)
+        if impl == "pallas":
+            check_choices("primary ids, pallas vs b-form brute", o, d,
+                          sphere_of, rec.t, ids, t_of(ib_b), ib_b, -1)
+        check_choices(f"primary ids, {impl} vs nearest_hit_brute_fast", o,
+                      d, sphere_of, rec.t, ids, t_of(ib), ib, -1,
+                      MIN_AGREE if impl != "pallas"
+                      else MIN_AGREE_OTHER_ROUNDING)
+
+    # The two new kernels vs their plain versions on the frame's primary
+    # rays, timed there.
+    of, df = rays.origin.reshape(-1, 3), rays.direction.reshape(-1, 3)
+    packed = sessions["path", "pallas"].tables["packed"]
+    prays, g, _ = pack_rays(of, df)
+    steps, leaves = compare_traverse(f"packet walk, primary rays of the "
+                                     f"frame ({g} packets)", prays, packed)
+    ms = time_cuda(traverse_cuda, prays, packed)
+    pms = time_cuda(traverse_plain, prays, packed, warmup=0, iters=1)
+    bms, bby = traverse_bound("packet walk, frame", prays, packed, steps,
+                              leaves)
+    log(f"packet walk frame: cuda {ms:.4f} ms, plain {pms:.4f} ms, bound "
+        f"{bms:.4f} ms ({bby})")
+    results["traverse_cuda"] = dict(
+        ms=ms, plain_ms=pms, library_ms=None, bound_ms=bms, bound_by=bby,
+        max_abs_err=0, launches=launches["traverse_cuda"])
+    ts = sessions["path", "tilecull"]
+    table = ts.tables["leaf_table"]
+    tiles = pack_prim_tiles(ts.tables["packed"])
+    feats, cand, _, k = tile_rows(of, df, table,
+                                  min(128, table.num_tiles), 8,
+                                  escalate=True)
+    compare_tilecull(f"tile walk, primary rays of the frame (budget {k})",
+                     feats, cand, tiles)
+    ms = time_cuda(tilecull_cuda, feats, cand, tiles)
+    pms = time_cuda(lambda *a: tilecull_plain(*a, pair_elems=PLAIN_ELEMS),
+                    feats, cand, tiles, warmup=0, iters=1)
+    bms, bby = tilecull_bound("tile walk, frame", feats, cand, tiles)
+    log(f"tile walk frame: cuda {ms:.4f} ms, plain {pms:.4f} ms, bound "
+        f"{bms:.4f} ms ({bby})")
+    results["tilecull_cuda"] = dict(
+        ms=ms, plain_ms=pms, library_ms=None, bound_ms=bms, bound_by=bby,
+        max_abs_err=0, launches=launches["tilecull_cuda"])
+
+    # One metrics line per (mode, impl): the CLI's timed frame loop.
+    for key, sess in sessions.items():
+        _, times = cli.render_frames(sess, lambda i: noise)
+        log(json.dumps(cli.metrics(sess, times)))
+
+
 def main() -> int:
     import torch
     t_start = time.perf_counter()
@@ -429,6 +791,7 @@ def main() -> int:
                 f"{s_r.numel()} rays")
 
     tie_breaks(dev)
+    packet_and_tile_walks(dev)
 
     # -- 4. the closest-hit slice at full size -----------------------------
     scene, tables, o, d, build_ms = headline.benchmark_inputs(dev)
@@ -584,11 +947,14 @@ def main() -> int:
         bound_ms=rb, bound_by=rby, max_abs_err=0,
         launches=b_launches["routed_cuda"])
 
-    # -- 7. the bench lines --------------------------------------------------
+    # -- 7. the render slice at full size -------------------------------------
+    render_slice(dev, results)
+
+    # -- 8. the bench lines --------------------------------------------------
     log(json.dumps(headline.measure(scene, tables, o, d, build_ms)))
     log(json.dumps(large.measure(btables, bo, bd, lbvh_ms, tables_ms)))
 
-    # -- 8. results ----------------------------------------------------------
+    # -- 9. results ----------------------------------------------------------
     meta = {
         "leafcull_cuda": ("tracer_torch/csrc/leafcull.cu",
                           "tracer/kernels/leafcull.py:515"),
@@ -598,6 +964,10 @@ def main() -> int:
                         "tracer/kernels/leafcull.py:829"),
         "routed_cuda": ("tracer_torch/csrc/routed.cu",
                         "tracer/kernels/tlas.py:260"),
+        "traverse_cuda": ("tracer_torch/csrc/traverse.cu",
+                          "tracer/kernels/traverse_pallas.py:126"),
+        "tilecull_cuda": ("tracer_torch/csrc/tilecull.cu",
+                          "tracer/kernels/tilecull.py:149"),
     }
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")

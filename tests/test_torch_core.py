@@ -277,7 +277,12 @@ SLICE_MODULES = [
     "tracer_torch.bench.headline", "tracer_torch.bench.profile",
     "tracer_torch.bench.__main__", "tracer_torch.core.device",
     "tracer_torch.bvh.device", "tracer_torch.kernels.tlas",
-    "tracer_torch.bench.large",
+    "tracer_torch.bench.large", "tracer_torch.config",
+    "tracer_torch.core.sampling", "tracer_torch.scene.camera",
+    "tracer_torch.intersect.aabb", "tracer_torch.intersect.traverse",
+    "tracer_torch.intersect.cull", "tracer_torch.kernels.traverse",
+    "tracer_torch.kernels.tilecull", "tracer_torch.integrator.wavefront",
+    "tracer_torch.cli", "tracer_torch.bench.render",
 ]
 
 
@@ -293,6 +298,65 @@ def test_port_never_imports_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def _port_sources():
+    """Every source file of the port, and chip_smoke.py."""
+    root = os.path.join(REPO, "tracer_torch")
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for dirpath, _, names in os.walk(root):
+        files += [os.path.join(dirpath, n) for n in names
+                  if n.endswith((".py", ".cu", ".cuh", ".cpp", ".h"))]
+    return sorted(files)
+
+
+def test_port_stands_alone():
+    """No file of the port (nor chip_smoke.py) imports jax or the JAX
+    package, or names a path under tracer/: a string that is "tracer" (a
+    path part) or starts with "tracer/" and is not a "file.py:line"
+    citation, or an #include of such a path. Docstrings and comments may
+    cite the reference."""
+    import ast
+    import re
+    cite = re.compile(r"^tracer/[\w/]+\.py:\d+$")
+    bad = []
+    for path in _port_sources():
+        rel = os.path.relpath(path, REPO)
+        text = open(path).read()
+        if not path.endswith(".py"):
+            for line in text.splitlines():
+                if re.match(r'\s*#\s*include\s*["<](\.\./)*tracer/', line):
+                    bad.append((rel, line.strip()))
+            continue
+        tree = ast.parse(text)
+        docs = {id(n.body[0].value) for n in ast.walk(tree)
+                if isinstance(n, (ast.Module, ast.FunctionDef,
+                                  ast.ClassDef, ast.AsyncFunctionDef))
+                and n.body and isinstance(n.body[0], ast.Expr)
+                and isinstance(n.body[0].value, ast.Constant)}
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                mods = [node.module or ""]
+            else:
+                mods = []
+            for m in mods:
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "tracer"):
+                    bad.append((rel, f"import {m}"))
+            if isinstance(node, ast.Call) and getattr(
+                    node.func, "id", getattr(node.func, "attr", "")) in (
+                        "import_module", "__import__"):
+                bad.append((rel, "dynamic import"))
+            if isinstance(node, ast.Constant) and isinstance(node.value, str) \
+                    and id(node) not in docs:
+                v = node.value
+                if v == "tracer" or (v.startswith("tracer/")
+                                     and not cite.match(v)):
+                    bad.append((rel, repr(v)))
+    assert not bad, bad
+    # The guard sees what it guards against.
+    assert any(p.endswith("bvh_builder.cpp") for p in _port_sources())
 
 
 def test_cpu_wrappers_run_plain_and_leave_counters_at_zero():
@@ -343,6 +407,28 @@ def test_cpu_wrappers_run_plain_and_leave_counters_at_zero():
         assert counter.launches == 0
     assert tcone.compact_cuda.launches == 0
 
+    # The packet and tile walks: CPU tensors take the plain versions.
+    from tracer_torch.intersect.cull import build_leaf_table
+    from tracer_torch.kernels import tilecull as ttile
+    from tracer_torch.kernels import traverse as ttrav
+    ttrav.traverse_cuda.launches = ttile.tilecull_cuda.launches = 0
+    bvh = tt.build_bvh(c, r, leaf_size=16, device="cpu")
+    packed = ttrav.pack_bvh(tscene, bvh)
+    prays, _, _ = ttrav.pack_rays(torch.as_tensor(o), torch.as_tensor(d))
+    got = ttrav.traverse_call(prays, packed)
+    want = ttrav.traverse_plain(prays, packed)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    table = build_leaf_table(bvh)
+    tf, _, _ = ttile.pack_ray_features(torch.as_tensor(o),
+                                       torch.as_tensor(d), 2)
+    cand, _ = ttile.subpacket_candidates(torch.as_tensor(o),
+                                         torch.as_tensor(d), table, 64, 2)
+    prims = ttile.pack_prim_tiles(packed)
+    got = ttile.tilecull_call(tf, cand, prims)
+    want = ttile.tilecull_plain(tf, cand, prims)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    assert ttrav.traverse_cuda.launches == ttile.tilecull_cuda.launches == 0
+
 
 def test_wrappers_refuse_tensors_off_cpu_and_cuda():
     ids = torch.zeros((8, 128), dtype=torch.int32, device="meta")
@@ -374,15 +460,40 @@ def test_wrappers_refuse_tensors_off_cpu_and_cuda():
     assert tleaf.leafcull_cuda.launches == 0
     assert tleaf.anyhit_cuda.launches == ttlas.routed_cuda.launches == 0
 
+    from tracer_torch.kernels import tilecull as ttile
+    from tracer_torch.kernels import traverse as ttrav
+    c, r, a = tp.scene_np(40)
+    _, tscene = tp.scenes(c, r, a)
+    packed = ttrav.pack_bvh(tscene, tt.build_bvh(c, r, leaf_size=8,
+                                                 device="cpu"))
+    rays = torch.zeros((1, ttrav.PACKET, 8))
+    meta = ttrav.PackedBVH(*(x.to("meta") for x in (
+        packed.nodes, packed.links, packed.prims, packed.prim_idx)),
+        packed.num_nodes, packed.leaf_size)
+    with pytest.raises(ValueError, match="CUDA"):
+        ttrav.traverse_call(rays.to("meta"), meta)
+    with pytest.raises(ValueError, match="CUDA"):
+        ttrav.traverse_cuda(rays, packed)
+    tfeats = torch.zeros((1, 1, 128, 16))
+    tcand = torch.zeros((1, 1, 128), dtype=torch.int32)
+    tprims = torch.zeros((2, 128, 4))
+    with pytest.raises(ValueError, match="CUDA"):
+        ttile.tilecull_call(tfeats.to("meta"), tcand.to("meta"),
+                            tprims.to("meta"))
+    with pytest.raises(ValueError, match="CUDA"):
+        ttile.tilecull_cuda(tfeats, tcand, tprims)
+    assert ttrav.traverse_cuda.launches == ttile.tilecull_cuda.launches == 0
+
 
 def test_device_timing_and_bench_refuse_without_cuda(monkeypatch):
-    from tracer_torch.bench import headline, large
+    from tracer_torch.bench import headline, large, render
     from tracer_torch.bench.timing import time_cuda
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         time_cuda(lambda: None)
     assert headline.main() == 1
     assert large.main() == 1
+    assert render.main() == 1
 
 
 def test_entry_points_build_on_cuda_unless_asked(monkeypatch):

@@ -140,3 +140,25 @@ def assert_occ_matches(occ, ref, o, d, centers, radii, t_max):
         assert graze.any() or near_tmax.any(), \
             f"ray {i}: {occ[i]} vs {ref[i]}, no boundary case"
     assert len(bad) <= max(2, occ.size // 200), f"{len(bad)} flips"
+
+
+def assert_sphere_t_close(t, t_ref, o, d, centers, rsq, rtol=1e-5):
+    """t of the reference quadratic (b = 2 oc.d, c = |oc|^2 - r^2,
+    disc = b^2 - 4ac, t = (-b - sqrt(disc)) / 2a) against another rounding
+    of it, for rays (R, 3) and the (R, 3) centers / (R,) squared radii they
+    hit: within ``rtol`` plus the propagated rounding of disc, whose terms
+    cancel to |oc|^2-sized ulps: 2^-20 * (b^2 + 4a|oc|^2) / (4a sqrt(disc))
+    bounds what FMA contraction moves t by (it dominates on grazing
+    rays)."""
+    o64 = np_(o).astype(np.float64).reshape(-1, 3)
+    d64 = np_(d).astype(np.float64).reshape(-1, 3)
+    oc = o64 - np_(centers).astype(np.float64).reshape(-1, 3)
+    a = (d64 * d64).sum(1)
+    bq = 2.0 * (oc * d64).sum(1)
+    occ = (oc * oc).sum(1)
+    disc = bq * bq - 4.0 * a * (occ - np_(rsq).astype(np.float64).reshape(-1))
+    t, t_ref = np_(t).reshape(-1), np_(t_ref).reshape(-1)
+    tol = rtol * np.abs(t_ref) + 2.0 ** -20 * (bq * bq + 4 * a * occ) \
+        / (4 * a * np.sqrt(np.maximum(disc, 1e-30)))
+    bad = np.abs(t - t_ref) > tol
+    assert not bad.any(), f"{bad.sum()} of {t.size} hits outside tolerance"

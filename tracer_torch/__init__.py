@@ -1,5 +1,5 @@
-"""tracer_torch: the tracer's closest-hit and shadow queries in PyTorch,
-with hand-written CUDA kernels for an NVIDIA H100.
+"""tracer_torch: the tracer's queries and renderer in PyTorch, with
+hand-written CUDA kernels for an NVIDIA H100.
 
 A port of the JAX package ``tracer`` (which stays the reference). It imports
 torch and never JAX. The query runs build -> prep -> phase A -> leaf walk:
@@ -13,9 +13,16 @@ scenes of many table chunks go through ``nearest_hit_tlas_feats`` (the
 TLAS-routed path), typically over ``build_bvh_device``'s LBVH. Scenes and
 trees are built on the CUDA device unless ``device`` names another.
 
-On CUDA tensors the row compactor and the leaf walks run as CUDA kernels
-built with nvcc into ``build/tracer_torch/`` on first use; on CPU tensors
-they run as their plain PyTorch versions.
+The renderer (``render``, ``render_direct``; ``python -m tracer_torch.cli
+render``) takes any closest-hit intersector: the leaf walk
+(``nearest_hit_leafcull_checked``), the packet walk
+(``nearest_hit_bvh_packets``), the tile cull
+(``nearest_hit_tilecull_checked``), the per-ray walk (``nearest_hit_bvh``)
+or the dense sweep (``nearest_hit_brute_fast``).
+
+On CUDA tensors the row compactor and the walks run as CUDA kernels built
+with nvcc into ``build/tracer_torch/`` on first use; on CPU tensors they
+run as their plain PyTorch versions.
 """
 
 from tracer_torch.core.types import Ray, HitRecord
@@ -24,11 +31,15 @@ from tracer_torch.scene.scene import (Scene, fixed_scene, random_scene,
 from tracer_torch.intersect.sphere import (EPSILON, ray_sphere_t,
                                            hit_record_from_t)
 from tracer_torch.intersect.brute import (nearest_hit_brute, any_hit_brute,
-                                          brute_t_fast)
+                                          brute_t_fast,
+                                          nearest_hit_brute_fast)
 from tracer_torch.bvh.flat import FlatBVH, padded_scene_arrays, validate_bvh
 from tracer_torch.bvh.builder import build_bvh
 from tracer_torch.bvh.device import build_bvh_device, morton_codes_3d
-from tracer_torch.interop import scene_from_numpy, flat_bvh_from_numpy
+from tracer_torch.interop import (scene_from_numpy, flat_bvh_from_numpy,
+                                  camera_from_numpy)
+from tracer_torch.config import TracerConfig
+from tracer_torch.scene.camera import Camera, camera_rays
 from tracer_torch.kernels.leafcull import (CullTables, build_cull_tables,
                                            prep_feats_bucketed,
                                            pack_ray_features, leafcull_call,
@@ -42,6 +53,22 @@ from tracer_torch.kernels.conecull import (ConeTables, build_cone_tables,
                                            occluded_hybrid_feats)
 from tracer_torch.kernels.tlas import (route_pairs, tlas_candidates,
                                        routed_call, nearest_hit_tlas_feats)
+from tracer_torch.kernels.leafcull import (nearest_hit_leafcull,
+                                           nearest_hit_leafcull_checked,
+                                           occluded_leafcull,
+                                           occluded_leafcull_checked)
+from tracer_torch.intersect.traverse import nearest_hit_bvh
+from tracer_torch.intersect.cull import LeafTable, build_leaf_table
+from tracer_torch.kernels.traverse import (PackedBVH, pack_bvh,
+                                           traverse_call,
+                                           nearest_hit_bvh_packets)
+from tracer_torch.kernels.tilecull import (tilecull_call,
+                                           nearest_hit_tilecull,
+                                           nearest_hit_tilecull_checked)
+from tracer_torch.integrator.wavefront import (Accumulator, bounce_noise,
+                                               render, render_direct,
+                                               sky_color, trace_direct,
+                                               trace_radiance)
 
 __all__ = [
     "Ray", "HitRecord", "Scene", "fixed_scene", "random_scene",
@@ -55,4 +82,12 @@ __all__ = [
     "kernel_order_dest", "nearest_hit_hybrid_feats",
     "nearest_hit_hybrid_raw", "occluded_hybrid_feats", "route_pairs",
     "tlas_candidates", "routed_call", "nearest_hit_tlas_feats",
+    "nearest_hit_brute_fast", "camera_from_numpy", "TracerConfig", "Camera",
+    "camera_rays", "nearest_hit_leafcull", "nearest_hit_leafcull_checked",
+    "occluded_leafcull", "occluded_leafcull_checked", "nearest_hit_bvh",
+    "LeafTable", "build_leaf_table", "PackedBVH", "pack_bvh",
+    "traverse_call", "nearest_hit_bvh_packets", "tilecull_call",
+    "nearest_hit_tilecull", "nearest_hit_tilecull_checked", "Accumulator",
+    "bounce_noise", "render", "render_direct", "sky_color", "trace_direct",
+    "trace_radiance",
 ]

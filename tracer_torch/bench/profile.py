@@ -23,12 +23,15 @@ from tracer_torch.kernels.conecull import cone_candidates
 from tracer_torch.kernels.leafcull import leafcull_call
 
 ITERS = 10
+WARMUP = 3
 TOP = 8
 
 
-def profile_calls(fn, *args) -> dict:
-    """Device time, idle share and launches per call of ``fn(*args)``."""
-    for _ in range(3):
+def profile_calls(fn, *args, iters: int = ITERS, names=()) -> dict:
+    """Device time, idle share and launches per call of ``fn(*args)``,
+    after WARMUP calls; with ``names``, also the share of the window spent
+    in the kernels whose name contains each of them (``shares``)."""
+    for _ in range(WARMUP):
         fn(*args)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -36,23 +39,27 @@ def profile_calls(fn, *args) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         start.record()
-        for _ in range(ITERS):
+        for _ in range(iters):
             fn(*args)
         end.record()
         torch.cuda.synchronize()
-    window_ms = start.elapsed_time(end) / ITERS
+    window_ms = start.elapsed_time(end) / iters
     device = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in device) / 1e3 / ITERS
+    busy_ms = sum(e.self_device_time_total for e in device) / 1e3 / iters
     top = sorted(device, key=lambda e: e.self_device_time_total,
                  reverse=True)[:TOP]
+    shares = {n: sum(e.self_device_time_total for e in device
+                     if n in e.key) / 1e3 / iters / window_ms
+              for n in names}
     return {
         "window_ms": window_ms,
         "device_ms": busy_ms if device else None,
         "idle_share": 1.0 - busy_ms / window_ms if device else None,
-        "launches": sum(e.count for e in device) / ITERS if device else None,
-        "top": [[e.key[:60], e.self_device_time_total / 1e3 / ITERS,
-                 e.count / ITERS] for e in top],
+        "launches": sum(e.count for e in device) / iters if device else None,
+        "shares": shares if device else None,
+        "top": [[e.key[:60], e.self_device_time_total / 1e3 / iters,
+                 e.count / iters] for e in top],
     }
 
 

@@ -1,7 +1,7 @@
 """ctypes loader for the native C++ binned-SAH builder.
 
-Compiles the JAX package's ``tracer/bvh/native/builder.cpp`` by file path
-(the source is shared, the Python package is not imported) with g++ into
+Compiles the port's own copy of the builder,
+``tracer_torch/csrc/bvh_builder.cpp``, with g++ into
 ``build/tracer_torch/libtracer_bvh.so`` on first use. The ABI is one C
 function moving flat arrays in the FlatBVH layout.
 """
@@ -17,7 +17,7 @@ import numpy as np
 from tracer_torch._build import REPO_ROOT, build_shared_library
 
 CXX = "g++"
-SOURCE = REPO_ROOT / "tracer" / "bvh" / "native" / "builder.cpp"
+SOURCE = REPO_ROOT / "tracer_torch" / "csrc" / "bvh_builder.cpp"
 _lock = threading.Lock()
 _lib = None
 

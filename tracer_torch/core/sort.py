@@ -1,10 +1,11 @@
 """Octahedral ray sorting and cell bucket-padding for packet coherence.
 
 PyTorch counterpart of the parts of ``tracer/core/sort.py`` that the
-closest-hit query runs. The cull stages treat every ``subpacket``
+queries and the renderer run. The cull stages treat every ``subpacket``
 consecutive rays as one frustum, so rays are sorted by a Morton code of the
 octahedral direction map and padded at coarse code-cell boundaries, which
-keeps every subpacket inside one narrow direction cell.
+keeps every subpacket inside one narrow direction cell. The renderer's
+wavefront compaction sorts by the coarser cube-Morton direction code.
 
 The codes are uint32 in the reference; here they live in int64 masked to
 32 bits, which sorts identically and keeps to ops torch covers for int64.
@@ -14,6 +15,37 @@ from __future__ import annotations
 
 import torch
 from torch import Tensor
+
+from tracer_torch.core.types import Ray
+
+
+def _part_bits(v: Tensor) -> Tensor:
+    """Spread 8 bits of v over 24 bits (2 zero bits between each); int64."""
+    v = v.to(torch.int64) & 0xFF
+    v = (v | (v << 8)) & 0x00F00F
+    v = (v | (v << 4)) & 0x0C30C3
+    v = (v | (v << 2)) & 0x249249
+    return v
+
+
+def direction_morton_codes(d: Tensor, bits: int = 8) -> Tensor:
+    """Morton code of unit directions, (B,) int64 in [0, 2^24): 8 bits per
+    component of (d * 0.5 + 0.5) quantised."""
+    top = 2 ** bits - 1
+    q = torch.clamp((d * 0.5 + 0.5) * top, 0, top).to(torch.int64)
+    return (_part_bits(q[:, 0]) | (_part_bits(q[:, 1]) << 1)
+            | (_part_bits(q[:, 2]) << 2))
+
+
+def sort_rays_by_direction(rays: Ray):
+    """Sort a flat ray batch by direction Morton code (stable, as
+    ``jnp.argsort``). Returns (sorted rays, inverse permutation): index a
+    result with the inverse to restore the caller's order."""
+    o = rays.origin.reshape(-1, 3)
+    d = rays.direction.reshape(-1, 3)
+    perm = torch.argsort(direction_morton_codes(d), stable=True)
+    inv = torch.argsort(perm, stable=True)
+    return Ray(origin=o[perm], direction=d[perm]), inv
 
 
 def _part_bits16(v: Tensor) -> Tensor:

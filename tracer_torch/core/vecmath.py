@@ -12,8 +12,11 @@ from torch import Tensor
 
 
 def dot(a: Tensor, b: Tensor) -> Tensor:
-    """Batched dot product; reference ``vec3_dot`` (src/vec3.c:25-27)."""
-    return torch.sum(a * b, dim=-1)
+    """Batched dot product; reference ``vec3_dot`` (src/vec3.c:25-27),
+    summed as (x + y) + z on every device: the order torch's CPU sum takes
+    and the CUDA kernels spell, which a CUDA reduction does not promise."""
+    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] \
+        + a[..., 2] * b[..., 2]
 
 
 def length(a: Tensor) -> Tensor:

@@ -14,6 +14,7 @@ import torch
 
 from tracer_torch.bvh.flat import FlatBVH
 from tracer_torch.core.device import default_device
+from tracer_torch.scene.camera import Camera
 from tracer_torch.scene.scene import Scene
 
 
@@ -45,3 +46,15 @@ def flat_bvh_from_numpy(node_min, node_max, escape, leaf_start, prim_idx,
                    leaf_start=_t(leaf_start, torch.int32, device),
                    prim_idx=_t(prim_idx, torch.int32, device),
                    leaf_size=int(leaf_size))
+
+
+def camera_from_numpy(position, yaw, pitch, fov, device=None) -> Camera:
+    """The fields of a JAX ``Camera`` -> the port's Camera (f32 tensors)."""
+    device = default_device(device)
+
+    def scalar(x):
+        return torch.tensor(np.float32(x), device=device)
+
+    return Camera(position=_t(np.asarray(position, np.float32).reshape(3),
+                              torch.float32, device),
+                  yaw=scalar(yaw), pitch=scalar(pitch), fov=scalar(fov))

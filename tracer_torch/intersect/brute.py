@@ -93,3 +93,28 @@ def brute_t_fast(o: Tensor, d: Tensor, centers: Tensor, radii: Tensor,
         idxs.append(torch.where(hit, idx, torch.full_like(idx, -1))
                     .to(torch.int32))
     return torch.cat(ts), torch.cat(idxs)
+
+
+def nearest_hit_brute_fast(rays: Ray, scene: Scene,
+                           block: int = 8192) -> HitRecord:
+    """HitRecord over :func:`brute_t_fast`: the dense path the renderer
+    takes at <= 4000 spheres. The winning id comes from the u-form sweep;
+    t is recomputed from it with the reference formulation, so autograd
+    reaches the sphere centers and radii as in the kernel paths."""
+    batch_shape = rays.batch_shape
+    o = rays.origin.reshape(-1, 3)
+    d = rays.direction.reshape(-1, 3)
+    with torch.no_grad():
+        _, idx = brute_t_fast(o, d, scene.centers, scene.radii, block=block)
+    return record_from_ids(o, d, idx, scene).reshape(batch_shape)
+
+
+def record_from_ids(o: Tensor, d: Tensor, idx: Tensor,
+                    scene: Scene) -> HitRecord:
+    """HitRecord of flat rays from their winning sphere ids (-1 on miss):
+    t recomputed with ``ray_sphere_t`` so gradients flow to the scene."""
+    safe = torch.clamp(idx, min=0).long()
+    t = ray_sphere_t(o, d, scene.centers[safe], scene.radii[safe])
+    t = torch.where(idx >= 0, t, torch.full_like(t, float("inf")))
+    return hit_record_from_t(Ray(origin=o, direction=d), t,
+                             idx.to(torch.int32), scene.centers)

@@ -62,6 +62,10 @@ def load() -> ctypes.CDLL:
             lib.tracer_anyhit.argtypes = [vp] * 4 + [i] * 8 + [vp]
             lib.tracer_routed.restype = i
             lib.tracer_routed.argtypes = [vp] * 7 + [i] * 7 + [vp]
+            lib.tracer_traverse.restype = i
+            lib.tracer_traverse.argtypes = [vp] * 7 + [i] * 3 + [vp]
+            lib.tracer_tilecull.restype = i
+            lib.tracer_tilecull.argtypes = [vp] * 5 + [i] * 3 + [vp]
             lib.tracer_cuda_error_string.restype = ctypes.c_char_p
             lib.tracer_cuda_error_string.argtypes = [i]
             _lib = lib

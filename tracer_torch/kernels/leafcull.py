@@ -298,17 +298,25 @@ def _pair_slices(f: Tensor, fidx: Tensor, chunk: Tensor, rows: Tensor,
         fb = f[fidx[q]]                                  # (n, SP, FEAT)
         pslot = leaf_all[i:i + step, None] * ls + lane   # (n, ls)
         pr = prims[c[:, None], pslot]                    # (n, ls, 4)
-        cx, cy, cz, ccr = (pr[:, None, :, k] for k in range(4))
-        dx, dy, dz = fb[:, :, 0:1], fb[:, :, 1:2], fb[:, :, 2:3]
-        nox2, noy2, noz2 = fb[:, :, 3:4], fb[:, :, 4:5], fb[:, :, 5:6]
-        od, oo, av = fb[:, :, 8:9], fb[:, :, 9:10], fb[:, :, 10:11]
-        m1 = dx * cx + dy * cy + dz * cz                 # c.d
-        m2 = nox2 * cx + noy2 * cy + noz2 * cz + ccr     # -2 o.c + ccr
-        bp = od - m1                                     # oc.d
-        cq = m2 + oo                                     # |oc|^2 - r^2
-        disc = bp * bp - av * cq
-        u = bp + _sqrt_rn(torch.clamp(disc, min=0.0))
+        u, disc = ray_prim_u(fb, pr)
         yield q, fb, u, disc, c[:, None] * spc + pslot
+
+
+def ray_prim_u(fb: Tensor, pr: Tensor):
+    """The u-form test of every ray against every prim, as the kernels
+    round it (``walk::ray_prim_u``): fb (n, R, FEAT) feature rows, pr
+    (n, K, 4) prims (cx, cy, cz, |c|^2 - r^2). Returns (u, disc), each
+    (n, R, K): u = oc.d + sqrt(max(disc, 0)), t = -u/a on the near root."""
+    cx, cy, cz, ccr = (pr[:, None, :, k] for k in range(4))
+    dx, dy, dz = fb[:, :, 0:1], fb[:, :, 1:2], fb[:, :, 2:3]
+    nox2, noy2, noz2 = fb[:, :, 3:4], fb[:, :, 4:5], fb[:, :, 5:6]
+    od, oo, av = fb[:, :, 8:9], fb[:, :, 9:10], fb[:, :, 10:11]
+    m1 = dx * cx + dy * cy + dz * cz                     # c.d
+    m2 = nox2 * cx + noy2 * cy + noz2 * cz + ccr         # -2 o.c + ccr
+    bp = od - m1                                         # oc.d
+    cq = m2 + oo                                         # |oc|^2 - r^2
+    disc = bp * bp - av * cq
+    return bp + _sqrt_rn(torch.clamp(disc, min=0.0)), disc
 
 
 def closest_rows_plain(f: Tensor, fidx: Tensor, chunk: Tensor, rows: Tensor,
@@ -514,3 +522,99 @@ def anyhit_call(feats: Tensor, cand: Tensor, prims: Tensor, leaf_size: int,
     walk = anyhit_plain if feats.device.type == "cpu" else anyhit_cuda
     return walk(feats, cand, prims, leaf_size, leaves_per_chunk,
                 leaves_per_group)
+
+
+# ---------------------------------------------------------------------------
+# HitRecord and occlusion queries over rays in caller order
+# ---------------------------------------------------------------------------
+
+def _escalate(query, tables, max_groups: int, max_candidates: int):
+    """Run ``query(mg, mc) -> (result, overflow)``, doubling both budgets
+    until nothing overflows or both cover the whole table. Returns
+    (result, escalations)."""
+    cull = tables.cull
+    k0, k = max_groups, max_candidates
+    escalations = 0
+    while True:
+        out, overflow = query(k0, k)
+        done = k0 >= cull.num_groups and k >= cull.leaves_per_chunk
+        if not bool(overflow) or done:
+            return out, escalations
+        k0 = min(2 * k0, cull.num_groups)
+        k = min(2 * k, cull.leaves_per_chunk)
+        escalations += 1
+
+
+def nearest_hit_leafcull(rays, scene: Scene, tables, max_groups: int = 48,
+                         max_candidates: int = 119, subpackets: int = 8,
+                         subpacket: int = 64, cell_bits: int = 8):
+    """Closest hit via prep, phase A and the leaf walk; batch shape kept.
+
+    ``tables`` are ``conecull.ConeTables``. The rays are sorted and
+    bucketed (``prep_feats_bucketed``), phase A is ``cone_candidates`` and
+    the walk ``leafcull_call`` (through ``nearest_hit_hybrid_feats``); the
+    winning slot maps to its sphere and t is recomputed from it with the
+    reference formulation, so autograd reaches the scene. Returns
+    ``(HitRecord, overflow)``; on overflow re-dispatch with larger budgets
+    (:func:`nearest_hit_leafcull_checked` does).
+    """
+    from tracer_torch.intersect.brute import record_from_ids
+    from tracer_torch.kernels.conecull import (kernel_order_dest,
+                                               nearest_hit_hybrid_feats)
+    batch_shape = rays.batch_shape
+    o = rays.origin.reshape(-1, 3)
+    d = rays.direction.reshape(-1, 3)
+    with torch.no_grad():
+        feats, dest = prep_feats_bucketed(o.detach(), d.detach(), subpackets,
+                                          subpacket, cell_bits=cell_bits)
+        _, slot, overflow = nearest_hit_hybrid_feats(
+            feats, tables, max_groups, max_candidates)
+        slot = slot[kernel_order_dest(dest, subpackets, subpacket)]
+        idx = torch.where(slot >= 0, tables.cull.slot_to_sphere[
+            torch.clamp(slot, min=0).long()], torch.full_like(slot, -1))
+    rec = record_from_ids(o, d, idx, scene).reshape(batch_shape)
+    return rec, overflow
+
+
+def nearest_hit_leafcull_checked(rays, scene: Scene, tables,
+                                 max_groups: int = 48,
+                                 max_candidates: int = 119, **kw):
+    """Escalating driver over :func:`nearest_hit_leafcull`: doubles both
+    candidate budgets until no subpacket overflows. Returns (HitRecord,
+    escalations)."""
+    return _escalate(lambda k0, k: nearest_hit_leafcull(
+        rays, scene, tables, k0, k, **kw), tables, max_groups,
+        max_candidates)
+
+
+def occluded_leafcull(rays, tables, t_max, max_groups: int = 48,
+                      max_candidates: int = 119, subpackets: int = 8,
+                      subpacket: int = 64, cell_bits: int = 8):
+    """Shadow query: (occluded (batch,) bool, overflow). True where a
+    sphere blocks the segment (EPSILON, t_max) of the ray, t in units of
+    the ray's own (possibly unnormalised) direction; ``t_max`` is a scalar
+    or one value per ray. Prep, ``cone_candidates`` and the any-hit walk
+    (through ``conecull.occluded_hybrid_feats``)."""
+    from tracer_torch.kernels.conecull import (kernel_order_dest,
+                                               occluded_hybrid_feats)
+    batch_shape = rays.batch_shape
+    o = rays.origin.reshape(-1, 3).detach()
+    d = rays.direction.reshape(-1, 3).detach()
+    with torch.no_grad():
+        tm = torch.as_tensor(t_max, dtype=torch.float32, device=o.device)
+        tm = tm.reshape(-1).expand(o.shape[0]).contiguous()
+        feats, dest = prep_feats_bucketed(o, d, subpackets, subpacket,
+                                          cell_bits=cell_bits, t_max=tm)
+        occ, overflow = occluded_hybrid_feats(feats, tables, max_groups,
+                                              max_candidates)
+        occ = occ[kernel_order_dest(dest, subpackets, subpacket)] > 0
+    return occ.reshape(batch_shape), overflow
+
+
+def occluded_leafcull_checked(rays, tables, t_max, max_groups: int = 48,
+                              max_candidates: int = 119, **kw):
+    """Escalating driver over :func:`occluded_leafcull`. Returns
+    (occluded, escalations)."""
+    return _escalate(lambda k0, k: occluded_leafcull(
+        rays, tables, t_max, k0, k, **kw), tables, max_groups,
+        max_candidates)
