@@ -12,11 +12,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
 2. build: compiles the CUDA kernels under ``tracer_torch/csrc`` with nvcc,
    one process per source, all at once;
 3. kernel vs plain on the card: ``compact_cuda`` at the phase-A shapes of
-   the 100k-sphere query; ``leafcull_cuda`` and ``anyhit_cuda`` on phase-A
-   rows at 20k spheres x 64k rays (default budgets, group-mode rows, C > 1
-   chunks, and for any-hit a dense scene where whole subpackets are
-   occluded); ``routed_cuda`` on TLAS rows at 20k spheres in 8 chunks,
-   where the routed query must also equal the dense multi-chunk one;
+   the 100k-sphere query; ``leafcull_cuda``, ``conecull_cuda`` (phase B)
+   and ``anyhit_cuda`` on phase-A rows at 20k spheres x 64k rays (default
+   budgets, group-mode rows, C > 1 chunks, for phase B also unsorted rays
+   whose cones are degenerate, and for any-hit a dense scene where whole
+   subpackets are occluded); ``routed_cuda`` on TLAS rows at 20k spheres in
+   8 chunks, where the routed query must also equal the dense multi-chunk
+   one;
 4. the closest-hit slice at full size: 100k spheres x 512k origin rays
    through prep, phase A and the leaf walk, with launch counters reset
    just before and read just after; overflow, hit fraction, and agreement
@@ -27,6 +29,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
    way; overflow, agreement with "closest-hit t < 500" from phase 4 on
    every ray and with ``any_hit_brute`` on the first 16k rays; kernel vs
    plain on its rows;
+5b. the packet cull at full size: 100k spheres in 16-prim leaves, the
+   512k rays sorted by direction, through ``nearest_hit_cull_checked`` from
+   K = 128, counters reset and read the same way; no overflow at the budget
+   it settles on, agreement with a b-form brute force (its own rounding)
+   and with ``nearest_hit_brute_fast`` on the first 16k rays; kernel vs
+   plain on its candidates;
+5c. phase B at full size: the same rays through ``prep_rays_bucketed``,
+   phase A with cones and ``conecull_cuda`` (``nearest_hit_conecull_t``
+   with budget doubling), on the headline tables (leaf 32) and on 16-prim
+   leaves, counters reset and read the same way; no overflow; at leaf 32
+   ids and t equal the headline leaf-walk query's on every ray; agreement
+   with brute force on the first 16k rays; kernel vs plain and vs
+   ``leafcull_cuda`` on its rows, all bit for bit;
 6. the 10M TLAS slice at full size: 10M spheres, device LBVH, 131k origin
    rays through prep, routing, routed phase A, the routed walk and the
    merge, counters reset and read the same way; overflow, slots equal to
@@ -49,7 +64,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
 Phase 3 also holds ``traverse_cuda`` and ``tilecull_cuda`` against their
 plain versions at 20k spheres x 64k rays: a ragged tail, a 2-D batch
 through the wrappers, a tile budget of one (overflowing rows) and rows that
-list the sentinel tile; t, slots and steps must be equal exactly.
+list the sentinel tile; t, slots and steps must be equal exactly. And
+``cull_cuda`` against its plain version at 20k spheres x (64k + 37)
+direction-sorted rays: the full budget, an overflowing budget of 8 tiles
+(the walk stops at K) and the sentinel tile listed after every packet's
+own tiles.
 
 Closest-hit disagreements with an oracle are allowed only as ties (both t
 within 1e-5 relative) or grazes (for the prim one side chose, the
@@ -72,7 +91,9 @@ The packet walk counts 25 operations per (ray, node) slab test over the
 nodes each packet visited (steps x 1024) and 25 per b-form (ray, prim)
 test over the leaves it tested (leaf visits x leaf size x 1024); the tile
 walk 20 per (ray, prim) test over the listed tiles (sum of counts x 128 x
-128).
+128); phase B 22 per cone test of a walked prim and 19 per (ray,
+survivor) test; the packet cull 25 per b-form test over the walked tiles
+(sum of min(count, K) x 1024 x 128).
 """
 
 import json
@@ -101,6 +122,9 @@ OPS_PER_ID = 3          # compactor: compare, scan add, store index
 OPS_PER_SLAB = 25       # packet walk: one (ray, node) slab test
 OPS_PER_BFORM = 25      # packet walk: one b-form (ray, prim) test
 OPS_PER_TILE_TEST = OPS_PER_TEST + 1    # tile walk: u-form plus t = -u/a
+OPS_PER_CONE = 22       # phase B: one cone test of a walked prim
+CULL_K = 128            # the packet cull's first budget at full size
+SMALL_CULL_K = 8        # an overflowing packet-cull budget at 20k spheres
 PLAIN_ELEMS = 1 << 26   # slice size of the plain walks on the card
 # The packet walk keeps the JAX kernel's b-form quadratic, the leaf and
 # tile walks (and brute_t_fast) the u-form. At 100k spheres of r = 0.5 in a
@@ -530,6 +554,46 @@ def epilogue_ids(o, d, ids, scene):
     return record_from_ids(o, d, ids, scene).index
 
 
+def bform_brute_ids(o, d, scene, block=1024):
+    """Sphere ids of a b-form brute force over every sphere (the packet
+    walk's and the packet cull's rounding; their two spellings differ by
+    exact powers of two), lowest id among equal t, through the wrappers'
+    epilogue."""
+    import torch
+    from tracer_torch.kernels.traverse import _bform_t, _ray_terms
+    ro, rd, _, a, inv2a = _ray_terms(torch.cat([o, d, o[:, :2] * 0], 1))
+    terms = [x[:, None] for x in (*ro, *rd, a, inv2a)]
+    c, rsq = scene.centers, scene.radii * scene.radii
+    ids = []
+    for i in range(0, o.shape[0], block):
+        t = _bform_t(*(x[i:i + block] for x in terms), c[:, 0], c[:, 1],
+                     c[:, 2], rsq)
+        tm, j = t.min(1)                       # lowest id among equal t
+        ids.append(torch.where(torch.isfinite(tm), j, -1).to(torch.int32))
+    return epilogue_ids(o, d, torch.cat(ids), scene)
+
+
+def sphere_of_in(sc):
+    """Choice -> (centre, |c|^2 - r^2) of sphere ids in scene ``sc``."""
+    def sphere_of(s):
+        s = s.clamp(min=0).long()
+        c = sc.centers[s]
+        return c, (c * c).sum(-1) - sc.radii[s] * sc.radii[s]
+    return sphere_of
+
+
+def ref_t_of(o, d, scene):
+    """Sphere ids -> t of the reference quadratic (+inf for -1)."""
+    import torch
+    from tracer_torch.intersect.sphere import ray_sphere_t
+
+    def t_of(ids):
+        s = ids.clamp(min=0).long()
+        t = ray_sphere_t(o, d, scene.centers[s], scene.radii[s])
+        return torch.where(ids >= 0, t, torch.full_like(t, float("inf")))
+    return t_of
+
+
 def render_slice(dev, results):
     """Phase 7: the renderer at full size through the CLI's code path."""
     import torch
@@ -537,15 +601,13 @@ def render_slice(dev, results):
     from tracer_torch.bench import render as brender
     from tracer_torch.core.types import Ray
     from tracer_torch.intersect.brute import nearest_hit_brute_fast
-    from tracer_torch.intersect.sphere import ray_sphere_t
     from tracer_torch.integrator.wavefront import bounce_noise
     from tracer_torch.kernels.conecull import compact_cuda
     from tracer_torch.kernels.leafcull import anyhit_cuda, leafcull_cuda
     from tracer_torch.kernels.tilecull import (pack_prim_tiles, tilecull_cuda,
                                                tilecull_plain)
     from tracer_torch.kernels.traverse import (pack_rays, traverse_cuda,
-                                               traverse_plain, _bform_t,
-                                               _ray_terms)
+                                               traverse_plain)
     from tracer_torch.bench.timing import time_cuda
     from tracer_torch.scene.camera import camera_rays
     counters = {"traverse_cuda": traverse_cuda, "tilecull_cuda": tilecull_cuda,
@@ -601,27 +663,8 @@ def render_slice(dev, results):
     # the reference quadratic): nearest_hit_brute_fast.
     ib = nearest_hit_brute_fast(Ray(o, d), scene, block=1024).index
     # The packet walk's own rounding: the b-form over every sphere.
-    ro, rd, _, a, inv2a = _ray_terms(torch.cat([o, d, o[:, :2] * 0], 1))
-    terms = [x[:, None] for x in (*ro, *rd, a, inv2a)]
-    c, rsq = scene.centers, scene.radii * scene.radii
-    bb = []
-    for i in range(0, BRUTE_RAYS, 1024):
-        t = _bform_t(*(x[i:i + 1024] for x in terms), c[:, 0], c[:, 1],
-                     c[:, 2], rsq)
-        tm, j = t.min(1)                       # lowest id among equal t
-        bb.append(torch.where(torch.isfinite(tm), j, -1).to(torch.int32))
-    ib_b = torch.cat(bb)
-    ib_b = epilogue_ids(o, d, ib_b, scene)
-
-    def sphere_of(s):
-        s = s.clamp(min=0).long()
-        cc = scene.centers[s]
-        return cc, (cc * cc).sum(-1) - scene.radii[s] * scene.radii[s]
-
-    def t_of(ids):
-        s = ids.clamp(min=0).long()
-        t = ray_sphere_t(o, d, scene.centers[s], scene.radii[s])
-        return torch.where(ids >= 0, t, torch.full_like(t, float("inf")))
+    ib_b = bform_brute_ids(o, d, scene)
+    sphere_of, t_of = sphere_of_in(scene), ref_t_of(o, d, scene)
 
     check_choices("b-form vs u-form brute force (first 16k primary rays)",
                   o, d, sphere_of, t_of(ib_b), ib_b, t_of(ib), ib, -1,
@@ -677,6 +720,300 @@ def render_slice(dev, results):
         log(json.dumps(cli.metrics(sess, times)))
 
 
+def phase_a(feats, tables, mg=None, mc=None):
+    """Phase A of the leaf and cone walks at the bench budgets (or the
+    given ones): (rows (C, G, S, rowlen), cones (G, S, CONE_FEAT))."""
+    from tracer_torch.bench import headline
+    from tracer_torch.kernels.conecull import (CONE_FEAT, bounds_from_feats,
+                                               cone_candidates,
+                                               cone_from_feats)
+    rows, _, _ = cone_candidates(feats, tables, mg or headline.MG,
+                                 mc or headline.MC)
+    cones = cone_from_feats(feats, *bounds_from_feats(feats), tables.r_max)
+    G, S = feats.shape[:2]
+    return (rows.reshape(tables.cull.num_chunks, G, S, rows.shape[-1]),
+            cones.reshape(G, S, CONE_FEAT))
+
+
+def compare_conecull(name, feats, rows, cones, cull):
+    """conecull_cuda vs conecull_plain (t, slots, survivor counts) and vs
+    leafcull_cuda (t, slots) on the same rows, all bit for bit. Returns
+    (cone-test survivors, walked prims)."""
+    import torch
+    from tracer_torch.kernels.conecull import conecull_cuda, conecull_plain
+    from tracer_torch.kernels.leafcull import leafcull_cuda
+    args = walk_args(feats, rows, cull)[2:]
+    tk, sk, kk = conecull_cuda(feats, rows, cones, *args)
+    tp, sp, kp = conecull_plain(feats, rows, cones, *args,
+                                pair_elems=PLAIN_ELEMS)
+    tl, sl = leafcull_cuda(feats, rows, *args)
+    torch.cuda.synchronize()
+    if not (torch.equal(sk, sp) and torch.equal(tk, tp)
+            and torch.equal(kk, kp)):
+        raise AssertionError(f"{name}: conecull_cuda != plain on "
+                             f"{int((sk != sp).sum())} slot(s), "
+                             f"{int((tk != tp).sum())} t value(s), "
+                             f"{int((kk != kp).sum())} survivor count(s)")
+    if not (torch.equal(sk, sl) and torch.equal(tk, tl)):
+        raise AssertionError(f"{name}: conecull_cuda != leafcull_cuda on "
+                             f"{int((sk != sl).sum())} slot(s), "
+                             f"{int((tk != tl).sum())} t value(s)")
+    walked = int(walked_leaves(rows, cull.leaves_per_group).sum()) \
+        * cull.leaf_size
+    kept = int(kk.sum())
+    log(f"{name}: {sk.numel()} ray results, {int((sk < 2 ** 30).sum())} "
+        f"hits; {kept} of {walked} walked prims survive the cone test "
+        f"({kept / max(walked, 1):.4f}); t, slots and survivor counts equal "
+        f"conecull_plain, t and slots equal leafcull_cuda, bit for bit")
+    return kept, walked
+
+
+def conecull_bound(name, feats, rows, cones, cull, kept, walked):
+    """Bound of the phase-B walk: a cone test per walked prim and a
+    quadratic per (ray, survivor)."""
+    quads = kept * feats.shape[2]
+    n_bytes = nbytes(feats, rows, cones, cull.prims) \
+        + rows.shape[0] * feats[..., 0].numel() * 8 + rows[..., 0].numel() * 4
+    log(f"{name}: {walked} cone tests, {quads} (ray, survivor) tests, "
+        f"{n_bytes} bytes")
+    return bound(n_bytes, walked * OPS_PER_CONE + quads * OPS_PER_TEST)
+
+
+def compare_cull(name, rays, tiles, cand, counts):
+    """cull_cuda vs cull_plain: t and slots equal exactly. Returns the
+    kernel's (t, slot)."""
+    import torch
+    from tracer_torch.kernels.cull import cull_cuda, cull_plain
+    tk, sk = cull_cuda(rays, tiles, cand, counts)
+    tp, sp = cull_plain(rays, tiles, cand, counts)
+    torch.cuda.synchronize()
+    if not (torch.equal(sk, sp) and torch.equal(tk, tp)):
+        raise AssertionError(f"{name}: cull_cuda != plain on "
+                             f"{int((sk != sp).sum())} slot(s), "
+                             f"{int((tk != tp).sum())} t value(s)")
+    K = cand.shape[1]
+    walked = counts.reshape(-1).clamp(max=K)
+    log(f"{name}: {rays.shape[0]} packets, {int(walked.sum())} listed tiles "
+        f"walked (raw counts up to {int(counts.max())}, K = {K}), "
+        f"{int((sk >= 0).sum())} hits; t and slots equal bit for bit")
+    return tk, sk
+
+
+def cull_bound(name, rays, tiles, cand, counts):
+    """Bound of the packet cull: packets x 1024 x walked tiles x 128
+    b-form tests."""
+    from tracer_torch.kernels.traverse import PACKET
+    tiles_walked = int(counts.reshape(-1).clamp(max=cand.shape[1]).sum())
+    tests = tiles_walked * PACKET * 128
+    n_bytes = nbytes(rays, tiles, cand, counts) + rays.shape[0] * PACKET * 8
+    log(f"{name}: {tests} (ray, prim) tests, {n_bytes} bytes")
+    return bound(n_bytes, tests * OPS_PER_BFORM)
+
+
+def cull_rows(o, d, table, k):
+    """Packed rays and tile candidates of rays in order: (rays, cand,
+    counts, overflow)."""
+    from tracer_torch.intersect.cull import tile_candidates
+    from tracer_torch.kernels.leafcull import _pad_edge
+    from tracer_torch.kernels.traverse import pack_rays
+    rays, _, pad = pack_rays(o, d)
+    cand, counts, ovf = tile_candidates(_pad_edge(o, pad), _pad_edge(d, pad),
+                                        table, k)
+    return rays, cand, counts, bool(ovf)
+
+
+def packet_cull_walks(dev):
+    """Phase 3d: cull_cuda vs its plain version at 20k spheres, 16-prim
+    leaves, 64k + 37 direction-sorted origin rays: the full budget, an
+    overflowing budget (the walk stops at K), and the sentinel tile listed
+    after every packet's own tiles (which must change nothing)."""
+    import torch
+    from tracer_torch.bench import headline
+    from tracer_torch.bvh.builder import build_bvh
+    from tracer_torch.core.sort import sort_rays_by_direction
+    from tracer_torch.core.types import Ray
+    from tracer_torch.intersect.cull import build_leaf_table
+    from tracer_torch.kernels.cull import cull_tiles
+    from tracer_torch.kernels.traverse import pack_bvh
+    scene, _, o, d, _ = headline.benchmark_inputs(
+        dev, n_spheres=WALK_SPHERES, n_rays=WALK_RAYS + 37, world=500.0)
+    rs, _ = sort_rays_by_direction(Ray(o, d))
+    bvh = build_bvh(scene.centers, scene.radii, leaf_size=16,
+                    backend="native", device=dev)
+    table = build_leaf_table(bvh)
+    T = table.num_tiles
+    tiles = cull_tiles(pack_bvh(scene, bvh), T)
+    n = rs.origin.shape[0]
+    rays, cand, counts, ovf = cull_rows(rs.origin, rs.direction, table, T)
+    if ovf:
+        raise AssertionError("the packet cull overflowed at the full budget")
+    t0, s0 = compare_cull(f"packet cull {WALK_SPHERES} x {n}, full budget",
+                          rays, tiles, cand, counts)
+    _, cand_k, counts_k, ovf_k = cull_rows(rs.origin, rs.direction, table,
+                                           SMALL_CULL_K)
+    if not ovf_k:
+        raise AssertionError(f"a budget of {SMALL_CULL_K} tiles did not "
+                             f"overflow")
+    _, sk = compare_cull(f"packet cull {WALK_SPHERES} x {n}, budget "
+                         f"{SMALL_CULL_K} (overflowing)", rays, tiles, cand_k,
+                         counts_k)
+    tile = torch.where(sk >= 0, sk // 128, cand_k[:, :1])
+    if not (tile[:, :, None] == cand_k[:, None, :]).any(dim=2).all():
+        raise AssertionError("the packet cull walked past its K candidates")
+    listed = torch.cat([cand, torch.full_like(cand[:, :1], T)], dim=1)
+    t1, s1 = compare_cull(f"packet cull {WALK_SPHERES} x {n}, sentinel tile "
+                          f"listed", rays, tiles, listed, counts + 1)
+    if not (torch.equal(s0, s1) and torch.equal(t0, t1)):
+        raise AssertionError("the sentinel tile changed a result")
+
+
+def cull_slice(dev, scene, o, d, results):
+    """Phase 5b: the packet cull at full size, 100k spheres in 16-prim
+    leaves and the 512k origin rays sorted by direction, through
+    ``nearest_hit_cull_checked`` from K = 128; counters reset just before
+    and read just after. Returns the 16-prim-leaf BVH."""
+    import torch
+    from tracer_torch.bench.timing import time_cuda
+    from tracer_torch.bvh.builder import build_bvh
+    from tracer_torch.core.sort import sort_rays_by_direction
+    from tracer_torch.core.types import Ray
+    from tracer_torch.intersect.brute import nearest_hit_brute_fast
+    from tracer_torch.intersect.cull import build_leaf_table
+    from tracer_torch.kernels.conecull import compact_cuda
+    from tracer_torch.kernels.cull import (cull_cuda, cull_plain, cull_tiles,
+                                           nearest_hit_cull_checked)
+    from tracer_torch.kernels.traverse import pack_bvh
+    bvh = build_bvh(scene.centers, scene.radii, leaf_size=16,
+                    backend="native", device=dev)
+    packed = pack_bvh(scene, bvh)
+    table = build_leaf_table(bvh)
+    T = table.num_tiles
+    rs, _ = sort_rays_by_direction(Ray(o, d))
+    so, sd = rs.origin, rs.direction
+    cull_cuda.launches = compact_cuda.launches = 0
+    rec, esc = nearest_hit_cull_checked(rs, scene, packed, table, CULL_K)
+    torch.cuda.synchronize()
+    launches = {"cull_cuda": cull_cuda.launches,
+                "compact_cuda": compact_cuda.launches}
+    k = min(CULL_K, T)
+    for _ in range(esc):
+        k = min(2 * k, T)
+    log(f"packet cull slice launches: {launches}; {esc} escalation(s), "
+        f"settled on K = {k} of {T} tiles")
+    if min(launches.values()) < 1:
+        raise AssertionError("the packet cull slice did not run through "
+                             "every kernel")
+    rays, cand, counts, ovf = cull_rows(so, sd, table, k)
+    if ovf:
+        raise AssertionError("the packet cull overflowed at the end of "
+                             "escalation")
+    n = BRUTE_RAYS
+    on, dn = so[:n].contiguous(), sd[:n].contiguous()
+    ids = rec.index.reshape(-1)[:n]
+    sphere_of, t_of = sphere_of_in(scene), ref_t_of(on, dn, scene)
+    ib_b = bform_brute_ids(on, dn, scene)
+    check_choices(f"packet cull vs b-form brute (first {n} sorted rays)",
+                  on, dn, sphere_of, rec.t.reshape(-1)[:n], ids, t_of(ib_b),
+                  ib_b, -1)
+    ib = nearest_hit_brute_fast(Ray(on, dn), scene, block=1024).index
+    check_choices(f"packet cull vs nearest_hit_brute_fast (first {n} "
+                  f"sorted rays)", on, dn, sphere_of, rec.t.reshape(-1)[:n],
+                  ids, t_of(ib), ib, -1, MIN_AGREE_OTHER_ROUNDING)
+    tiles = cull_tiles(packed, T)
+    compare_cull(f"packet cull 100k x {o.shape[0]}, K = {k}", rays, tiles,
+                 cand, counts)
+    ms = time_cuda(cull_cuda, rays, tiles, cand, counts)
+    pms = time_cuda(cull_plain, rays, tiles, cand, counts, warmup=0, iters=1)
+    bms, bby = cull_bound("packet cull 100k x 512k", rays, tiles, cand,
+                          counts)
+    log(f"packet cull 100k x 512k: cuda {ms:.4f} ms, plain {pms:.4f} ms, "
+        f"bound {bms:.4f} ms ({bby})")
+    results["cull_cuda"] = dict(
+        ms=ms, plain_ms=pms, library_ms=None, bound_ms=bms, bound_by=bby,
+        max_abs_err=0, launches=launches["cull_cuda"])
+    return bvh
+
+
+def phase_b_slice(dev, scene, tables, bvh16, o, d, t_ref, sid_ref, results):
+    """Phase 5c: the phase-B query at full size, 100k x 512k, on the
+    headline tables (leaf 32) and on 16-prim leaves: prep_rays_bucketed,
+    phase A with cones and the cone-cull walk through
+    ``nearest_hit_conecull_t`` with the checked queries' budget doubling;
+    counters reset just before and read just after. At leaf 32 the slots
+    and t must equal the headline leaf-walk query's (``t_ref``,
+    ``sid_ref``, ray order) exactly; at both sizes the walk must equal
+    conecull_plain and leafcull_cuda on its rows, and the ids brute force."""
+    import torch
+    from tracer_torch.bench import headline
+    from tracer_torch.bench.timing import time_cuda
+    from tracer_torch.core.sort import prep_rays_bucketed
+    from tracer_torch.core.types import Ray
+    from tracer_torch.intersect.brute import brute_t_fast
+    from tracer_torch.kernels.conecull import (build_cone_tables, compact_cuda,
+                                               conecull_cuda, conecull_plain,
+                                               nearest_hit_conecull_t)
+    from tracer_torch.kernels.leafcull import (leafcull_cuda,
+                                               pack_ray_features, _escalate)
+    S, SP = headline.S, headline.SP
+    for leaf, tb in ((32, tables), (16, build_cone_tables(scene, bvh16))):
+        conecull_cuda.launches = compact_cuda.launches = 0
+        padded, pdest = prep_rays_bucketed(Ray(o, d), SP,
+                                           cell_bits=headline.CELL_BITS)
+        (t, sid, ovf), esc = _escalate(
+            lambda k0, k: (lambda r: (r, r[2]))(nearest_hit_conecull_t(
+                padded, tb, k0, k, S, SP)), tb, headline.MG, headline.MC)
+        torch.cuda.synchronize()
+        launches = {"conecull_cuda": conecull_cuda.launches,
+                    "compact_cuda": compact_cuda.launches}
+        mg = min(headline.MG << esc, tb.cull.num_groups)
+        mc = min(headline.MC << esc, tb.cull.leaves_per_chunk)
+        log(f"phase B slice, leaf {leaf}: launches {launches}; {esc} "
+            f"escalation(s), budgets MG {mg} / MC {mc}")
+        if min(launches.values()) < 1:
+            raise AssertionError("the phase-B slice did not run through "
+                                 "every kernel")
+        if bool(ovf):
+            raise AssertionError("phase B overflowed at the end of "
+                                 "escalation")
+        t, sid = t[pdest], sid[pdest]
+        if leaf == 32:
+            if not (torch.equal(sid, sid_ref) and torch.equal(t, t_ref)):
+                raise AssertionError(
+                    f"phase B and the headline leaf walk differ on "
+                    f"{int((sid != sid_ref).sum())} id(s), "
+                    f"{int((t != t_ref).sum())} t value(s)")
+            log(f"phase B leaf 32: ids and t equal the headline leaf-walk "
+                f"query's on {sid.numel()} rays")
+        n = BRUTE_RAYS
+        tb_, ib = brute_t_fast(o[:n], d[:n], scene.centers, scene.radii,
+                               block=1024)
+        check_choices(f"phase B leaf {leaf} vs brute_t_fast (first {n} "
+                      f"rays)", o[:n], d[:n], sphere_of_in(scene), t[:n],
+                      sid[:n], tb_, ib, -1)
+        feats, _, _ = pack_ray_features(padded.origin, padded.direction, S,
+                                        SP)
+        rows, cones = phase_a(feats, tb, mg, mc)
+        cull = tb.cull
+        kept, walked = compare_conecull(
+            f"phase B walk 100k x {o.shape[0]}, leaf {leaf}", feats, rows,
+            cones, cull)
+        args = walk_args(feats, rows, cull)[2:]
+        ms = time_cuda(conecull_cuda, feats, rows, cones, *args)
+        lms = time_cuda(leafcull_cuda, feats, rows, *args)
+        pms = time_cuda(conecull_plain, feats, rows, cones, *args,
+                        warmup=0, iters=1)
+        bms, bby = conecull_bound(f"phase B walk, leaf {leaf}", feats, rows,
+                                  cones, cull, kept, walked)
+        log(f"phase B walk, leaf {leaf}: cuda {ms:.4f} ms (leafcull_cuda on "
+            f"the same rows {lms:.4f} ms), plain {pms:.4f} ms, bound "
+            f"{bms:.4f} ms ({bby}); survivor share {kept / walked:.4f}")
+        if leaf == 32:
+            results["conecull_cuda"] = dict(
+                ms=ms, plain_ms=pms, library_ms=None, bound_ms=bms,
+                bound_by=bby, max_abs_err=0,
+                launches=launches["conecull_cuda"])
+
+
 def main() -> int:
     import torch
     t_start = time.perf_counter()
@@ -702,11 +1039,10 @@ def main() -> int:
     from tracer_torch.intersect.brute import any_hit_brute, brute_t_fast
     from tracer_torch.core.types import Ray
     from tracer_torch.kernels.conecull import (
-        cone_candidates, compact_cuda, compact_ascending_rows_plain,
-        nearest_hit_hybrid_feats)
+        compact_cuda, compact_ascending_rows_plain, nearest_hit_hybrid_feats)
     from tracer_torch.kernels.leafcull import (
         anyhit_cuda, anyhit_plain, leafcull_cuda, leafcull_plain,
-        prep_feats_bucketed)
+        pack_ray_features, prep_feats_bucketed)
     from tracer_torch.kernels.tlas import (
         nearest_hit_tlas_feats, routed_cuda, routed_plain, tlas_candidates)
     results = {}
@@ -717,9 +1053,7 @@ def main() -> int:
                                    cell_bits=headline.CELL_BITS, t_max=tm)[0]
 
     def phase_a_rows(feats, tables, mc=headline.MC):
-        rows = cone_candidates(feats, tables, headline.MG, mc)[0]
-        return rows.reshape(tables.cull.num_chunks, feats.shape[0],
-                            headline.S, rows.shape[-1])
+        return phase_a(feats, tables, mc=mc)[0]
 
     # -- 3a. compact_cuda vs plain at the 100k query's phase-A shapes -----
     gen = torch.Generator().manual_seed(7)
@@ -766,6 +1100,10 @@ def main() -> int:
         if world == 500.0:
             walk_err = max(walk_err, compare_walk(
                 f"walk {name} ({C} chunk(s))", feats, rows, tables.cull))
+            compare_conecull(f"phase B {name} ({C} chunk(s))", feats, rows,
+                             phase_a(feats, tables, mc=mc)[1], tables.cull)
+            if not table_args and mc == headline.MC:
+                base = (tables, o, d)
         sfeats = shadow_prep(o, d, SMALL_T_MAX if world == 500.0 else 500.0)
         full = compare_anyhit(f"any-hit {name} ({C} chunk(s))", sfeats,
                               phase_a_rows(sfeats, tables, mc), tables.cull)
@@ -790,8 +1128,21 @@ def main() -> int:
             log(f"TLAS {name}: slots equal the dense query on "
                 f"{s_r.numel()} rays")
 
+    # Unsorted rays: subpackets whose directions straddle the origin get
+    # degenerate cones, which accept every prim.
+    tables, o, d = base
+    ufeats, _, _ = pack_ray_features(o, d, headline.S, headline.SP)
+    urows, ucones = phase_a(ufeats, tables)
+    n_deg = int((ucones[..., 6] >= 1e17).sum())
+    if not n_deg:
+        raise AssertionError("unsorted rays made no degenerate cone")
+    compare_conecull(f"phase B 20k x 64k, unsorted ({n_deg} of "
+                     f"{ucones.shape[0] * ucones.shape[1]} cones degenerate)",
+                     ufeats, urows, ucones, tables.cull)
+
     tie_breaks(dev)
     packet_and_tile_walks(dev)
+    packet_cull_walks(dev)
 
     # -- 4. the closest-hit slice at full size -----------------------------
     scene, tables, o, d, build_ms = headline.benchmark_inputs(dev)
@@ -818,13 +1169,6 @@ def main() -> int:
     n = BRUTE_RAYS
     tb, ib = brute_t_fast(o[:n], d[:n], scene.centers, scene.radii,
                           block=1024)
-
-    def sphere_of_in(sc):
-        def sphere_of(s):
-            s = s.clamp(min=0).long()
-            c = sc.centers[s]
-            return c, (c * c).sum(-1) - sc.radii[s] * sc.radii[s]
-        return sphere_of
 
     check_choices(f"slice vs brute_t_fast (first {n} rays)", o[:n], d[:n],
                   sphere_of_in(scene), tr[:n], sid[:n], tb, ib, -1)
@@ -883,6 +1227,10 @@ def main() -> int:
     results["anyhit_cuda"] = dict(
         ms=any_ms, plain_ms=any_plain_ms, library_ms=None, bound_ms=ab,
         bound_by=aby, max_abs_err=0, launches=s_launches["anyhit_cuda"])
+
+    # -- 5b, 5c. the packet cull and phase B at full size -------------------
+    bvh16 = cull_slice(dev, scene, o, d, results)
+    phase_b_slice(dev, scene, tables, bvh16, o, d, tr, sid, results)
 
     # -- 6. the 10M TLAS slice at full size ---------------------------------
     big, btables, bo, bd, lbvh_ms, tables_ms = large.benchmark_inputs(dev)
@@ -968,6 +1316,10 @@ def main() -> int:
                           "tracer/kernels/traverse_pallas.py:126"),
         "tilecull_cuda": ("tracer_torch/csrc/tilecull.cu",
                           "tracer/kernels/tilecull.py:149"),
+        "conecull_cuda": ("tracer_torch/csrc/conecull.cu",
+                          "tracer/kernels/conecull.py:562"),
+        "cull_cuda": ("tracer_torch/csrc/cull.cu",
+                      "tracer/kernels/cull_pallas.py:57"),
     }
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")

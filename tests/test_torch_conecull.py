@@ -4,8 +4,11 @@ compactor, cone_candidates) and the whole closest-hit slice.
 Both sides take the same feature planes, so rows and overflow flags must be
 identical, including group-mode rows (leaf budget 7), C > 1 chunks (small
 max_chunk_bytes) and overflow (unsorted rays over a 16k-sphere scene with
-more groups than a group-mode row holds). The JAX side
-runs its Pallas kernels in interpret mode, each case once per module.
+more groups than a group-mode row holds). The cones match to rounding: the
+JAX side takes cos through an f32 matmul, the port sums u.d per ray, so
+each column is held to 1e-6 relative and 1e-6 absolute (rho = 1e18 where
+degenerate), and the degenerate flag exactly. The JAX side runs its Pallas
+kernels in interpret mode, each case once per module.
 """
 
 import jax.numpy as jnp
@@ -15,6 +18,7 @@ import torch
 
 import tracer_torch as tt
 from tests import torch_parity as tp
+from tests.torch_parity import one_thread  # noqa: F401
 from tracer.core.sort import prep_rays_bucketed as j_prep_rays
 from tracer.core.types import Ray as JRay
 from tracer.intersect.brute import nearest_hit_brute as j_brute
@@ -67,10 +71,10 @@ def jax_rows(world):
     """JAX cone_candidates (interpret mode) for every row case, once."""
     out = {}
     for name, (key, unsorted, mg, mc) in ROW_CASES.items():
-        rows, _, ovf = jcone.cone_candidates(
+        rows, cones, ovf = jcone.cone_candidates(
             world["feats"][unsorted], world["tables"][key][0], mg, mc,
             interpret=True)
-        out[name] = (tp.np_(rows), bool(ovf))
+        out[name] = (tp.np_(rows), bool(ovf), tp.np_(cones))
     return out
 
 
@@ -121,7 +125,7 @@ def test_cone_candidates_rows_match_jax(world, jax_rows, case):
     feats = tp.to_torch(world["feats"][unsorted])
     rows, cones, ovf = tt.cone_candidates(feats, world["tables"][key][1],
                                           mg, mc)
-    want_rows, want_ovf = jax_rows[case]
+    want_rows, want_ovf, _ = jax_rows[case]
     assert cones is None and rows.dtype == torch.int32
     np.testing.assert_array_equal(tp.np_(rows), want_rows)
     assert bool(ovf) == want_ovf
@@ -130,6 +134,24 @@ def test_cone_candidates_rows_match_jax(world, jax_rows, case):
     if case == "chunked":
         assert want_rows.shape[0] > 1
     assert want_ovf == (case == "overflow")
+
+
+@pytest.mark.parametrize("case", sorted(ROW_CASES))
+def test_cone_from_feats_matches_jax(world, jax_rows, case):
+    """The port's cones, built as the phase-B path builds them, against
+    the cones JAX's cone_candidates returns for the same feature planes."""
+    key, unsorted, mg, mc = ROW_CASES[case]
+    feats = tp.to_torch(world["feats"][unsorted])
+    cones = tcone.cone_from_feats(feats, *tcone.bounds_from_feats(feats),
+                                  world["tables"][key][1].r_max)
+    want = jax_rows[case][2]
+    assert tuple(cones.shape) == want.shape == (feats.shape[0] * tp.S,
+                                                tcone.CONE_FEAT)
+    got = tp.np_(cones)
+    degenerate = want[:, 6] >= 1e17
+    np.testing.assert_array_equal(got[:, 6] >= 1e17, degenerate)
+    assert degenerate.all() if unsorted else not degenerate.any()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
 
 
 # ---------------------------------------------------------------------------

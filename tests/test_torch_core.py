@@ -19,13 +19,18 @@ import torch
 import tracer_torch as tt
 from tests import torch_parity as tp
 from tracer.core import vecmath as jvec
-from tracer.core.sort import (octahedral_codes as j_codes,
-                              plan_bucket_pad as j_plan)
+from tracer.core.sort import (bucket_pad_sorted as j_bucket_pad,
+                              gather_rays as j_gather,
+                              octahedral_codes as j_codes,
+                              plan_bucket_pad as j_plan,
+                              prep_rays_bucketed as j_prep_rays,
+                              sort_rays_octahedral as j_sort_oct)
 from tracer.core.types import Ray as JRay
 from tracer.intersect import brute as jbrute
 from tracer.intersect import sphere as jsphere
 from tracer.kernels import conecull as jcone
 from tracer.kernels import leafcull as jleaf
+from tracer_torch.core import sort as tsort
 from tracer_torch.core import vecmath as tvec
 from tracer_torch.core.sort import octahedral_codes, plan_bucket_pad
 from tracer_torch.kernels import conecull as tcone
@@ -250,6 +255,64 @@ def test_prep_feats_bucketed_matches_jax(with_t_max):
         tp.np_(jcone.kernel_order_dest(jd, tp.S, tp.SP)))
 
 
+def _prep_rays(b=1500, seed=6):
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-3, 3, (b, 3)).astype(np.float32)
+    d = np.concatenate([tp.origin_rays_np(b - 200, seed=seed)[1],
+                        _dirs("duplicates", 200)]).astype(np.float32)
+    return o, d
+
+
+@pytest.mark.parametrize("subpacket,cell_bits", [(64, 4), (128, 9)])
+def test_prep_rays_bucketed_matches_jax(subpacket, cell_bits):
+    """Octahedral sort + cell bucket-pad in one gather: padded rays and
+    dest exactly (duplicate directions included, so the sort must be
+    stable)."""
+    o, d = _prep_rays()
+    jr, jdest = j_prep_rays(JRay(origin=jnp.asarray(o),
+                                 direction=jnp.asarray(d)), subpacket,
+                            cell_bits=cell_bits)
+    r, dest = tt.prep_rays_bucketed(tt.Ray(origin=torch.as_tensor(o),
+                                           direction=torch.as_tensor(d)),
+                                    subpacket, cell_bits=cell_bits)
+    np.testing.assert_array_equal(tp.np_(r.origin), tp.np_(jr.origin))
+    np.testing.assert_array_equal(tp.np_(r.direction), tp.np_(jr.direction))
+    np.testing.assert_array_equal(tp.np_(dest), tp.np_(jdest))
+    assert r.origin.shape[0] == o.shape[0] + (1 << cell_bits) * subpacket
+
+
+def test_bucket_pad_sorted_and_gather_rays_match_jax():
+    o, d = _prep_rays(seed=7)
+    codes = tp.np_(j_codes(jnp.asarray(d)))
+    order = np.argsort(codes, kind="stable")
+    o, d, codes = o[order], d[order], codes[order]
+    jo, jd, jdest = j_bucket_pad(jnp.asarray(o), jnp.asarray(d),
+                                 jnp.asarray(codes), 64, cell_bits=4)
+    to, td, dest = tsort.bucket_pad_sorted(
+        torch.as_tensor(o), torch.as_tensor(d),
+        torch.as_tensor(codes.astype(np.int64)), 64, cell_bits=4)
+    for got, want in ((to, jo), (td, jd), (dest, jdest)):
+        np.testing.assert_array_equal(tp.np_(got), tp.np_(want))
+    idx = np.random.default_rng(8).integers(0, o.shape[0], 999)
+    jg = j_gather(jnp.asarray(o), jnp.asarray(d), jnp.asarray(idx))
+    tg = tsort.gather_rays(torch.as_tensor(o), torch.as_tensor(d),
+                           torch.as_tensor(idx))
+    for got, want in zip(tg, jg):
+        np.testing.assert_array_equal(tp.np_(got), tp.np_(want))
+
+
+def test_sort_rays_octahedral_matches_jax():
+    o, d = _prep_rays(seed=9)
+    jr, jinv = j_sort_oct(JRay(origin=jnp.asarray(o),
+                               direction=jnp.asarray(d)))
+    r, inv = tt.sort_rays_octahedral(tt.Ray(origin=torch.as_tensor(o),
+                                            direction=torch.as_tensor(d)))
+    np.testing.assert_array_equal(tp.np_(r.origin), tp.np_(jr.origin))
+    np.testing.assert_array_equal(tp.np_(r.direction), tp.np_(jr.direction))
+    np.testing.assert_array_equal(tp.np_(inv), tp.np_(jinv))
+    np.testing.assert_array_equal(tp.np_(r.direction[inv]), d)
+
+
 def test_pack_ray_features_matches_jax():
     rng = np.random.default_rng(5)
     o = rng.uniform(-3, 3, (700, 3)).astype(np.float32)
@@ -283,6 +346,7 @@ SLICE_MODULES = [
     "tracer_torch.intersect.cull", "tracer_torch.kernels.traverse",
     "tracer_torch.kernels.tilecull", "tracer_torch.integrator.wavefront",
     "tracer_torch.cli", "tracer_torch.bench.render",
+    "tracer_torch.kernels.cull", "tracer_torch.bench.headtohead",
 ]
 
 
@@ -486,7 +550,7 @@ def test_wrappers_refuse_tensors_off_cpu_and_cuda():
 
 
 def test_device_timing_and_bench_refuse_without_cuda(monkeypatch):
-    from tracer_torch.bench import headline, large, render
+    from tracer_torch.bench import headline, headtohead, large, render
     from tracer_torch.bench.timing import time_cuda
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -494,6 +558,7 @@ def test_device_timing_and_bench_refuse_without_cuda(monkeypatch):
     assert headline.main() == 1
     assert large.main() == 1
     assert render.main() == 1
+    assert headtohead.main([]) == 1
 
 
 def test_entry_points_build_on_cuda_unless_asked(monkeypatch):

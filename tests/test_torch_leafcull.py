@@ -14,10 +14,11 @@ import torch
 
 import tracer_torch as tt
 from tests import torch_parity as tp
+from tests.torch_parity import one_thread  # noqa: F401
 from tracer.kernels import conecull as jcone
 from tracer.kernels.leafcull import _leafcull_call as j_leafcull_call
 from tracer_torch.kernels.leafcull import (leafcull_plain, pack_ray_features,
-                                           _BIG, _NOSLOT)
+                                           _walk_pairs, _BIG, _NOSLOT)
 
 # case -> (spheres, leaf size, max_candidates, max_chunk_bytes)
 CASES = {
@@ -78,8 +79,17 @@ def test_leafcull_call_matches_jax(case):
 
 
 def test_leafcull_plain_slicing_does_not_change_results(case):
+    """Slices of about a sixth of the walked (row, leaf) pairs each: many
+    slices, each merged into rows that earlier slices already hold."""
+    cull = case["tables"].cull
+    rows = case["rows"]
+    pairs = _walk_pairs(rows.reshape(-1, rows.shape[-1]),
+                        cull.leaves_per_group)[0].shape[0]
+    step = pairs // 6 + 1
+    assert pairs > 2 * step
     t1, s1 = leafcull_plain(*_walk_args(case))
-    t2, s2 = leafcull_plain(*_walk_args(case), pair_elems=1)
+    t2, s2 = leafcull_plain(*_walk_args(case),
+                            pair_elems=step * tp.SP * cull.leaf_size)
     assert torch.equal(s1, s2)
     hit = s1 < _NOSLOT
     assert torch.equal(t1[hit], t2[hit])

@@ -27,6 +27,7 @@ import torch
 
 import tracer_torch as tt
 from tests import torch_parity as tp
+from tests.torch_parity import one_thread  # noqa: F401
 from tracer.config import TracerConfig as JConfig
 from tracer.core import sampling as jsampling
 from tracer.core.sort import sort_rays_by_direction as j_sort_rays
@@ -51,16 +52,6 @@ from tracer_torch.scene.camera import camera_rays
 W, H, DEPTH = 32, 24, 3
 LIGHT = (0.0, 200.0, 0.0)
 IMPLS = ["brute", "dense", "traverse", "pallas", "tilecull", "leafcull"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """Small tensor indexing on many CPU threads costs milliseconds per op
-    here; the plain walks index every step."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _interactive_scene(n, seed):

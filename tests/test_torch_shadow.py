@@ -19,6 +19,7 @@ import torch
 
 import tracer_torch as tt
 from tests import torch_parity as tp
+from tests.torch_parity import one_thread  # noqa: F401
 from tracer.core.types import Ray as JRay
 from tracer.intersect import brute as jbrute
 from tracer.kernels import conecull as jcone

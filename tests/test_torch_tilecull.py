@@ -16,6 +16,7 @@ import torch
 
 import tracer_torch as tt
 from tests import torch_parity as tp
+from tests.torch_parity import one_thread  # noqa: F401
 from tracer.core.types import Ray as JRay
 from tracer.intersect import cull as jcull
 from tracer.kernels import tilecull as jtile
@@ -29,16 +30,6 @@ from tracer_torch.kernels.tilecull import (
 from tracer_torch.kernels.traverse import pack_bvh
 
 S = 2          # subpackets per packet in these tests
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """Small tensor indexing on many CPU threads costs milliseconds per op
-    here; the plain walk indexes every slice."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -18,6 +18,7 @@ import torch
 
 import tracer_torch as tt
 from tests import torch_parity as tp
+from tests.torch_parity import one_thread  # noqa: F401
 from tracer.core.types import Ray as JRay
 from tracer.intersect.sphere import ray_sphere_t as j_ray_sphere_t
 from tracer.intersect.traverse import nearest_hit_bvh as j_nearest_bvh
@@ -28,16 +29,6 @@ from tracer_torch.intersect.traverse import nearest_hit_bvh
 from tracer_torch.kernels.traverse import (PACKET, nearest_hit_bvh_packets,
                                            pack_bvh, pack_rays, traverse_call,
                                            traverse_plain)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """Small tensor indexing on many CPU threads costs milliseconds per op
-    here; the plain walks index every step."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _rays_np(b, span, seed):

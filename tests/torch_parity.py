@@ -9,6 +9,7 @@ its plain PyTorch versions on CPU tensors.
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 import tracer_torch as tt
@@ -16,6 +17,18 @@ from tracer.bvh.builder import build_bvh as jax_build_bvh
 from tracer.scene.scene import fixed_scene
 
 S, SP, CELL_BITS = 4, 64, 4      # small packets for CPU-sized tests
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Torch on one CPU thread for a test module: small tensor indexing on
+    many threads costs milliseconds per op, and far more when other test
+    processes share the cores; the plain walks and the blocked phase A
+    index every slice. A module turns it on by importing it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def np_(x) -> np.ndarray:
@@ -102,6 +115,43 @@ def assert_walk_t_close(t, t_ref, feats, slot, prims, rtol=1e-5):
     bad = np.abs(got - want) > tol
     assert not bad.any(), (f"{bad.sum()} of {hit.sum()} hits outside "
                            f"tolerance ({graze.sum()} grazing)")
+
+
+def assert_ray_t_close(t, t_ref, o, d, ids, centers, radii, rtol=1e-5):
+    """Closest-hit t (B,) in ray order against a reference at every hit,
+    where ``ids`` (B,) are the spheres both sides chose (-1 on miss): the
+    leaf-walk tolerance of :func:`assert_walk_t_close`, each ray its own
+    one-ray subpacket."""
+    o, d = to_torch(o).reshape(-1, 3), to_torch(d).reshape(-1, 3)
+    ids = to_torch(ids).reshape(-1).long()
+    feats, _, _ = tt.pack_ray_features(o, d, 1, 1)
+    c = to_torch(centers)[ids.clamp(min=0)]
+    r = to_torch(radii)[ids.clamp(min=0)]
+    ccr = c[:, 0] * c[:, 0] + c[:, 1] * c[:, 1] + c[:, 2] * c[:, 2] - r * r
+    prims = torch.cat([c, ccr[:, None]], dim=1)
+    slot = torch.where(ids >= 0, torch.arange(ids.shape[0]), 2 ** 30)
+    assert_walk_t_close(np_(t).reshape(-1, 1, 1), np_(t_ref).reshape(-1, 1, 1),
+                        feats, slot.reshape(-1, 1, 1), prims, rtol=rtol)
+
+
+def assert_cone_tables_match(jt, t):
+    """The port's cone tables equal the JAX ones built from the same scene
+    and tree: boxes, groups, slot map, leaf-box rows, r_max, and the prims
+    of every real slot (``entries_to_prims``)."""
+    jc, tc = jt.cull, t.cull
+    for f in ("leaf_size", "leaves_per_group", "leaves_per_chunk",
+              "num_leaves", "num_real_leaves", "num_chunks", "num_groups"):
+        assert getattr(tc, f) == getattr(jc, f), f
+    for f in ("leaf_min", "leaf_max", "group_min", "group_max",
+              "slot_to_sphere"):
+        np.testing.assert_array_equal(np_(getattr(tc, f)),
+                                      np_(getattr(jc, f)), err_msg=f)
+    np.testing.assert_array_equal(np_(t.leaf_boxes), np_(jt.leaf_boxes))
+    assert t.r_max == jt.r_max
+    prims = np_(tc.prims)
+    real = np_(tc.slot_to_sphere).reshape(prims.shape[:2]) >= 0
+    np.testing.assert_array_equal(
+        prims[real], entries_to_prims(jc.entries, jc.leaf_size)[real])
 
 
 def entries_to_prims(entries, leaf_size: int) -> np.ndarray:

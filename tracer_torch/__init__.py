@@ -8,7 +8,10 @@ torch and never JAX. The query runs build -> prep -> phase A -> leaf walk:
                               prep_feats_bucketed, nearest_hit_hybrid_feats,
                               kernel_order_dest)
 
-``occluded_hybrid_feats`` is the any-hit (shadow) query on the same path;
+``occluded_hybrid_feats`` is the any-hit (shadow) query on the same path,
+``nearest_hit_conecull_checked`` the same closest hit through the phase-B
+cone-cull walk (on ``prep_rays_bucketed`` rays), and
+``nearest_hit_cull_checked`` through the 1024-ray packet cull;
 scenes of many table chunks go through ``nearest_hit_tlas_feats`` (the
 TLAS-routed path), typically over ``build_bvh_device``'s LBVH. Scenes and
 trees are built on the CUDA device unless ``device`` names another.
@@ -50,7 +53,14 @@ from tracer_torch.kernels.conecull import (ConeTables, build_cone_tables,
                                            kernel_order_dest,
                                            nearest_hit_hybrid_feats,
                                            nearest_hit_hybrid_raw,
-                                           occluded_hybrid_feats)
+                                           occluded_hybrid_feats,
+                                           conecull_call,
+                                           nearest_hit_conecull_t,
+                                           nearest_hit_conecull,
+                                           nearest_hit_conecull_checked,
+                                           nearest_hit_hybrid_t)
+from tracer_torch.core.sort import (prep_rays_bucketed, sort_rays_octahedral,
+                                    sort_rays_by_direction)
 from tracer_torch.kernels.tlas import (route_pairs, tlas_candidates,
                                        routed_call, nearest_hit_tlas_feats)
 from tracer_torch.kernels.leafcull import (nearest_hit_leafcull,
@@ -58,13 +68,16 @@ from tracer_torch.kernels.leafcull import (nearest_hit_leafcull,
                                            occluded_leafcull,
                                            occluded_leafcull_checked)
 from tracer_torch.intersect.traverse import nearest_hit_bvh
-from tracer_torch.intersect.cull import LeafTable, build_leaf_table
+from tracer_torch.intersect.cull import (LeafTable, build_leaf_table,
+                                         tile_candidates)
 from tracer_torch.kernels.traverse import (PackedBVH, pack_bvh,
                                            traverse_call,
                                            nearest_hit_bvh_packets)
 from tracer_torch.kernels.tilecull import (tilecull_call,
                                            nearest_hit_tilecull,
                                            nearest_hit_tilecull_checked)
+from tracer_torch.kernels.cull import (cull_call, nearest_hit_cull,
+                                       nearest_hit_cull_checked)
 from tracer_torch.integrator.wavefront import (Accumulator, bounce_noise,
                                                render, render_direct,
                                                sky_color, trace_direct,
@@ -89,5 +102,9 @@ __all__ = [
     "traverse_call", "nearest_hit_bvh_packets", "tilecull_call",
     "nearest_hit_tilecull", "nearest_hit_tilecull_checked", "Accumulator",
     "bounce_noise", "render", "render_direct", "sky_color", "trace_direct",
-    "trace_radiance",
+    "trace_radiance", "conecull_call", "nearest_hit_conecull_t",
+    "nearest_hit_conecull", "nearest_hit_conecull_checked",
+    "nearest_hit_hybrid_t", "prep_rays_bucketed", "sort_rays_octahedral",
+    "sort_rays_by_direction", "tile_candidates", "cull_call",
+    "nearest_hit_cull", "nearest_hit_cull_checked",
 ]

@@ -1,7 +1,6 @@
 """Octahedral ray sorting and cell bucket-padding for packet coherence.
 
-PyTorch counterpart of the parts of ``tracer/core/sort.py`` that the
-queries and the renderer run. The cull stages treat every ``subpacket``
+PyTorch counterpart of ``tracer/core/sort.py``. The cull stages treat every ``subpacket``
 consecutive rays as one frustum, so rays are sorted by a Morton code of the
 octahedral direction map and padded at coarse code-cell boundaries, which
 keeps every subpacket inside one narrow direction cell. The renderer's
@@ -116,3 +115,45 @@ def plan_bucket_pad(sorted_codes: Tensor, subpacket: int,
     src = torch.clamp(torch.minimum(pos - cum[0], cum[1]), 0, b - 1)
     dest = torch.arange(b, dtype=torch.int64, device=dev) + cum[2, :b]
     return src, dest
+
+
+def gather_rays(o: Tensor, d: Tensor, idx: Tensor):
+    """(o[idx], d[idx]) through one gather of packed (B, 8) rows."""
+    packed = torch.cat([o, d, torch.zeros_like(o[:, :2])], dim=1)[idx]
+    return packed[:, 0:3], packed[:, 3:6]
+
+
+def bucket_pad_sorted(o: Tensor, d: Tensor, codes: Tensor, subpacket: int,
+                      cell_bits: int = 8):
+    """Pad a code-sorted ray stream at the boundaries of 2^cell_bits
+    code-prefix cells, so that no subpacket straddles two cells. o/d must be
+    sorted by ``codes`` (ascending). Returns (o_padded, d_padded, dest):
+    padding slots replicate the previous real ray, dest (B,) int64 maps each
+    input ray to its slot; the padded length is B + 2^cell_bits * subpacket.
+    """
+    src, dest = plan_bucket_pad(codes, subpacket, cell_bits)
+    op, dp = gather_rays(o, d, src)
+    return op, dp, dest
+
+
+def prep_rays_bucketed(rays: Ray, subpacket: int, cell_bits: int = 8):
+    """Octahedral sort and cell bucket-pad in one gather: (padded Ray, dest)
+    with dest (B,) int64 mapping each input ray to its padded slot."""
+    o = rays.origin.reshape(-1, 3)
+    d = rays.direction.reshape(-1, 3)
+    sc, perm = torch.sort(octahedral_codes(d), stable=True)
+    src, dest_sorted = plan_bucket_pad(sc, subpacket, cell_bits)
+    op, dp = gather_rays(o, d, perm[src])
+    dest = torch.empty_like(dest_sorted)
+    dest[perm] = dest_sorted
+    return Ray(origin=op, direction=dp), dest
+
+
+def sort_rays_octahedral(rays: Ray):
+    """Sort a flat ray batch by octahedral Morton code (stable). Returns
+    (sorted rays, inverse permutation), as :func:`sort_rays_by_direction`."""
+    o = rays.origin.reshape(-1, 3)
+    d = rays.direction.reshape(-1, 3)
+    perm = torch.argsort(octahedral_codes(d), stable=True)
+    inv = torch.argsort(perm, stable=True)
+    return Ray(origin=o[perm], direction=d[perm]), inv

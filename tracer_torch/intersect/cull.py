@@ -6,7 +6,8 @@ box) are slab-tested against every leaf AABB at once with interval
 arithmetic. The test over-approximates every per-ray slab test, so no
 (ray, prim) hit is lost as long as a packet's surviving tiles fit its
 budget. Leaves sit in prim-slot order and group into 128-slot tiles, the
-unit of the tile-cull walk (``kernels/tilecull.py``).
+unit of the tile-cull walk (``kernels/tilecull.py``) and of the packet cull
+(``kernels/cull.py``), whose candidate lists :func:`tile_candidates` makes.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from torch import Tensor
 
 from tracer_torch.bvh.flat import FlatBVH
 from tracer_torch.intersect.sphere import EPSILON
+from tracer_torch.kernels.conecull import compact_ascending_rows
 
 LANES = 128          # prim slots per tile
 PACKET = 8 * LANES   # rays per packet in packet_bounds
@@ -26,6 +28,7 @@ PACKET = 8 * LANES   # rays per packet in packet_bounds
 # Finite stand-in for +/-inf: keeps interval products NaN-free while still
 # dwarfing any real scene coordinate.
 _BIG = 1.0e18
+_BOUNDS_BLOCK = 256  # packets per block of the slab test in packet_tile_hit
 
 
 @dataclass
@@ -115,3 +118,63 @@ def packet_leaf_hit(o_lo, o_hi, d_lo, d_hi, table: LeafTable) -> Tensor:
     real = torch.arange(table.leaf_min.shape[0],
                         device=hit.device) < table.num_leaves
     return hit & real[None, :]
+
+
+def packet_tile_hit(origin: Tensor, direction: Tensor, table: LeafTable,
+                    packet: int = PACKET) -> Tensor:
+    """(P, T) bool: tile t of the table holds a leaf that packet p's bounds
+    slab-hit (:func:`packet_leaf_hit`), for consecutive ``packet``-ray
+    packets. The test runs over blocks of packets, so its (P, L, 3)
+    temporaries stay small at full batches."""
+    T = table.num_tiles
+    lpt = LANES // table.leaf_size
+    o_lo, o_hi, d_lo, d_hi = packet_bounds(origin, direction, packet)
+    P = o_lo.shape[0]
+    tile_hit = torch.empty((P, T), dtype=torch.bool, device=origin.device)
+    for i in range(0, P, _BOUNDS_BLOCK):
+        j = slice(i, i + _BOUNDS_BLOCK)
+        hit = packet_leaf_hit(o_lo[j], o_hi[j], d_lo[j], d_hi[j], table)
+        tile_hit[j] = hit.reshape(hit.shape[0], T, lpt).any(-1)
+    return tile_hit
+
+
+def prim_tiles(prims: Tensor, w: Tensor, sentinel_w: float,
+               num_tiles: int | None = None) -> Tensor:
+    """(T+1, 128, 4) f32 prim tiles (cx, cy, cz, w) in slot order, from
+    the packed prims (n, 4) (centre, r^2) and the walk's fourth column w
+    (n,). T = ``num_tiles``, by default ceil(n / 128). Slots past the n
+    prims and the trailing tile T hold the sentinel (0, 0, 0,
+    ``sentinel_w``), which the walk's test must reject for every ray."""
+    n = prims.shape[0]
+    T = -(-n // LANES) if num_tiles is None else num_tiles
+    if n > T * LANES:
+        raise ValueError(f"{n} prim slots exceed {T} tiles")
+    tiles = torch.zeros(((T + 1) * LANES, 4), dtype=torch.float32,
+                        device=prims.device)
+    tiles[:, 3] = sentinel_w
+    tiles[:n, 0:3] = prims[:, 0:3]
+    tiles[:n, 3] = w
+    return tiles.reshape(T + 1, LANES, 4)
+
+
+def tile_candidates(origin: Tensor, direction: Tensor, table: LeafTable,
+                    max_candidates: int, packet: int = PACKET):
+    """Per-packet candidate tile lists: the packet cull's phase A at the
+    default 1024-ray packets, the tile cull's at 128-ray subpackets.
+
+    origin/direction: (B, 3), B a multiple of ``packet`` (sorted rays). Returns
+    (cand (P, K) i32: the surviving tile ids ascending, then ``num_tiles``;
+    counts (P, 1) i32, the raw survivor counts, which may exceed K;
+    overflow 0-d bool, some packet had more than K), K =
+    min(max_candidates, num_tiles). The JAX version orders survivors with
+    top_k on decreasing scores; the row compactor gives the same rows.
+    """
+    T = table.num_tiles
+    K = min(max_candidates, T)
+    tile_hit = packet_tile_hit(origin, direction, table, packet)
+    tid = torch.arange(T, dtype=torch.int32, device=origin.device)
+    masked = torch.where(tile_hit, tid, T).to(torch.int32)
+    cand, counts = compact_ascending_rows(masked, T, K)
+    overflow = counts.max() > K if counts.numel() else \
+        torch.zeros((), dtype=torch.bool, device=origin.device)
+    return cand, counts[:, None], overflow

@@ -1,19 +1,24 @@
-"""Phase A of the queries, the row compactor, and the hybrid closest-hit
-and any-hit (shadow) queries.
+"""Phase A of the queries, the row compactor, the phase-B cone-cull walk,
+and the hybrid closest-hit and any-hit (shadow) queries.
 
-PyTorch counterpart of the shipped half of ``tracer/kernels/conecull.py``:
-per-subpacket interval bounds from the feature planes, slab tests against
-group boxes and then against the member leaves of surviving groups, and
-count-embedded candidate rows per (subpacket, chunk) with a group-mode
-fallback and an overflow flag. Rows, counts and overflow equal the JAX
-package's for the same tables and features.
+PyTorch counterpart of ``tracer/kernels/conecull.py``. Phase A: per-subpacket
+interval bounds from the feature planes, slab tests against group boxes and
+then against the member leaves of surviving groups, and count-embedded
+candidate rows per (subpacket, chunk) with a group-mode fallback and an
+overflow flag. Rows, counts and overflow equal the JAX package's for the
+same tables and features. The per-subpacket bounding cones that phase B
+reads (``cone_from_feats``) match JAX's to rounding.
 
 The compactor is ``compact_cuda`` (hand-written CUDA, ``csrc/compact.cu``)
 on CUDA tensors and ``compact_ascending_rows_plain`` on CPU tensors;
 :func:`compact_ascending_rows` picks by device and raises for any other.
-The JAX cone construction (``cone_from_feats``) feeds only the unshipped
-phase-B kernel and is not ported: :func:`cone_candidates` returns ``None``
-in its place.
+
+Phase B (``conecull_call``: ``conecull_cuda``, ``csrc/conecull.cu``, on
+CUDA tensors and ``conecull_plain`` on CPU tensors) walks the same rows as
+the leaf walk but cone-tests every walked prim first and runs the u-form
+quadratic only on the survivors. The cone test is conservative, so on the
+same rows its (t, slot) equal ``leafcull_call``'s bit for bit. The JAX
+package evaluated it and ships the leaf walk; the port keeps both.
 """
 
 from __future__ import annotations
@@ -25,16 +30,25 @@ from torch import Tensor
 
 from tracer_torch.bvh.flat import FlatBVH
 from tracer_torch.core.types import Ray
+from tracer_torch.intersect.brute import record_from_ids
 from tracer_torch.intersect.sphere import EPSILON
 from tracer_torch.kernels import _lib
-from tracer_torch.kernels.leafcull import (CullTables, anyhit_call,
+from tracer_torch.kernels.leafcull import (CullTables, FEAT, anyhit_call,
                                            build_cull_tables, leafcull_call,
-                                           pack_ray_features, _NOSLOT)
+                                           pack_ray_features, ray_prim_u,
+                                           _check_walk_args, _closest_t,
+                                           _escalate, _merge_best,
+                                           _min_merge_chunks,
+                                           _sqrt_rn, _walk_pairs, _BIG,
+                                           _NOSLOT)
 from tracer_torch.scene.scene import Scene
 
 # Row and prefix widths are rounded to this many ids exactly as in the JAX
 # package, so that every row has the same length and padding on both sides.
 _ROW_ALIGN = 128
+CONE_FEAT = 16      # per-subpacket cone columns (11 used)
+_SENTINEL_CCR = 1.0e29   # prims with |c|^2 - r^2 at or above this are slots
+                         # that hold no sphere; the cone test drops them
 
 
 @dataclass
@@ -80,6 +94,43 @@ def bounds_from_feats(feats: Tensor):
     lo = _reduce_feats(feats, torch.amin)
     hi = _reduce_feats(feats, torch.amax)
     return hi[:, 3:6] * -0.5, lo[:, 3:6] * -0.5, lo[:, 0:3], hi[:, 0:3]
+
+
+def cone_from_feats(feats: Tensor, o_lo, o_hi, d_lo, d_hi, r_max: float,
+                    slack: float = 0.05) -> Tensor:
+    """Per-subpacket bounding cone, (P, CONE_FEAT) f32:
+    [o0 xyz, u xyz, rho, cos, sin, rho^2, sin*rho, 0...].
+
+    Apex o0 = origin-box centre; axis u = normalised direction-box
+    midpoint; cos = min over the subpacket's rays of u.d/|d| (|d|^2 from
+    feature column 10), less 1e-5; rho = r_max + origin-box half-diagonal +
+    slack, the prim-level dilation. A subpacket whose cos is at most 0.05
+    (its directions straddle the origin, e.g. unsorted rays) is degenerate:
+    rho = 1e18 and the cone accepts every prim. The JAX version takes the
+    min through an f32 matmul; here u.d is summed per ray, so the cones
+    agree to rounding.
+    """
+    tiny = 1e-20
+    o0 = 0.5 * (o_lo + o_hi)
+    r_o = 0.5 * torch.sqrt(torch.sum((o_hi - o_lo) ** 2, dim=1))
+    mid = 0.5 * (d_lo + d_hi)
+    nrm = torch.sqrt(torch.sum(mid * mid, dim=1))
+    u = mid / torch.clamp(nrm, min=tiny)[:, None]            # (P, 3)
+    G, S = feats.shape[:2]
+    uu = u.reshape(G, S, 1, 3)
+    ud = feats[..., 0] * uu[..., 0] + feats[..., 1] * uu[..., 1] \
+        + feats[..., 2] * uu[..., 2]                         # (G, S, SP)
+    dn = torch.sqrt(torch.clamp(feats[..., 10], min=tiny))
+    cos_exact = torch.amin(ud / dn, dim=2).reshape(-1) - 1e-5
+    degenerate = (cos_exact <= 0.05) | (nrm <= tiny)
+    cos = torch.clamp(cos_exact, 0.05, 1.0)
+    sin = torch.sqrt(torch.clamp(1.0 - cos * cos, min=0.0))
+    rho = torch.where(degenerate, torch.full_like(r_o, 1.0e18),
+                      r_max + r_o + slack)
+    cols = [o0[:, 0], o0[:, 1], o0[:, 2], u[:, 0], u[:, 1], u[:, 2], rho,
+            cos, sin, rho * rho, sin * rho]
+    cols += [torch.zeros_like(rho)] * (CONE_FEAT - len(cols))
+    return torch.stack(cols, dim=1).to(torch.float32)
 
 
 def _slab_hit_cols(o_lo, o_hi, d_lo, d_hi, blo, bhi) -> Tensor:
@@ -137,8 +188,10 @@ def cone_candidates(feats: Tensor, tables: ConeTables, max_groups: int,
     chunk-relative leaf ids, count < 0 lists -count chunk-relative group ids
     (group mode, when the leaf budget or the group refine overflowed), and
     overflow is set when a group-mode row itself was truncated. The second
-    output stands where the JAX function returns its cones, which only the
-    unshipped phase-B kernel reads; it is always None here. No host sync.
+    output stands where the JAX function returns its cones; only the
+    phase-B walk reads cones, and its path builds them with
+    :func:`cone_from_feats`, so the leaf walk's phase A does not pay for
+    them. No host sync.
     """
     cull = tables.cull
     lpg = cull.leaves_per_group
@@ -307,6 +360,143 @@ def compact_ascending_rows(masked_ids: Tensor, sentinel: int, keep: int):
 
 
 # ---------------------------------------------------------------------------
+# Phase B: the cone-cull walk
+# ---------------------------------------------------------------------------
+
+def _check_cones(feats: Tensor, cones: Tensor) -> None:
+    G, S = feats.shape[:2]
+    if tuple(cones.shape) != (G, S, CONE_FEAT) or cones.dtype != torch.float32:
+        raise ValueError(f"cones must be ({G}, {S}, {CONE_FEAT}) float32, "
+                         f"got {tuple(cones.shape)} {cones.dtype}")
+
+
+def cone_keep(cone: Tensor, pr: Tensor) -> Tensor:
+    """The per-prim cone test, rounded as the kernel rounds it: cone (n,
+    CONE_FEAT) rows, pr (n, K, 4) prims (cx, cy, cz, |c|^2 - r^2) -> (n, K)
+    bool. With v = c - o0 and q = |v|^2 - rho^2, a prim is kept when
+    u.v + sin*rho >= cos*sqrt(max(q, 0)) or q <= 0, and never when it is a
+    slot that holds no sphere (|c|^2 - r^2 >= 1e29)."""
+    o0x, o0y, o0z, ux, uy, uz = (cone[:, k:k + 1] for k in range(6))
+    cth, rho2, sinrho = cone[:, 7:8], cone[:, 9:10], cone[:, 10:11]
+    vx = pr[..., 0] - o0x
+    vy = pr[..., 1] - o0y
+    vz = pr[..., 2] - o0z
+    d2 = vx * vx + vy * vy + vz * vz
+    uv = ux * vx + uy * vy + uz * vz
+    q = d2 - rho2
+    sq = _sqrt_rn(torch.clamp(q, min=0.0))
+    return ((uv + sinrho >= cth * sq) | (q <= 0.0)) \
+        & (pr[..., 3] < _SENTINEL_CCR)
+
+
+@torch.no_grad()
+def conecull_plain(feats: Tensor, cand: Tensor, cones: Tensor, prims: Tensor,
+                   leaf_size: int, leaves_per_chunk: int,
+                   leaves_per_group: int, pair_elems: int = 1 << 24):
+    """Plain PyTorch phase-B walk: the contract of ``conecull_cuda``.
+
+    feats (G, S, SP, FEAT) f32; cand (C, G, S, rowlen) i32 count-embedded
+    rows as for ``leafcull_plain``; cones (G, S, CONE_FEAT) f32; prims
+    (C, lpc*leaf_size, 4). Every prim of every walked leaf is cone-tested
+    (:func:`cone_keep`; leaf ids at or past ``leaves_per_chunk`` hold no
+    prim) and the survivors get the leaf walk's u-form test. Returns
+    (t, slot), each (C, G, SP, S): the largest u below -eps*a, lowest
+    global slot on ties, t = -u/a; (3e38, 2^30) where nothing hits; and
+    kept (C, G, S) i32, the prims that survived the cone test per row.
+    Pairs are tested in slices of at most ``pair_elems`` elements.
+    """
+    _check_walk_args(feats, cand, prims, leaf_size, leaves_per_chunk)
+    _check_cones(feats, cones)
+    G, S, SP, _ = feats.shape
+    C, _, _, rowlen = cand.shape
+    dev = feats.device
+    ls = leaf_size
+    Q = C * G * S
+    rq = torch.arange(Q, device=dev)
+    fidx, chunk = rq % (G * S), rq // (G * S)
+    f = feats.reshape(G * S, SP, FEAT)
+    cn = cones.reshape(G * S, CONE_FEAT)
+    q_all, leaf_all = _walk_pairs(cand.reshape(Q, rowlen), leaves_per_group)
+    inside = leaf_all < leaves_per_chunk
+    q_all, leaf_all = q_all[inside], leaf_all[inside]
+    kept = torch.zeros(Q, dtype=torch.int64, device=dev)
+    best_u = torch.full((Q, SP), -_BIG, dtype=torch.float32, device=dev)
+    best_slot = torch.full((Q, SP), _NOSLOT, dtype=torch.int64, device=dev)
+    lane = torch.arange(ls, device=dev)
+    step = max(1, pair_elems // (SP * ls))
+    for i in range(0, q_all.shape[0], step):
+        q = q_all[i:i + step]
+        c = chunk[q]
+        pslot = leaf_all[i:i + step, None] * ls + lane       # (n, ls)
+        pr = prims[c[:, None], pslot]                        # (n, ls, 4)
+        keep = cone_keep(cn[fidx[q]], pr)
+        kept.index_add_(0, q, keep.sum(dim=1))
+        pi, li = keep.nonzero(as_tuple=True)                 # survivors
+        sq = q[pi]
+        fb = f[fidx[sq]]                                     # (m, SP, FEAT)
+        u, disc = ray_prim_u(fb, pr[pi, li][:, None, :])     # (m, SP, 1)
+        ok = (disc > 0.0) & (u < -fb[:, :, 12:13])
+        pu = torch.where(ok, u, torch.full_like(u, -_BIG))[:, :, 0]
+        gslot = c[pi] * prims.shape[1] + pslot[pi, li]
+        _merge_best(best_u, best_slot, sq, pu, gslot[:, None].expand(-1, SP))
+    t, slot = _closest_t(best_u, best_slot, f[:, :, 11][fidx])
+    return (t.reshape(C, G, S, SP).permute(0, 1, 3, 2).contiguous(),
+            slot.reshape(C, G, S, SP).permute(0, 1, 3, 2).contiguous(),
+            kept.reshape(C, G, S).to(torch.int32))
+
+
+def conecull_cuda(feats: Tensor, cand: Tensor, cones: Tensor, prims: Tensor,
+                  leaf_size: int, leaves_per_chunk: int,
+                  leaves_per_group: int):
+    """The phase-B walk as the hand-written CUDA kernel
+    (``csrc/conecull.cu``): one CTA of SP threads per (chunk, subpacket).
+
+    Same arguments and (t, slot, kept) outputs as :func:`conecull_plain`.
+    Raises for tensors that are not on one CUDA device. Adds one to
+    ``conecull_cuda.launches`` per launch.
+    """
+    dev = _lib.require_cuda("conecull_cuda", feats, cand, cones, prims)
+    _check_walk_args(feats, cand, prims, leaf_size, leaves_per_chunk)
+    _check_cones(feats, cones)
+    G, S, SP, _ = feats.shape
+    C, _, _, rowlen = cand.shape
+    if SP % 32 or not 32 <= SP <= 1024:
+        raise ValueError(f"subpacket {SP} is not a whole number of warps "
+                         f"in one CTA")
+    feats, cand, cones, prims = (x.contiguous()
+                                 for x in (feats, cand, cones, prims))
+    t = torch.empty((C, G, SP, S), dtype=torch.float32, device=dev)
+    slot = torch.empty((C, G, SP, S), dtype=torch.int32, device=dev)
+    kept = torch.empty((C, G, S), dtype=torch.int32, device=dev)
+    lib = _lib.load()
+    with torch.cuda.device(dev):
+        rc = lib.tracer_conecull(
+            _lib.ptr(feats), _lib.ptr(cand), _lib.ptr(cones), _lib.ptr(prims),
+            _lib.ptr(t), _lib.ptr(slot), _lib.ptr(kept), C, G, S, SP, rowlen,
+            leaf_size, leaves_per_chunk, leaves_per_group, _lib.stream(dev))
+    _lib.check(lib, rc, "conecull_cuda")
+    conecull_cuda.launches += 1
+    return t, slot, kept
+
+
+conecull_cuda.launches = 0
+
+
+def conecull_call(feats: Tensor, cand: Tensor, cones: Tensor, prims: Tensor,
+                  leaf_size: int, leaves_per_chunk: int,
+                  leaves_per_group: int):
+    """Closest hit per ray through the phase-B walk: (t, slot), each
+    (G, SP, S) as from ``leafcull_call`` (C > 1 chunks min-merged, lowest
+    chunk on ties), and kept (C, G, S) i32, the cone-test survivors. CPU
+    tensors run :func:`conecull_plain`; anything else goes to
+    :func:`conecull_cuda`, which launches the kernel or raises."""
+    walk = conecull_plain if feats.device.type == "cpu" else conecull_cuda
+    t_c, slot_c, kept = walk(feats, cand, cones, prims, leaf_size,
+                             leaves_per_chunk, leaves_per_group)
+    return (*_min_merge_chunks(t_c, slot_c), kept)
+
+
+# ---------------------------------------------------------------------------
 # The query
 # ---------------------------------------------------------------------------
 
@@ -376,3 +566,88 @@ def nearest_hit_hybrid_raw(rays: Ray, tables: ConeTables,
     feats, _, _ = pack_ray_features(o, d, subpackets, subpacket)
     return nearest_hit_hybrid_feats(feats, tables, max_groups,
                                     max_candidates)
+
+
+@torch.no_grad()
+def _ids_in_ray_order(rays: Ray, tables: ConeTables, max_groups: int,
+                      max_candidates: int, subpackets: int, subpacket: int,
+                      phase_b: bool):
+    """Rays in packet order through phase A and a walk (the phase-B walk
+    with ``phase_b``, else the leaf walk): (t (B,) f32, +inf on miss;
+    sphere id (B,) i32, -1 on miss; overflow)."""
+    cull = tables.cull
+    o = rays.origin.reshape(-1, 3).detach()
+    d = rays.direction.reshape(-1, 3).detach()
+    b = o.shape[0]
+    feats, g, _ = pack_ray_features(o, d, subpackets, subpacket)
+    rows, _, overflow = cone_candidates(feats, tables, max_groups,
+                                        max_candidates)
+    rows = rows.reshape(cull.num_chunks, g, subpackets, rows.shape[-1])
+    args = (cull.prims, cull.leaf_size, cull.leaves_per_chunk,
+            cull.leaves_per_group)
+    if phase_b:
+        cones = cone_from_feats(feats, *bounds_from_feats(feats),
+                                tables.r_max)
+        t_k, slot, _ = conecull_call(
+            feats, rows, cones.reshape(g, subpackets, CONE_FEAT), *args)
+    else:
+        t_k, slot = leafcull_call(feats, rows, *args)
+    slot = slot.permute(0, 2, 1).reshape(-1)[:b]
+    t_k = t_k.permute(0, 2, 1).reshape(-1)[:b]
+    hit = slot < _NOSLOT
+    sid = torch.where(hit, cull.slot_to_sphere[torch.where(
+        hit, slot, 0).long()], torch.full_like(slot, -1))
+    return (torch.where(hit, t_k, torch.full_like(t_k, float("inf"))), sid,
+            overflow)
+
+
+def nearest_hit_conecull_t(rays: Ray, tables: ConeTables,
+                           max_groups: int = 64, max_candidates: int = 119,
+                           subpackets: int = 8, subpacket: int = 128):
+    """Closest hit through phase A with cones and the phase-B walk, for
+    rays already in packet order (``core.sort.prep_rays_bucketed``): (t, +inf
+    on miss; sphere id, -1 on miss; overflow 0-d bool tensor), t and ids in
+    the rays' batch shape. On overflow re-dispatch with larger budgets."""
+    t, sid, overflow = _ids_in_ray_order(rays, tables, max_groups,
+                                         max_candidates, subpackets,
+                                         subpacket, phase_b=True)
+    return (t.reshape(rays.batch_shape), sid.reshape(rays.batch_shape),
+            overflow)
+
+
+def nearest_hit_hybrid_t(rays: Ray, tables: ConeTables, max_groups: int = 64,
+                         max_candidates: int = 119, subpackets: int = 8,
+                         subpacket: int = 128):
+    """:func:`nearest_hit_conecull_t`'s contract through the leaf walk."""
+    t, sid, overflow = _ids_in_ray_order(rays, tables, max_groups,
+                                         max_candidates, subpackets,
+                                         subpacket, phase_b=False)
+    return (t.reshape(rays.batch_shape), sid.reshape(rays.batch_shape),
+            overflow)
+
+
+def nearest_hit_conecull(rays: Ray, scene: Scene, tables: ConeTables,
+                         max_groups: int = 64, max_candidates: int = 119,
+                         subpackets: int = 8, subpacket: int = 128):
+    """Closest hit via the phase-B walk, for rays already in packet order;
+    batch shape kept. Returns ``(HitRecord, overflow)``; t is recomputed from
+    the winning sphere with the reference formulation, so autograd reaches
+    the scene. On overflow re-dispatch with larger budgets
+    (:func:`nearest_hit_conecull_checked` does)."""
+    _, sid, overflow = _ids_in_ray_order(rays, tables, max_groups,
+                                         max_candidates, subpackets,
+                                         subpacket, phase_b=True)
+    rec = record_from_ids(rays.origin.reshape(-1, 3),
+                          rays.direction.reshape(-1, 3), sid, scene)
+    return rec.reshape(rays.batch_shape), overflow
+
+
+def nearest_hit_conecull_checked(rays: Ray, scene: Scene, tables: ConeTables,
+                                 max_groups: int = 64,
+                                 max_candidates: int = 119, **kw):
+    """Escalating query over :func:`nearest_hit_conecull`: doubles both
+    candidate budgets until no subpacket overflows. Returns (HitRecord,
+    escalations)."""
+    return _escalate(lambda k0, k: nearest_hit_conecull(
+        rays, scene, tables, k0, k, **kw), tables, max_groups,
+        max_candidates)

@@ -337,18 +337,28 @@ def closest_rows_plain(f: Tensor, fidx: Tensor, chunk: Tensor, rows: Tensor,
         ok = (disc > 0.0) & (u < -fb[:, :, 12:13])
         uv = torch.where(ok, u, torch.full_like(u, -_BIG))
         pu, arg = torch.max(uv, dim=2)                   # first max: low slot
-        pslot = torch.where(pu > -_BIG, torch.gather(gslot, 1, arg),
-                            torch.full_like(arg, _NOSLOT))
-        qi = q[:, None].expand(-1, SP)
-        before = best_u.clone()
-        best_u.scatter_reduce_(0, qi, pu, "amax")
-        best_slot.masked_fill_(best_u > before, _NOSLOT)  # a better u came
-        cand = torch.where(pu == best_u[q], pslot,
-                           torch.full_like(pslot, _NOSLOT))
-        best_slot.scatter_reduce_(0, qi, cand, "amin")
+        _merge_best(best_u, best_slot, q, pu, torch.gather(gslot, 1, arg))
+    return _closest_t(best_u, best_slot, f[:, :, 11][fidx])
+
+
+def _merge_best(best_u: Tensor, best_slot: Tensor, q: Tensor, pu: Tensor,
+                pslot: Tensor) -> None:
+    """Merge candidates into the rows' bests in place: rows q (n,), u values
+    pu (n, SP) (-3e38 for none) with their slots pslot (n, SP). Largest u
+    wins, then the lowest slot among equal u, whatever the order."""
+    pslot = torch.where(pu > -_BIG, pslot, torch.full_like(pslot, _NOSLOT))
+    qi = q[:, None].expand(-1, pu.shape[1])
+    before = best_u.clone()
+    best_u.scatter_reduce_(0, qi, pu, "amax")
+    best_slot.masked_fill_(best_u > before, _NOSLOT)     # a better u came
+    cand = torch.where(pu == best_u[q], pslot, torch.full_like(pslot, _NOSLOT))
+    best_slot.scatter_reduce_(0, qi, cand, "amin")
+
+
+def _closest_t(best_u: Tensor, best_slot: Tensor, inva: Tensor):
+    """(t, slot i32) from the bests: t = -u/a where a slot won, else 3e38."""
     hit = best_slot < _NOSLOT
-    t = torch.where(hit, -best_u * f[:, :, 11][fidx],
-                    torch.full_like(best_u, _BIG))
+    t = torch.where(hit, -best_u * inva, torch.full_like(best_u, _BIG))
     return t, best_slot.to(torch.int32)
 
 
@@ -423,8 +433,13 @@ def leafcull_call(feats: Tensor, cand: Tensor, prims: Tensor,
     ties (chunks ascend in slot order, so the lowest slot still wins).
     """
     walk = leafcull_plain if feats.device.type == "cpu" else leafcull_cuda
-    t_c, slot_c = walk(feats, cand, prims, leaf_size, leaves_per_chunk,
-                       leaves_per_group)
+    return _min_merge_chunks(*walk(feats, cand, prims, leaf_size,
+                                   leaves_per_chunk, leaves_per_group))
+
+
+def _min_merge_chunks(t_c: Tensor, slot_c: Tensor):
+    """Per-chunk (t, slot) (C, ...) -> the smallest t over chunks, the
+    lowest chunk on ties (chunks ascend in slot order)."""
     if t_c.shape[0] == 1:
         return t_c[0], slot_c[0]
     tm = torch.where(slot_c < _NOSLOT, t_c, torch.full_like(t_c, _BIG))

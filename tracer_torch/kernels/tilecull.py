@@ -28,11 +28,10 @@ from torch import Tensor
 
 from tracer_torch.core.types import Ray
 from tracer_torch.intersect.brute import record_from_ids
-from tracer_torch.intersect.cull import (LANES, LeafTable, packet_bounds,
-                                         packet_leaf_hit)
+from tracer_torch.intersect.cull import (LANES, LeafTable, prim_tiles,
+                                         tile_candidates)
 from tracer_torch.intersect.sphere import EPSILON
 from tracer_torch.kernels import _lib
-from tracer_torch.kernels.conecull import compact_ascending_rows
 from tracer_torch.kernels.leafcull import (FEAT, _BIG, _NOSLOT, _pad_edge,
                                            pack_ray_features as _pack_feats,
                                            ray_prim_u)
@@ -41,7 +40,6 @@ from tracer_torch.scene.scene import Scene
 
 SUBPACKET = 128          # rays per frustum / candidate row (one CTA)
 _SENTINEL_CCR = 1.0e30   # (0, 0, 0, 1e30): a prim nothing can hit
-_BOUNDS_BLOCK = 256      # subpackets per block of the phase-A slab test
 
 
 def pack_prim_tiles(packed: PackedBVH) -> Tensor:
@@ -53,15 +51,8 @@ def pack_prim_tiles(packed: PackedBVH) -> Tensor:
     (o.d)^2 - a(|o|^2 + 1e30) < 0, so it never hits. (The JAX table leaves
     that tail at zero, a radius-0 sphere at the origin.)"""
     p = packed.prims
-    n = p.shape[0]
-    T = -(-n // LANES)
     ccr = p[:, 0] * p[:, 0] + p[:, 1] * p[:, 1] + p[:, 2] * p[:, 2] - p[:, 3]
-    tiles = torch.zeros(((T + 1) * LANES, 4), dtype=torch.float32,
-                        device=p.device)
-    tiles[:, 3] = _SENTINEL_CCR
-    tiles[:n, 0:3] = p[:, 0:3]
-    tiles[:n, 3] = ccr
-    return tiles.reshape(T + 1, LANES, 4)
+    return prim_tiles(p, ccr, _SENTINEL_CCR)
 
 
 def pack_ray_features(o: Tensor, d: Tensor, subpackets: int):
@@ -79,26 +70,15 @@ def subpacket_candidates(o: Tensor, d: Tensor, table: LeafTable,
     [g, s, 0] = min(count, K) and the surviving tile ids ascending from
     column 1, every unused column T; overflow: 0-d bool, some subpacket had
     more than K = max_candidates surviving tiles). Kp = K + 1 rounded up to
-    a multiple of 128. The slab test runs over blocks of subpackets, so its
-    temporaries stay small at full frames.
+    a multiple of 128.
     """
     T = table.num_tiles
     K = max_candidates
-    lpt = LANES // table.leaf_size
-    o_lo, o_hi, d_lo, d_hi = packet_bounds(o, d, SUBPACKET)
-    P = o_lo.shape[0]
-    tile_hit = torch.empty((P, T), dtype=torch.bool, device=o.device)
-    for i in range(0, P, _BOUNDS_BLOCK):
-        j = slice(i, i + _BOUNDS_BLOCK)
-        hit = packet_leaf_hit(o_lo[j], o_hi[j], d_lo[j], d_hi[j], table)
-        tile_hit[j] = hit.reshape(hit.shape[0], T, lpt).any(-1)
-    tid = torch.arange(T, dtype=torch.int32, device=o.device)
-    masked = torch.where(tile_hit, tid, T).to(torch.int32)
-    prefix, counts = compact_ascending_rows(masked, T, min(K, T))
-    overflow = counts.max() > K if P else torch.zeros((), dtype=torch.bool)
+    prefix, counts, overflow = tile_candidates(o, d, table, K, SUBPACKET)
+    P = prefix.shape[0]
     kp = -(-(K + 1) // LANES) * LANES
     row = torch.full((P, kp), T, dtype=torch.int32, device=o.device)
-    row[:, 0] = torch.clamp(counts, max=K)
+    row[:, 0] = torch.clamp(counts[:, 0], max=K)
     row[:, 1:1 + prefix.shape[1]] = prefix
     return row.reshape(-1, subpackets, kp), overflow
 
