@@ -63,12 +63,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
 
 Phase 3 also holds ``traverse_cuda`` and ``tilecull_cuda`` against their
 plain versions at 20k spheres x 64k rays: a ragged tail, a 2-D batch
-through the wrappers, a tile budget of one (overflowing rows) and rows that
-list the sentinel tile; t, slots and steps must be equal exactly. And
-``cull_cuda`` against its plain version at 20k spheres x (64k + 37)
-direction-sorted rays: the full budget, an overflowing budget of 8 tiles
-(the walk stops at K) and the sentinel tile listed after every packet's
-own tiles.
+through the wrappers, a tile budget of one (overflowing rows), rows that
+list the sentinel tile and skewed rows (one lists every tile, the others
+1-2); t, slots and steps must be equal exactly. And ``cull_cuda`` against
+its plain version at 20k spheres x (64k + 37) direction-sorted rays: the
+full budget, an overflowing budget of 8 tiles (the walk stops at K), skewed
+rows, and the sentinel tile listed after every packet's own tiles. Beside
+the two timed tile walks (phases 5b and 7) it logs the row-length
+distribution, the split (W, the persistent grid, the device operations of
+one call: the walk and its glue) and the walk's time at W = 4, 8 and 16,
+each result equal to the wrapper's.
 
 Closest-hit disagreements with an oracle are allowed only as ties (both t
 within 1e-5 relative) or grazes (for the prim one side chose, the
@@ -390,6 +394,56 @@ def traverse_bound(name, rays, packed, steps, leaves):
     return bound(n_bytes, slabs * OPS_PER_SLAB + quads * OPS_PER_BFORM)
 
 
+def row_lengths(name, walked):
+    """Log the distribution of listed tiles walked per row: mean, p99,
+    max."""
+    import torch
+    c = walked.reshape(-1).float()
+    log(f"{name}: {c.numel()} rows, listed tiles per row mean "
+        f"{c.mean().item():.2f}, p99 {torch.quantile(c, 0.99).item():.0f}, "
+        f"max {int(c.max())}, total {int(c.sum())}")
+
+
+def skewed_lists(rows, T, gen):
+    """(rows, T) int32 lists and (rows,) counts: the middle row lists every
+    tile 0..T-1, every other row 1-2 random tiles (then the sentinel T)."""
+    import torch
+    lists = torch.full((rows, T), T, dtype=torch.int32)
+    counts = torch.randint(1, 3, (rows,), generator=gen, dtype=torch.int32)
+    lists[:, :2] = torch.randint(0, T, (rows, 2), generator=gen,
+                                 dtype=torch.int32)
+    lists[:, 1] = torch.where(counts > 1, lists[:, 1], T)
+    lists[rows // 2] = torch.arange(T, dtype=torch.int32)
+    counts[rows // 2] = T
+    return lists, counts
+
+
+def walk_launch_log(name, fn, launch, args, walked, grid):
+    """Log the tile walks' split: W, the items of rows that walk ``walked``
+    tiles each, the persistent grid, the device operations one call
+    launches (the walk and its glue: key init, item plan, unpack), and the
+    walk's time at W = 4, 8, 16, each result equal to the wrapper's bit for
+    bit."""
+    import torch
+    from tracer_torch.bench.profile import profile_calls
+    from tracer_torch.bench.timing import time_cuda
+    from tracer_torch.kernels.tilewalk import CHUNK, plan_items
+    items = int(plan_items(walked, CHUNK)[-1])
+    ops = profile_calls(fn, *args, iters=1)["launches"]
+    want = fn(*args)
+    times = {}
+    for w in (4, 8, 16):
+        got = launch(*args, w)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(got, want)):
+            raise AssertionError(f"{name}: W = {w} changed a result")
+        times[w] = time_cuda(launch, *args, w)
+    log(f"{name}: W = {CHUNK}, {items} items over {walked.numel()} rows of "
+        f"128 rays, grid {grid} CTAs of 128 threads, {ops} device "
+        f"operations per call (1 walk + {ops - 1} glue); ms by W "
+        + ", ".join(f"{w}: {ms:.4f}" for w, ms in times.items()))
+
+
 def tilecull_bound(name, feats, cand, prims):
     """Bound of a tile walk: sum of counts x 128 x 128 tests."""
     from tracer_torch.kernels.tilecull import SUBPACKET
@@ -531,6 +585,15 @@ def packet_and_tile_walks(dev):
     cs[..., 0] = torch.where(room, cnt + 1, cnt)
     compare_tilecull(f"tile walk {WALK_SPHERES} x {n}, sentinel tile listed "
                      f"({int(room.sum())} rows)", feats, cs, prims)
+    # Skewed rows: one lists every tile, the others 1-2.
+    lists, counts = skewed_lists(feats.shape[0] * feats.shape[1], T,
+                                 torch.Generator().manual_seed(11))
+    kp = -(-(T + 1) // 128) * 128
+    skew = torch.full((lists.shape[0], kp), T, dtype=torch.int32)
+    skew[:, 0], skew[:, 1:T + 1] = counts, lists
+    compare_tilecull(f"tile walk {WALK_SPHERES} x {n}, skewed rows (one "
+                     f"lists all {T} tiles)", feats,
+                     skew.reshape(*feats.shape[:2], kp).to(dev), prims)
     t0, s0 = tilecull_plain(feats, cand, prims, pair_elems=PLAIN_ELEMS)
     t1, s1 = tilecull_plain(feats, cs, prims, pair_elems=PLAIN_ELEMS)
     if not (torch.equal(s0, s1) and torch.equal(t0, t1)):
@@ -604,8 +667,10 @@ def render_slice(dev, results):
     from tracer_torch.integrator.wavefront import bounce_noise
     from tracer_torch.kernels.conecull import compact_cuda
     from tracer_torch.kernels.leafcull import anyhit_cuda, leafcull_cuda
-    from tracer_torch.kernels.tilecull import (pack_prim_tiles, tilecull_cuda,
-                                               tilecull_plain)
+    from tracer_torch.kernels.tilecull import (_tilecull_launch,
+                                               pack_prim_tiles, tilecull_cuda,
+                                               tilecull_plain, walked_tiles)
+    from tracer_torch.kernels.tilewalk import grid
     from tracer_torch.kernels.traverse import (pack_rays, traverse_cuda,
                                                traverse_plain)
     from tracer_torch.bench.timing import time_cuda
@@ -704,6 +769,10 @@ def render_slice(dev, results):
                                   escalate=True)
     compare_tilecull(f"tile walk, primary rays of the frame (budget {k})",
                      feats, cand, tiles)
+    row_lengths("tile walk frame rows", cand[..., 0])
+    walk_launch_log("tile walk frame", tilecull_cuda, _tilecull_launch,
+                    (feats, cand, tiles), walked_tiles(cand),
+                    grid("tilecull", dev))
     ms = time_cuda(tilecull_cuda, feats, cand, tiles)
     pms = time_cuda(lambda *a: tilecull_plain(*a, pair_elems=PLAIN_ELEMS),
                     feats, cand, tiles, warmup=0, iters=1)
@@ -860,6 +929,11 @@ def packet_cull_walks(dev):
     tile = torch.where(sk >= 0, sk // 128, cand_k[:, :1])
     if not (tile[:, :, None] == cand_k[:, None, :]).any(dim=2).all():
         raise AssertionError("the packet cull walked past its K candidates")
+    lists, skew_counts = skewed_lists(rays.shape[0], T,
+                                      torch.Generator().manual_seed(12))
+    compare_cull(f"packet cull {WALK_SPHERES} x {n}, skewed rows (one lists "
+                 f"all {T} tiles)", rays, tiles, lists.to(dev),
+                 skew_counts.reshape(-1, 1).to(dev))
     listed = torch.cat([cand, torch.full_like(cand[:, :1], T)], dim=1)
     t1, s1 = compare_cull(f"packet cull {WALK_SPHERES} x {n}, sentinel tile "
                           f"listed", rays, tiles, listed, counts + 1)
@@ -880,8 +954,11 @@ def cull_slice(dev, scene, o, d, results):
     from tracer_torch.intersect.brute import nearest_hit_brute_fast
     from tracer_torch.intersect.cull import build_leaf_table
     from tracer_torch.kernels.conecull import compact_cuda
-    from tracer_torch.kernels.cull import (cull_cuda, cull_plain, cull_tiles,
-                                           nearest_hit_cull_checked)
+    from tracer_torch.kernels.cull import (_cull_launch, cull_cuda,
+                                           cull_plain, cull_tiles,
+                                           nearest_hit_cull_checked,
+                                           walked_tiles)
+    from tracer_torch.kernels.tilewalk import grid
     from tracer_torch.kernels.traverse import pack_bvh
     bvh = build_bvh(scene.centers, scene.radii, leaf_size=16,
                     backend="native", device=dev)
@@ -922,6 +999,15 @@ def cull_slice(dev, scene, o, d, results):
     tiles = cull_tiles(packed, T)
     compare_cull(f"packet cull 100k x {o.shape[0]}, K = {k}", rays, tiles,
                  cand, counts)
+    row_lengths("packet cull rows", counts.clamp(0, k))
+    ladder = [min(CULL_K, T)]
+    while ladder[-1] < k:
+        ladder.append(min(2 * ladder[-1], T))
+    log("packet cull escalation: listed tiles walked at K = " + ", ".join(
+        f"{kk}: {int(counts.clamp(0, kk).sum())}" for kk in ladder))
+    walk_launch_log("packet cull 100k x 512k", cull_cuda, _cull_launch,
+                    (rays, tiles, cand, counts), walked_tiles(counts, k),
+                    grid("cull", dev))
     ms = time_cuda(cull_cuda, rays, tiles, cand, counts)
     pms = time_cuda(cull_plain, rays, tiles, cand, counts, warmup=0, iters=1)
     bms, bby = cull_bound("packet cull 100k x 512k", rays, tiles, cand,

@@ -11,7 +11,18 @@ the discriminant (``torch_parity.assert_sphere_t_close``: XLA on the CPU
 contracts mul+add into FMA where the port rounds each op). The checked
 query escalates from a budget of one tile and equals ``nearest_hit_brute``
 by id. Sentinel slots never hit, and the walk stops at min(count, K).
+
+The CUDA kernel splits each 1024-ray packet into eight 128-ray blocks that
+share its row, splits the rows into items of at most W listed tiles and
+merges each ray's hits by the minimum of a packed (t, listed position)
+key (``kernels/tilewalk.py``): the plan is held against an enumeration,
+the finalize against a direct mapping, and a model of the split built from
+``cull_plain`` must equal the whole-row walk bit for bit, also on a
+non-ascending row that lists a tied sphere's two tiles and one tile twice
+(the first listed copy wins).
 """
+
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -28,6 +39,7 @@ from tracer.kernels.traverse_pallas import pack_bvh as j_pack_bvh
 from tracer_torch.core.sort import direction_morton_codes
 from tracer_torch.intersect import cull as tcull
 from tracer_torch.kernels import cull as tkcull
+from tracer_torch.kernels import tilewalk as tw
 from tracer_torch.kernels.leafcull import _pad_edge
 from tracer_torch.kernels.traverse import PACKET, pack_bvh, pack_rays
 
@@ -198,3 +210,101 @@ def test_cull_plain_slicing_and_wrappers(setup):
     with pytest.raises(ValueError, match="counts"):
         tt.cull_call(setup["prays"], setup["tiles"], cand, counts[:1])
     assert tkcull.cull_cuda.launches == 0
+
+
+# -- the split walk: item plan, packed keys, split-and-merge model ----------
+
+def test_keys_map_positions_back_to_slots():
+    """A merged key holds (t, listed position * 128 + lane); the finalize
+    maps the position through the packet's row, in any listed order, and
+    the miss key (+inf, 2^32 - 1) becomes (+inf, -1)."""
+    cand = torch.tensor([[7, 2, 5], [4, 4, 0]], dtype=torch.int32)
+    t = torch.full((2, PACKET), 2.5)
+    idx = torch.arange(2 * PACKET).reshape(2, PACKET) % 384
+    keys = tw.pack_keys(t, idx)
+    keys[1, 100:] = tkcull.MISS_KEY
+    tt_, slot = tkcull.slots_from_keys(keys, cand)
+    want = cand.long().gather(1, idx // 128) * 128 + idx % 128
+    assert torch.equal(slot[0], want[0].to(torch.int32))
+    assert torch.equal(slot[1, :100], want[1, :100].to(torch.int32))
+    assert (slot[1, 100:] == -1).all() and torch.isinf(tt_[1, 100:]).all()
+    assert (tt_[:, :100] == 2.5).all()
+    top = np.nextafter(np.float32(np.inf), np.float32(0))
+    assert int(tw.pack_keys(torch.tensor(top), torch.tensor(2 ** 32 - 1))) \
+        < tkcull.MISS_KEY
+    tm, im = tw.unpack_keys(torch.tensor(tkcull.MISS_KEY))
+    assert np.isinf(float(tm)) and int(im) == 2 ** 32 - 1
+
+
+@pytest.mark.parametrize("counts,K,chunk", [
+    ([0, 40, 10, 3], 10, 4),          # count 0, count > K, K not a multiple
+    ([13, 0, 0], 13, 8),              # one packet lists every tile
+    ([-1, 5], 7, 16)])                # a negative count, one partial item
+def test_cull_item_plan_matches_enumeration(counts, K, chunk):
+    walked = tkcull.walked_tiles(torch.tensor(counts, dtype=torch.int32)
+                                 .reshape(-1, 1), K)
+    want = np.repeat(np.clip(counts, 0, K), tkcull.BLOCKS)
+    np.testing.assert_array_equal(walked.numpy(), want)
+    starts = tw.plan_items(walked, chunk)
+    items = tp.np_items(want, chunk)
+    assert int(starts[-1]) == len(items)
+    got = np.stack([x.numpy() for x in tw.item_table(starts, walked, chunk)],
+                   1).reshape(-1, 3)
+    np.testing.assert_array_equal(got, items)
+
+
+@pytest.fixture(scope="module")
+def tie_cull():
+    """Six tiles of spheres (one stored twice, tiles 1 and 3), three
+    1024-ray packets, K = 9, and rows: none; every tile and the sentinel;
+    a non-ascending row that lists tiles 3 and 1 twice, raw count 12 > K."""
+    c, r, o, d = tp.tie_tiles_np(6, 3 * PACKET, seed=43)
+    packed = SimpleNamespace(prims=torch.as_tensor(
+        np.concatenate([c, (r * r)[:, None]], 1)))
+    tiles = tkcull.cull_tiles(packed, 6)
+    rays, g, _ = pack_rays(torch.as_tensor(o), torch.as_tensor(d))
+    T = 6
+    cand = torch.tensor([[T] * 9, list(range(T + 1)) + [T, T],
+                         [3, 0, 1, 5, 2, 4, T, 3, 1]], dtype=torch.int32)
+    counts = torch.tensor([[0], [7], [12]], dtype=torch.int32)
+    return rays, tiles, cand, counts, tt.cull_call(rays, tiles, cand, counts)
+
+
+def cull_split_merge(rays, tiles, cand, counts, chunk):
+    """The kernel's split walk modelled with the plain walk: each item's
+    sub-row walked by cull_plain on its packet, its block's 128 rays kept,
+    the slot turned into the row's first listed position of that tile, the
+    keys merged by min and mapped back as the wrapper does."""
+    g, K = cand.shape
+    T = tiles.shape[0] - 1
+    walked = tkcull.walked_tiles(counts, K)
+    row, first, n = tw.item_table(tw.plan_items(walked, chunk), walked, chunk)
+    p, blk = row // tkcull.BLOCKS, row % tkcull.BLOCKS
+    j = torch.arange(chunk)
+    sub = torch.where(j < n[:, None],
+                      cand[p[:, None], (first[:, None] + j).clamp(max=K - 1)],
+                      T)
+    t, slot = tkcull.cull_plain(rays[p], tiles, sub.to(torch.int32),
+                                n[:, None].to(torch.int32))
+    lanes = blk[:, None] * 128 + torch.arange(128)
+    t, slot = t.gather(1, lanes), slot.gather(1, lanes).long()
+    kk = (sub[:, None, :] == (slot // 128)[:, :, None]).int().argmax(2)
+    key = torch.where(slot >= 0, tw.pack_keys(
+        t, (first[:, None] + kk) * 128 + slot % 128), tkcull.MISS_KEY)
+    keys = torch.full((g * PACKET,), tkcull.MISS_KEY, dtype=torch.int64)
+    keys.scatter_reduce_(0, (row[:, None] * 128 + torch.arange(128))
+                         .reshape(-1), key.reshape(-1), "amin")
+    return tkcull.slots_from_keys(keys.reshape(g, PACKET), cand)
+
+
+@pytest.mark.parametrize("chunk", [1, 4, 8])
+def test_cull_split_and_merge_equals_whole_rows(tie_cull, chunk):
+    """Bit for bit; the first listed copy of the tied sphere wins (tile 3
+    before tile 1 in the non-ascending row), whether the items split the
+    copies apart or not."""
+    rays, tiles, cand, counts, (t, slot) = tie_cull
+    got = cull_split_merge(rays, tiles, cand, counts, chunk)
+    assert torch.equal(got[0], t) and torch.equal(got[1], slot)
+    assert (slot[0] == -1).all()
+    assert (slot[1] == tp.DUP[0]).sum() > 5 and (slot[2] == tp.DUP[1]).sum() > 5
+    assert not (slot[1] == tp.DUP[1]).any() and not (slot[2] == tp.DUP[0]).any()

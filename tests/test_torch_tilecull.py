@@ -7,7 +7,17 @@ budget of one tile. ``tilecull_call`` on CPU tensors runs
 it is held against JAX ``_tilecull_call`` (Pallas, in interpret mode) on
 the same candidate rows: slots exactly. The checked driver escalates like
 the JAX one, and sentinel prims never hit.
+
+The CUDA kernel splits each row into items of at most W listed tiles and
+merges each ray's hits by the minimum of a packed (t, slot) key
+(``kernels/tilewalk.py``). The item plan is held against an enumeration,
+the keys' order and miss sentinel are checked, and a model of the split
+built from ``tilecull_plain`` (each item's sub-row walked alone, the keys
+merged by min) must equal the whole-row walk bit for bit, also where one
+sphere is stored in two tiles (an exact t tie: the lowest slot wins).
 """
+
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -22,6 +32,8 @@ from tracer.intersect import cull as jcull
 from tracer.kernels import tilecull as jtile
 from tracer.kernels.traverse_pallas import pack_bvh as j_pack_bvh
 from tracer_torch.intersect import cull as tcull
+from tracer_torch.kernels import tilecull as tkcull
+from tracer_torch.kernels import tilewalk as tw
 from tracer_torch.kernels.leafcull import _pad_edge
 from tracer_torch.kernels.tilecull import (
     SUBPACKET, nearest_hit_tilecull, nearest_hit_tilecull_checked,
@@ -212,3 +224,110 @@ def test_sentinels_never_hit():
     cand[:, :, 0] = 1
     t, slot = tilecull_call(feats, cand, prims)
     assert bool((slot == _NOSLOT).all()) and bool((t == 3e38).all())
+
+
+# -- the split walk: item plan, packed keys, split-and-merge model ----------
+
+def test_keys_round_trip_and_order():
+    """pack/unpack are inverse, the minimum key is the smallest t and then
+    the lowest index, and the tile walk's miss key is (3e38, 2^30), above
+    every accepted key."""
+    rng = np.random.default_rng(5)
+    t = rng.choice(np.float32([1e-6, 0.5, 0.5000001, 3.0, 7e37, 2.9e38]),
+                   4000)
+    idx = rng.integers(0, 2 ** 32, 4000)
+    idx[:4] = [0, 2 ** 30, 2 ** 32 - 1, 1]
+    keys = tw.pack_keys(torch.as_tensor(t), torch.as_tensor(idx))
+    tk, ik = tw.unpack_keys(keys)
+    np.testing.assert_array_equal(tk.numpy().view(np.uint32),
+                                  t.view(np.uint32))
+    np.testing.assert_array_equal(ik.numpy(), idx)
+    order = np.lexsort((idx, t))                        # t, then idx
+    np.testing.assert_array_equal(np.sort(keys.numpy()), keys.numpy()[order])
+    tm, im = tw.unpack_keys(keys.min())
+    assert float(tm) == t.min() and int(im) == idx[t == t.min()].min()
+    tm, im = tw.unpack_keys(torch.tensor(tkcull.MISS_KEY))
+    assert float(tm) == np.float32(3e38) and int(im) == _NOSLOT
+    below = np.nextafter(np.float32(3e38), np.float32(0))
+    assert int(tw.pack_keys(torch.tensor(below), torch.tensor(_NOSLOT - 1))) \
+        < tkcull.MISS_KEY
+
+
+@pytest.mark.parametrize("counts,chunk", [
+    ([0, 5, 8, 9, 17, 0, 1, 127], 8),        # ragged, K = 127 not a multiple
+    ([300, 3, -2, 0], 4),                    # a count past Kp - 1, a negative
+    ([0, 0, 0, 0, 0, 0, 0, 127], 16),        # one row lists every tile
+    ([0, 0, 0, 0], 4)])                      # nothing to walk
+def test_item_plan_matches_enumeration(counts, chunk):
+    cand = torch.zeros((len(counts) // 2, 2, 128), dtype=torch.int32)
+    cand.view(-1, 128)[:, 0] = torch.tensor(counts, dtype=torch.int32)
+    walked = tkcull.walked_tiles(cand)
+    want = np.clip(counts, 0, 127)
+    np.testing.assert_array_equal(walked.numpy(), want)
+    starts = tw.plan_items(walked, chunk)
+    items = tp.np_items(want, chunk)
+    assert starts.dtype == torch.int32 and int(starts[-1]) == len(items)
+    np.testing.assert_array_equal(
+        starts[:-1].numpy(), np.searchsorted(items[:, 0], np.arange(
+            len(counts))))
+    got = np.stack([x.numpy() for x in tw.item_table(starts, walked, chunk)],
+                   1).reshape(-1, 3)
+    np.testing.assert_array_equal(got, items)
+
+
+@pytest.fixture(scope="module")
+def tie_walk():
+    """Six tiles of spheres (one stored twice, tiles 1 and 3), 768 rays in
+    3 x 2 subpackets, and rows: none, every tile and the sentinel, both
+    copies, a non-ascending row, the sentinel between tiles, every tile."""
+    c, r, o, d = tp.tie_tiles_np(6, 768, seed=41)
+    prims = pack_prim_tiles(SimpleNamespace(prims=torch.as_tensor(
+        np.concatenate([c, (r * r)[:, None]], 1))))
+    T = prims.shape[0] - 1
+    feats, _, _ = pack_ray_features(torch.as_tensor(o), torch.as_tensor(d), 2)
+    lists = [[], list(range(T + 1)), [1, 3], [3, 0, 1, 5], [2, T, 4],
+             list(range(T))]
+    cand = torch.full((6, 128), T, dtype=torch.int32)
+    for i, row in enumerate(lists):
+        cand[i, 0] = len(row)
+        cand[i, 1:1 + len(row)] = torch.tensor(row, dtype=torch.int32)
+    cand = cand.reshape(3, 2, 128)
+    return feats, cand, prims, tilecull_call(feats, cand, prims)
+
+
+def split_merge(feats, cand, prims, chunk):
+    """The kernel's split walk modelled with the plain walk: each item's
+    sub-row walked by tilecull_plain as a one-subpacket row of its own, the
+    results merged into the keys by min, then unpacked as the wrapper
+    does."""
+    G, S, SP, F = feats.shape
+    kp, T = cand.shape[-1], prims.shape[0] - 1
+    rows = cand.reshape(-1, kp)
+    walked = tkcull.walked_tiles(cand)
+    row, first, n = tw.item_table(tw.plan_items(walked, chunk), walked, chunk)
+    j = torch.arange(chunk)
+    cols = (1 + first[:, None] + j).clamp(max=kp - 1)
+    sub = torch.where(j < n[:, None], rows[row[:, None], cols], T)
+    sub = torch.cat([n[:, None], sub], 1).to(torch.int32)[:, None]
+    t, slot = tkcull.tilecull_plain(feats.reshape(-1, 1, SP, F)[row], sub,
+                                    prims)
+    keys = torch.full((G * S * SP,), tkcull.MISS_KEY, dtype=torch.int64)
+    dest = (row[:, None] * SP + torch.arange(SP)).reshape(-1)
+    keys.scatter_reduce_(0, dest, tw.pack_keys(t.reshape(-1),
+                                               slot.reshape(-1)), "amin")
+    return tkcull.results_from_keys(keys, G, S)
+
+
+@pytest.mark.parametrize("chunk", [1, 3, 8])
+def test_split_and_merge_equals_whole_rows(tie_walk, chunk):
+    """Bit for bit, for items that split the two copies of the tied sphere
+    apart (chunk 1) or keep them together (8)."""
+    feats, cand, prims, (t, slot) = tie_walk
+    got = split_merge(feats, cand, prims, chunk)
+    assert torch.equal(got[0], t) and torch.equal(got[1], slot)
+    slot = slot.permute(0, 2, 1).reshape(6, 128)
+    assert (slot[0] == _NOSLOT).all()                  # the empty row
+    for i in (1, 2, 3, 5):                             # both copies listed
+        assert (slot[i] == tp.DUP[0]).sum() > 5
+        assert not (slot[i] == tp.DUP[1]).any()
+    assert (slot < _NOSLOT).float().mean() > 0.5

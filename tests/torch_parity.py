@@ -65,6 +65,39 @@ def origin_rays_np(b: int, seed: int = 0):
     return np.zeros_like(d), d
 
 
+DUP = (128 + 5, 3 * 128 + 9)    # slots of one sphere stored in tiles 1, 3
+
+
+def tie_tiles_np(num_tiles: int, b: int, seed: int):
+    """Spheres filling ``num_tiles`` 128-slot tiles, one of them stored
+    twice (slots ``DUP``, an exact t tie for every ray), and b rays, a third
+    of them from near that sphere aimed at it: (centres (n, 3), radii (n,),
+    origins (b, 3), unit directions (b, 3)), float32."""
+    rng = np.random.default_rng(seed)
+    n = num_tiles * 128
+    c = rng.uniform(-20, 20, (n, 3)).astype(np.float32)
+    r = rng.uniform(0.5, 2.0, n).astype(np.float32)
+    c[DUP[1]], r[DUP[0]] = c[DUP[0]], 3.0
+    r[DUP[1]] = r[DUP[0]]
+    o = rng.uniform(-30, 30, (b, 3)).astype(np.float32)
+    aim = c[rng.integers(0, n, b)]
+    near = np.arange(b) % 3 == 0
+    off = rng.normal(size=(b, 3))
+    off /= np.linalg.norm(off, axis=1, keepdims=True)
+    o[near] = c[DUP[0]] + 8.0 * off[near]
+    aim[near] = c[DUP[0]]
+    d = aim - o + rng.normal(0, 0.2, (b, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return c, r, o, d.astype(np.float32)
+
+
+def np_items(walked, chunk: int) -> np.ndarray:
+    """Every (row, first listed position, tiles) item of the tile walks'
+    plan, by enumeration: (items, 3) int64."""
+    return np.array([(r, f, min(chunk, w - f)) for r, w in enumerate(walked)
+                     for f in range(0, w, chunk)], np.int64).reshape(-1, 3)
+
+
 def scenes(c, r, a):
     """The same scene for both packages: (JAX Scene, port Scene)."""
     return fixed_scene(c, r, a), tt.scene_from_numpy(c, r, a, device="cpu")

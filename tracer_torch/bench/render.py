@@ -30,8 +30,10 @@ SPHERES = 100_000
 WIDTH, HEIGHT = 800, 600
 MODES = ("path", "direct")
 IMPLS = ("auto", "pallas", "tilecull")
+# Substrings of the hand-written kernels' names; the tile cull's walk is
+# tilewalk::walk_items<TileWalk>.
 KERNELS = ("leafcull_kernel", "compact_kernel", "anyhit_kernel",
-           "traverse_kernel", "tilecull_kernel")
+           "traverse_kernel", "TileWalk")
 
 
 def argv(mode: str, impl: str) -> list[str]:

@@ -6,77 +6,83 @@
 // the TPU mechanics are gone: no (128 rays x 128 lanes) outer-product
 // planes carried through the tile loop, no lane-wise best and min-over-lanes
 // epilogue, no S-subpacket grid steps.
-//   * one CTA of 128 threads per subpacket, one ray per thread;
-//   * the CTA walks its row's `count` candidate tiles in the listed
-//     (ascending) order, stages each tile's 128 float4 prims
-//     (cx, cy, cz, |c|^2 - r^2) in shared memory, one per thread, and every
-//     thread tests all 128 with walk::ray_prim_u, the u-form test the leaf
-//     walks share;
-//   * t = (-u) * (1/a); a prim is taken when disc > 0, t > EPSILON and
-//     t < the best so far, in ascending slot order, so the result is the
-//     smallest t and the lowest slot among equal t -- the TPU kernel's
-//     lane-wise best plus its lowest-slot epilogue. A miss is (3e38, 2^30).
+//   * the rows are split into items of at most W listed tiles and walked by
+//     a persistent grid (tilewalk.cuh), one ray per thread; a row is a
+//     subpacket, [count, tile ids..., padding];
+//   * every thread tests its ray against each staged prim with the u-form
+//     of the leaf walks, split: disc first, then u = b' + sqrt(disc),
+//     t = (-u) * (1/a), and the compare, only where disc > 0;
+//   * a prim is taken when disc > 0, t > EPSILON and t < 3e38; the per-ray
+//     key (t, slot) is merged by atomicMin, so the result is the smallest t
+//     and the lowest slot among equal t, the TPU kernel's lane-wise best
+//     plus its lowest-slot epilogue, whatever the listed order. A miss is
+//     (3e38, 2^30), the key the wrapper initialises.
 //
-// Bound on this card: operations. Each listed tile costs 128 x 128 tests
-// of ~20 fp32 operations on 2 KB of prims that sit in L2; the arithmetic is
-// spelled with __fmul_rn / __fadd_rn (walk.cuh) so nvcc does not contract
-// it into FMAs, and the kernel rounds exactly like tilecull_plain.
+// Bound on this card: operations. Each listed tile costs 128 x 128 tests of
+// 16 fp32 operations up to disc, each mul and add its own instruction (no
+// FMA, so the kernel rounds like tilecull_plain); the recorded bound counts
+// 20 operations at the 67 TFLOP/s FMA rate, so this kernel can reach at
+// most about half of it. Prims sit in L2 (2 KB a tile). The SASS of a
+// missed test is 21 issue slots: LDS.128, BSSY, 16 FMUL/FADD, FSETP, BRA,
+// BSYNC (no FFMA; the rounded sqrt's sequence runs only where disc > 0).
 
-#include "walk.cuh"
+#include "tilewalk.cuh"
 
 namespace {
 
-constexpr int kSub = 128;
-constexpr float kEps = 1e-6f;
+struct TileWalk {
+  using Ray = walk::Ray;
+  const float* feats;       // (G * S, 128, 16)
+  const int32_t* cand;      // (G * S, kp)
+  const float4* tiles;      // (T + 1, 128)
+  int kp;
 
-__global__ void __launch_bounds__(kSub)
-tilecull_kernel(const float* __restrict__ feats,
-                const int32_t* __restrict__ cand,
-                const float4* __restrict__ prims, float* __restrict__ t_out,
-                int32_t* __restrict__ slot_out, int S, int kp) {
-  __shared__ float4 s_prim[kSub];
-  const int blk = blockIdx.x;            // g * S + s
-  const int r = threadIdx.x;
-  const int32_t* row = cand + (size_t)blk * kp;
-  const walk::Ray ray = walk::load_ray(feats + ((size_t)blk * kSub + r)
-                                       * walk::kFeat);
-  const int nc = row[0];
-  float tb = walk::kBig;
-  int ib = walk::kNoSlot;
-  for (int k = 0; k < nc; ++k) {
-    const int tile = row[1 + k];
-    s_prim[r] = prims[(size_t)tile * kSub + r];
-    __syncthreads();
-    for (int i = 0; i < kSub; ++i) {
-      float disc;
-      const float u = walk::ray_prim_u(ray, s_prim[i], &disc);
+  __device__ __forceinline__ Ray load(int r, int x) const {
+    return walk::load_ray(feats + ((size_t)r * tilewalk::kRays + x)
+                          * walk::kFeat);
+  }
+  __device__ __forceinline__ int count(int r) const {
+    return min(max(__ldg(cand + (size_t)r * kp), 0), kp - 1);
+  }
+  __device__ __forceinline__ const int32_t* list(int r) const {
+    return cand + (size_t)r * kp + 1;
+  }
+  __device__ __forceinline__ uint32_t base(int tile, int) const {
+    return (uint32_t)tile * tilewalk::kTile;
+  }
+  __device__ __forceinline__ void test(const Ray& ray, float4 q,
+                                       uint32_t slot,
+                                       unsigned long long& best) const {
+    float bp;
+    const float disc = tilewalk::ray_prim_disc(ray, q, &bp);
+    if (disc > 0.0f) {
+      const float u = __fadd_rn(bp, __fsqrt_rn(disc));
       const float t = __fmul_rn(-u, ray.inva);
-      if (disc > 0.0f && t > kEps && t < tb) {
-        tb = t;
-        ib = tile * kSub + i;
+      if (t > tilewalk::kEps && t < walk::kBig) {
+        const unsigned long long key = tilewalk::pack(t, slot);
+        best = key < best ? key : best;
       }
     }
-    __syncthreads();
   }
-  const int g = blk / S, s = blk % S;
-  const size_t out = ((size_t)g * kSub + r) * S + s;
-  t_out[out] = tb;
-  slot_out[out] = ib;
-}
+};
 
 }  // namespace
 
 // feats (G, S, 128, 16) f32; cand (G, S, kp) i32 count-embedded tile rows;
-// prims (T + 1, 128, 4) f32; t / slot (G, 128, S). Returns
+// prims (T + 1, 128, 4) f32; starts (G * S + 1,) i32 the item plan for
+// chunk W; keys (G * S * 128,) u64 initialised to the miss key. Returns
 // cudaGetLastError() after the launch.
 extern "C" int tracer_tilecull(const void* feats, const void* cand,
-                               const void* prims, void* t, void* slot, int G,
-                               int S, int kp, void* stream) {
-  const long long blocks = (long long)G * S;
-  if (blocks > 0) {
-    tilecull_kernel<<<(unsigned)blocks, kSub, 0, (cudaStream_t)stream>>>(
-        (const float*)feats, (const int32_t*)cand, (const float4*)prims,
-        (float*)t, (int32_t*)slot, S, kp);
-  }
-  return (int)cudaGetLastError();
+                               const void* prims, const void* starts,
+                               void* keys, int rows, int kp, int W,
+                               void* stream) {
+  const TileWalk w{(const float*)feats, (const int32_t*)cand,
+                   (const float4*)prims, kp};
+  return tilewalk::launch(w, (const int32_t*)starts, rows, W,
+                          (unsigned long long*)keys, (cudaStream_t)stream);
+}
+
+// The persistent grid of tracer_tilecull on the current device.
+extern "C" int tracer_tilecull_grid() {
+  return tilewalk::grid_size<TileWalk>();
 }

@@ -66,10 +66,14 @@ def load() -> ctypes.CDLL:
             lib.tracer_traverse.argtypes = [vp] * 7 + [i] * 3 + [vp]
             lib.tracer_tilecull.restype = i
             lib.tracer_tilecull.argtypes = [vp] * 5 + [i] * 3 + [vp]
+            lib.tracer_tilecull_grid.restype = i
+            lib.tracer_tilecull_grid.argtypes = []
             lib.tracer_conecull.restype = i
             lib.tracer_conecull.argtypes = [vp] * 7 + [i] * 8 + [vp]
             lib.tracer_cull.restype = i
-            lib.tracer_cull.argtypes = [vp] * 6 + [i] * 2 + [vp]
+            lib.tracer_cull.argtypes = [vp] * 6 + [i] * 3 + [vp]
+            lib.tracer_cull_grid.restype = i
+            lib.tracer_cull_grid.argtypes = []
             lib.tracer_cuda_error_string.restype = ctypes.c_char_p
             lib.tracer_cuda_error_string.argtypes = [i]
             _lib = lib

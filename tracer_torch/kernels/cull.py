@@ -32,7 +32,7 @@ from tracer_torch.intersect.brute import record_from_ids
 from tracer_torch.intersect.cull import (LANES, LeafTable, prim_tiles,
                                          tile_candidates)
 from tracer_torch.intersect.sphere import EPSILON
-from tracer_torch.kernels import _lib
+from tracer_torch.kernels import _lib, tilewalk
 from tracer_torch.kernels.leafcull import _pad_edge, _sqrt_rn
 from tracer_torch.kernels.traverse import (PACKET, RAY_COLS, PackedBVH,
                                            pack_rays)
@@ -41,6 +41,8 @@ from tracer_torch.scene.scene import Scene
 # (0, 0, 0, r^2 = -1e30): cq = |o|^2 + 1e30, so disc4 = (o.d)^2 - a*cq < 0
 # for every ray; no ray can hit it.
 _SENTINEL_RSQ = -1.0e30
+MISS_KEY = tilewalk.miss_key(float("inf"), 0xFFFFFFFF)   # (+inf, -1)
+BLOCKS = PACKET // LANES      # 128-ray blocks per packet, rows of the walk
 
 
 def cull_tiles(packed: PackedBVH, num_tiles: int) -> Tensor:
@@ -136,27 +138,57 @@ def cull_plain(rays: Tensor, tiles: Tensor, cand: Tensor, counts: Tensor,
 
 def cull_cuda(rays: Tensor, tiles: Tensor, cand: Tensor, counts: Tensor):
     """The packet cull as the hand-written CUDA kernel (``csrc/cull.cu``):
-    one CTA of 1024 threads per packet.
+    each packet's eight 128-ray blocks share its row, the rows are split
+    into items of ``tilewalk.CHUNK`` listed tiles on a persistent grid of
+    128-thread CTAs, and each ray's hit is merged by a packed (t, listed
+    position) key.
 
     Same arguments and (t, slot) outputs as :func:`cull_plain`. Raises for
-    tensors that are not on one CUDA device. Adds one to
-    ``cull_cuda.launches`` per launch.
+    tensors that are not on one CUDA device. Reads no device value on the
+    host. Adds one to ``cull_cuda.launches`` per launch.
     """
-    dev = _lib.require_cuda("cull_cuda", rays, tiles, cand, counts)
+    _lib.require_cuda("cull_cuda", rays, tiles, cand, counts)
     _check_args(rays, tiles, cand, counts)
+    return _cull_launch(rays, tiles, cand, counts, tilewalk.CHUNK)
+
+
+def _cull_launch(rays: Tensor, tiles: Tensor, cand: Tensor, counts: Tensor,
+                 chunk: int):
+    """:func:`cull_cuda` with items of ``chunk`` listed tiles."""
+    dev = rays.device
     g, K = cand.shape
     rays, tiles, cand, counts = (x.contiguous()
                                  for x in (rays, tiles, cand, counts))
-    t = torch.empty((g, PACKET), dtype=torch.float32, device=dev)
-    slot = torch.empty((g, PACKET), dtype=torch.int32, device=dev)
+    starts = tilewalk.plan_items(walked_tiles(counts, K), chunk)
+    keys = torch.full((g * PACKET,), MISS_KEY, dtype=torch.int64, device=dev)
     lib = _lib.load()
     with torch.cuda.device(dev):
         rc = lib.tracer_cull(_lib.ptr(rays), _lib.ptr(tiles), _lib.ptr(cand),
-                             _lib.ptr(counts), _lib.ptr(t), _lib.ptr(slot), g,
-                             K, _lib.stream(dev))
+                             _lib.ptr(counts), _lib.ptr(starts),
+                             _lib.ptr(keys), g, K, chunk, _lib.stream(dev))
     _lib.check(lib, rc, "cull_cuda")
     cull_cuda.launches += 1
-    return t, slot
+    return slots_from_keys(keys.reshape(g, PACKET), cand)
+
+
+def walked_tiles(counts: Tensor, K: int) -> Tensor:
+    """(g * 8,) listed tiles each 128-ray block walks: its packet's count
+    clamped to [0, K]."""
+    g = counts.numel()
+    return counts.reshape(g, 1).clamp(0, K).expand(g, BLOCKS).reshape(-1)
+
+
+def slots_from_keys(keys: Tensor, cand: Tensor):
+    """(g, 1024) merged keys (t, k * 128 + lane) -> (t, slot): the listed
+    position k mapped back to its tile through ``cand`` (g, K); a miss is
+    (+inf, -1)."""
+    t, idx = tilewalk.unpack_keys(keys)
+    hit = keys != MISS_KEY
+    if cand.shape[1] == 0:
+        return t, torch.full_like(idx, -1, dtype=torch.int32)
+    k = torch.where(hit, idx // LANES, 0)
+    slot = cand.gather(1, k).to(torch.int64) * LANES + idx % LANES
+    return t, torch.where(hit, slot, -1).to(torch.int32)
 
 
 cull_cuda.launches = 0

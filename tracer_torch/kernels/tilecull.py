@@ -31,7 +31,7 @@ from tracer_torch.intersect.brute import record_from_ids
 from tracer_torch.intersect.cull import (LANES, LeafTable, prim_tiles,
                                          tile_candidates)
 from tracer_torch.intersect.sphere import EPSILON
-from tracer_torch.kernels import _lib
+from tracer_torch.kernels import _lib, tilewalk
 from tracer_torch.kernels.leafcull import (FEAT, _BIG, _NOSLOT, _pad_edge,
                                            pack_ray_features as _pack_feats,
                                            ray_prim_u)
@@ -40,6 +40,7 @@ from tracer_torch.scene.scene import Scene
 
 SUBPACKET = 128          # rays per frustum / candidate row (one CTA)
 _SENTINEL_CCR = 1.0e30   # (0, 0, 0, 1e30): a prim nothing can hit
+MISS_KEY = tilewalk.miss_key(_BIG, _NOSLOT)   # (3e38, 2^30)
 
 
 def pack_prim_tiles(packed: PackedBVH) -> Tensor:
@@ -147,26 +148,51 @@ def tilecull_plain(feats: Tensor, cand: Tensor, prims: Tensor,
 
 def tilecull_cuda(feats: Tensor, cand: Tensor, prims: Tensor):
     """The tile walk as the hand-written CUDA kernel (``csrc/tilecull.cu``):
-    one CTA of 128 threads per subpacket.
+    rows split into items of ``tilewalk.CHUNK`` listed tiles on a persistent
+    grid of 128-thread CTAs, merged per ray by a packed (t, slot) key.
 
     Same arguments and (t, slot) outputs as :func:`tilecull_plain`. Raises
-    for tensors that are not on one CUDA device. Adds one to
-    ``tilecull_cuda.launches`` per launch.
+    for tensors that are not on one CUDA device. Reads no device value on
+    the host. Adds one to ``tilecull_cuda.launches`` per launch.
     """
-    dev = _lib.require_cuda("tilecull_cuda", feats, cand, prims)
+    _lib.require_cuda("tilecull_cuda", feats, cand, prims)
     _check_args(feats, cand, prims)
+    return _tilecull_launch(feats, cand, prims, tilewalk.CHUNK)
+
+
+def _tilecull_launch(feats: Tensor, cand: Tensor, prims: Tensor,
+                     chunk: int):
+    """:func:`tilecull_cuda` with items of ``chunk`` listed tiles."""
+    dev = feats.device
     G, S, SP, _ = feats.shape
+    P, kp = G * S, cand.shape[-1]
     feats, cand, prims = (x.contiguous() for x in (feats, cand, prims))
-    t = torch.empty((G, SP, S), dtype=torch.float32, device=dev)
-    slot = torch.empty((G, SP, S), dtype=torch.int32, device=dev)
+    starts = tilewalk.plan_items(walked_tiles(cand), chunk)
+    keys = torch.full((P * SP,), MISS_KEY, dtype=torch.int64, device=dev)
     lib = _lib.load()
     with torch.cuda.device(dev):
         rc = lib.tracer_tilecull(
-            _lib.ptr(feats), _lib.ptr(cand), _lib.ptr(prims), _lib.ptr(t),
-            _lib.ptr(slot), G, S, cand.shape[-1], _lib.stream(dev))
+            _lib.ptr(feats), _lib.ptr(cand), _lib.ptr(prims), _lib.ptr(starts),
+            _lib.ptr(keys), P, kp, chunk, _lib.stream(dev))
     _lib.check(lib, rc, "tilecull_cuda")
     tilecull_cuda.launches += 1
-    return t, slot
+    return results_from_keys(keys, G, S)
+
+
+def walked_tiles(cand: Tensor) -> Tensor:
+    """(G * S,) listed tiles each row of ``cand`` walks: its count column
+    clamped to [0, Kp - 1]."""
+    kp = cand.shape[-1]
+    return cand.reshape(-1, kp)[:, 0].clamp(0, kp - 1)
+
+
+def results_from_keys(keys: Tensor, G: int, S: int):
+    """Merged keys (G * S * 128,) in ray order -> (t, slot), each
+    (G, 128, S) as :func:`tilecull_plain` lays them out; a miss key is
+    (3e38, 2^30)."""
+    t, slot = tilewalk.unpack_keys(keys.reshape(G, S, SUBPACKET)
+                                   .permute(0, 2, 1))
+    return t.contiguous(), slot.to(torch.int32).contiguous()
 
 
 tilecull_cuda.launches = 0
