@@ -16,19 +16,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
    and ``anyhit_cuda`` on phase-A rows at 20k spheres x 64k rays (default
    budgets, group-mode rows, C > 1 chunks, for phase B also unsorted rays
    whose cones are degenerate, and for any-hit a dense scene where whole
-   subpackets are occluded); ``routed_cuda`` on TLAS rows at 20k spheres in
-   8 chunks, where the routed query must also equal the dense multi-chunk
-   one;
+   subpackets are occluded); ``leafcull_cuda`` and ``anyhit_cuda`` on
+   skewed rows at SP = 64 and 128 in C > 1 chunks (one row per chunk walks
+   every group, the others 1-2 leaves); ``routed_cuda`` on TLAS rows at 20k
+   spheres in 8 chunks, where the routed query must also equal the dense
+   multi-chunk one;
 4. the closest-hit slice at full size: 100k spheres x 512k origin rays
    through prep, phase A and the leaf walk, with launch counters reset
    just before and read just after; overflow, hit fraction, and agreement
    with the brute-force oracle on the first 16k rays; kernel vs plain on
-   its rows;
+   its rows, their walked-leaf distribution and the split walk's sweep;
 5. the shadow slice at full size: the same rays with t_max = 500 through
    prep, phase A and the any-hit walk, counters reset and read the same
    way; overflow, agreement with "closest-hit t < 500" from phase 4 on
    every ray and with ``any_hit_brute`` on the first 16k rays; kernel vs
-   plain on its rows;
+   plain on its rows, their walked-leaf distribution and the sweep;
 5b. the packet cull at full size: 100k spheres in 16-prim leaves, the
    512k rays sorted by direction, through ``nearest_hit_cull_checked`` from
    K = 128, counters reset and read the same way; no overflow at the budget
@@ -54,8 +56,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
    noise tensor; counters reset before the six frames and read after; the
    images held against each other and the primary ids against brute
    force; ``traverse_cuda`` and ``tilecull_cuda`` held against their plain
-   versions on the frame's primary rays; one metrics JSON line per
-   (mode, impl);
+   versions on the frame's primary rays; the walks on the arguments the
+   frames gave them (every leaf walk of the path/auto frame with its rows,
+   time and bound, the heaviest also against its plain version and swept;
+   the direct/auto any-hit walk; the path/pallas packet walks, the longest
+   bounce against its plain version and its bound); one metrics JSON line
+   per (mode, impl);
 8. the headline measurement (``tracer_torch.bench``, with its shadow and
    LBVH extras) and the large-scene measurement
    (``tracer_torch.bench.large``), one JSON line each;
@@ -72,7 +78,11 @@ rows, and the sentinel tile listed after every packet's own tiles. Beside
 the two timed tile walks (phases 5b and 7) it logs the row-length
 distribution, the split (W, the persistent grid, the device operations of
 one call: the walk and its glue) and the walk's time at W = 4, 8 and 16,
-each result equal to the wrapper's.
+each result equal to the wrapper's. Beside the timed leaf walks (phases 4,
+5 and 7) it logs the walked leaves per row (mean, p99, max, total) and the
+share of rows in group mode, and the split (prims per item, items, the
+persistent grid, the device operations of one call) with the walk's time
+at 128, 256 and 512 prims per item, each result equal to the wrapper's.
 
 Closest-hit disagreements with an oracle are allowed only as ties (both t
 within 1e-5 relative) or grazes (for the prim one side chose, the
@@ -81,9 +91,7 @@ rays (against an oracle that rounds the quadratic another way, on rays off
 the origin, see MIN_AGREE_OTHER_ROUNDING); occlusion disagreements only as
 grazes or a hit t within 1e-5 of t_max, on at most 0.01% of rays (0.5% against ``any_hit_brute``, whose
 reference quadratic rounds differently, see MIN_AGREE_REFERENCE). Every
-kernel equals its plain version
-exactly (the closest-hit walks allow the same tie and graze classes, and
-measured none).
+kernel equals its plain version exactly.
 
 Each kernel's ``bound_ms`` is the larger of its bytes (each input read
 once, each output written once) over 3.35 TB/s and its operations over
@@ -100,6 +108,7 @@ survivor) test; the packet cull 25 per b-form test over the walked tiles
 (sum of min(count, K) x 1024 x 128).
 """
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -141,6 +150,7 @@ PLAIN_ELEMS = 1 << 26   # slice size of the plain walks on the card
 # with its own rounding.
 MIN_AGREE_OTHER_ROUNDING = 0.99
 WALK_SPHERES, WALK_RAYS = 20_000, 65_536   # packet and tile walk settings
+LEAF_ITEM_PRIMS = (128, 256, 512)   # prims per item in the leaf walks' sweep
 RENDER_FRAMES = 3       # timed frames per (mode, impl); the first dropped
 PIXEL_ATOL = 1e-5       # two renders of a pixel agree within this
 
@@ -222,37 +232,26 @@ def check_occlusion(name, o, d, occ_a, occ_b, centers, radii, t_max,
         raise AssertionError(f"{name}: occlusion results disagree")
 
 
-def walk_rays(feats):
-    """Per-ray (o, d) in the leaf walk's (G, SP, S) output order."""
-    f = feats.permute(0, 2, 1, 3).reshape(-1, feats.shape[-1])
-    return -0.5 * f[:, 3:6], f[:, 0:3]
-
-
 def walk_args(feats, rows, cull):
     return (feats, rows, cull.prims, cull.leaf_size, cull.leaves_per_chunk,
             cull.leaves_per_group)
 
 
 def compare_walk(name, feats, rows, cull):
-    """leafcull_cuda vs leafcull_plain on the same inputs, per chunk."""
+    """leafcull_cuda vs leafcull_plain on the same inputs, per chunk: t and
+    slots equal bit for bit."""
     import torch
-    from tracer_torch.kernels.leafcull import (leafcull_cuda, leafcull_plain,
-                                               _NOSLOT)
+    from tracer_torch.kernels.leafcull import leafcull_cuda, leafcull_plain
     args = walk_args(feats, rows, cull)
     tk, sk = leafcull_cuda(*args)
     tp, sp = leafcull_plain(*args, pair_elems=PLAIN_ELEMS)
     torch.cuda.synchronize()
-    C = rows.shape[0]
-    o, d = walk_rays(feats)
-    o, d = o.repeat(C, 1), d.repeat(C, 1)
-    flat = cull.prims.reshape(-1, 4)
-
-    def prim_of(s):
-        q = flat[s.clamp(max=flat.shape[0] - 1).long()]
-        return q[:, :3], q[:, 3]
-
-    return check_choices(name, o, d, prim_of, tk.reshape(-1), sk.reshape(-1),
-                         tp.reshape(-1), sp.reshape(-1), _NOSLOT)
+    if not (torch.equal(sk, sp) and torch.equal(tk, tp)):
+        raise AssertionError(f"{name}: leafcull_cuda != plain on "
+                             f"{int((sk != sp).sum())} slot(s), "
+                             f"{int((tk != tp).sum())} t value(s)")
+    log(f"{name}: {sk.numel()} ray results, {int((sk < 2 ** 30).sum())} "
+        f"hits; t and slots equal bit for bit")
 
 
 def compare_anyhit(name, feats, rows, cull):
@@ -348,9 +347,10 @@ def bound(n_bytes, n_ops):
 
 
 def walked_leaves(rows, lpg):
-    """Leaves each count-embedded row walks, (rows,) int64."""
-    nc = rows[..., 0].reshape(-1).long()
-    return nc.clamp(min=0) + (-nc).clamp(min=0) * lpg
+    """Leaves each count-embedded row walks, (rows,) int64: the wrappers'
+    own count (``leafcull.walked_leaves``)."""
+    from tracer_torch.kernels import leafcull
+    return leafcull.walked_leaves(rows, lpg).long()
 
 
 def anyhit_leaves_needed(feats, rows, cull):
@@ -394,14 +394,77 @@ def traverse_bound(name, rays, packed, steps, leaves):
     return bound(n_bytes, slabs * OPS_PER_SLAB + quads * OPS_PER_BFORM)
 
 
-def row_lengths(name, walked):
-    """Log the distribution of listed tiles walked per row: mean, p99,
-    max."""
+def row_lengths(name, walked, unit="listed tiles", group=None):
+    """Log the distribution of ``unit`` walked per row: mean, p99, max,
+    total; with ``group`` ((rows,) bool), the share of rows in group
+    mode."""
     import torch
     c = walked.reshape(-1).float()
-    log(f"{name}: {c.numel()} rows, listed tiles per row mean "
+    share = ("" if group is None else f", group mode on "
+             f"{group.reshape(-1).float().mean().item():.4f} of rows")
+    log(f"{name}: {c.numel()} rows, {unit} per row mean "
         f"{c.mean().item():.2f}, p99 {torch.quantile(c, 0.99).item():.0f}, "
-        f"max {int(c.max())}, total {int(c.sum())}")
+        f"max {int(c.max())}, total {int(c.sum())}{share}")
+
+
+def leaf_rows(name, rows, lpg):
+    """Log a leaf walk's rows: walked leaves per row (mean, p99, max,
+    total) and the share of rows in group mode."""
+    row_lengths(name, walked_leaves(rows, lpg), "walked leaves",
+                rows[..., 0] < 0)
+
+
+def skewed_leaf_rows(C, R, lpc, lpg, gen):
+    """(C, R, rowlen) int32 leaf rows: in each chunk the middle row walks
+    every group (group mode), every other row lists 1-2 random leaves."""
+    import torch
+    gpc = lpc // lpg
+    rows = torch.zeros((C, R, max(gpc, 2) + 1), dtype=torch.int32)
+    rows[..., 0] = torch.randint(1, 3, (C, R), generator=gen,
+                                 dtype=torch.int32)
+    rows[..., 1:3] = torch.randint(0, lpc, (C, R, 2), generator=gen,
+                                   dtype=torch.int32)
+    rows[:, R // 2, 0] = -gpc
+    rows[:, R // 2, 1:1 + gpc] = torch.arange(gpc, dtype=torch.int32)
+    return rows
+
+
+def leaf_launch_log(name, walk, args):
+    """Log a leaf walk's split (``walk``: "leafcull" or "anyhit"): the
+    items of the rows at ITEM_PRIMS prims per item, the persistent grid,
+    the device operations one call launches (the walk, for the closest hit
+    its epilogue, and the glue: item plan, key or flag init), and the walk's
+    time at each of LEAF_ITEM_PRIMS prims per item, each result equal to the
+    wrapper's bit for bit. Returns {prims per item: ms}."""
+    import torch
+    from tracer_torch.bench.profile import profile_calls
+    from tracer_torch.bench.timing import time_cuda
+    from tracer_torch.kernels import leafcull as lc
+    from tracer_torch.kernels.tilewalk import plan_items
+    fn, launch = getattr(lc, f"{walk}_cuda"), getattr(lc, f"_{walk}_launch")
+    feats, rows, _, ls, _, lpg = args
+    sp, w = feats.shape[2], lc.item_leaves(ls)
+    items = int(plan_items(lc.walked_leaves(rows, lpg), w)[-1])
+    ops = profile_calls(fn, *args, iters=1)["launches"]
+    kernels = 2 if walk == "leafcull" else 1
+    want = fn(*args)
+    times = {}
+    for prims in LEAF_ITEM_PRIMS:
+        got = launch(*args, lc.item_leaves(ls, prims))
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in
+                   zip(*((v,) if torch.is_tensor(v) else v
+                         for v in (got, want)))):
+            raise AssertionError(f"{name}: {prims} prims per item changed "
+                                 f"a result")
+        times[prims] = time_cuda(launch, *args, lc.item_leaves(ls, prims))
+    log(f"{name}: {lc.ITEM_PRIMS} prims ({w} leaves of {ls}) per item, "
+        f"{items} items over {rows[..., 0].numel()} rows of {sp} rays, grid "
+        f"{lc.leaf_grid(walk, sp, ls, w, feats.device)} CTAs of {sp} "
+        f"threads, {ops} device operations per call ({kernels} kernel(s) + "
+        f"{ops - kernels} glue); ms by prims per item "
+        + ", ".join(f"{p}: {ms:.4f}" for p, ms in times.items()))
+    return times
 
 
 def skewed_lists(rows, T, gen):
@@ -524,6 +587,36 @@ def wrapper_ids_match(name, rec, ids, o, d, scene):
         f"{int(dropped.sum())} of them grazes the reference quadratic drops")
     if not bool(dropped.all()):
         raise AssertionError(f"{name}: 2-D wrapper != plain walk")
+
+
+def skewed_leaf_walks(dev):
+    """Phase 3b, skewed rows: leafcull_cuda and anyhit_cuda vs their plain
+    versions at SP = 64 and 128, 20k spheres x 64k rays in C > 1 chunks of
+    the dense scene (so that 1-2 random leaves give hits): in each chunk
+    one row walks every group (group mode), the others list 1-2 leaves."""
+    import torch
+    from tracer_torch.bench import headline
+    from tracer_torch.kernels.leafcull import prep_feats_bucketed
+    _, tables, o, d, _ = headline.benchmark_inputs(
+        dev, n_spheres=WALK_SPHERES, n_rays=WALK_RAYS, world=40.0,
+        max_chunk_bytes=256 << 10)
+    cull = tables.cull
+    C, lpc, lpg = cull.num_chunks, cull.leaves_per_chunk, cull.leaves_per_group
+    if C < 2:
+        raise AssertionError("small max_chunk_bytes kept one chunk")
+    gen = torch.Generator().manual_seed(13)
+    tm = torch.full((o.shape[0],), SMALL_T_MAX, device=dev)
+    for sp in (64, 128):
+        feats = prep_feats_bucketed(o, d, headline.S, sp,
+                                    cell_bits=headline.CELL_BITS, t_max=tm)[0]
+        G, S = feats.shape[:2]
+        rows = skewed_leaf_rows(C, G * S, lpc, lpg, gen)
+        rows = rows.reshape(C, G, S, -1).to(dev)
+        name = (f"skewed leaf rows, SP {sp}, {C} chunks (one row a chunk "
+                f"walks all {lpc // lpg} groups)")
+        leaf_rows(name, rows, lpg)
+        compare_walk(f"walk, {name}", feats, rows, cull)
+        compare_anyhit(f"any-hit, {name}", feats, rows, cull)
 
 
 def packet_and_tile_walks(dev):
@@ -657,6 +750,99 @@ def ref_t_of(o, d, scene):
     return t_of
 
 
+@contextlib.contextmanager
+def recording(module, fn_name, into):
+    """Within the block, calls of ``module.fn_name`` run unchanged and
+    their arguments are appended to ``into``; with no module, nothing."""
+    if module is None:
+        yield
+        return
+    real = getattr(module, fn_name)
+
+    def record(*a):
+        into.append(a)
+        return real(*a)
+    setattr(module, fn_name, record)
+    try:
+        yield
+    finally:
+        setattr(module, fn_name, real)
+
+
+def frame_walks(captured):
+    """The render slice's walks on the arguments the frames gave them:
+    each leaf walk of the path/auto frame (its rows, time and bound; every
+    launch of an escalating query is kept, the last at each bounce is the
+    budget it settled on), the direct/auto frame's any-hit walk, and the
+    path/pallas frame's packet walks (time each; plain version and bound
+    on the bounce whose walk takes longest)."""
+    import types
+    import torch
+    from tracer_torch.bench.timing import time_cuda
+    from tracer_torch.kernels.leafcull import anyhit_cuda, leafcull_cuda
+    from tracer_torch.kernels.traverse import traverse_cuda
+
+    def tables(a):
+        return types.SimpleNamespace(prims=a[2], leaf_size=a[3],
+                                     leaves_per_chunk=a[4],
+                                     leaves_per_group=a[5])
+
+    calls = captured["leafcull"]
+    total_ms = total_bound = 0.0
+    heaviest = None
+    for i, a in enumerate(calls):
+        feats, rows = a[0], a[1]
+        nxt = calls[i + 1][0] if i + 1 < len(calls) else None
+        settled = nxt is None or nxt.shape != feats.shape \
+            or not torch.equal(nxt, feats)
+        name = (f"path/auto leaf walk {i} ("
+                f"{'settled' if settled else 'escalates'})")
+        leaf_rows(f"{name} rows", rows, a[5])
+        ms = time_cuda(leafcull_cuda, *a)
+        walked = walked_leaves(rows, a[5])
+        bms, bby = walk_bound(name, feats, rows, tables(a), walked,
+                              rows[..., 0].numel() * feats.shape[2] * 8)
+        log(f"{name}: cuda {ms:.4f} ms, bound {bms:.4f} ms ({bby})")
+        total_ms, total_bound = total_ms + ms, total_bound + bms
+        if settled and (heaviest is None
+                        or int(walked.sum()) > heaviest[0]):
+            heaviest = (int(walked.sum()), i)
+    log(f"path/auto frame: {len(calls)} leafcull_cuda launches, {total_ms:.4f}"
+        f" ms in all, bound {total_bound:.4f} ms")
+    if heaviest is not None:
+        a = calls[heaviest[1]]
+        compare_walk(f"path/auto leaf walk {heaviest[1]}", a[0], a[1],
+                     tables(a))
+        leaf_launch_log(f"path/auto leaf walk {heaviest[1]}", "leafcull", a)
+
+    for a in captured["anyhit"]:
+        sfeats, srows = a[0], a[1]
+        leaf_rows("direct/auto any-hit walk rows", srows, a[5])
+        compare_anyhit("direct/auto any-hit walk", sfeats, srows, tables(a))
+        ms = time_cuda(anyhit_cuda, *a)
+        bms, bby = walk_bound("direct/auto any-hit walk", sfeats, srows,
+                              tables(a), anyhit_leaves_needed(sfeats, srows,
+                                                              tables(a)),
+                              sfeats[..., 0].numel() * 4)
+        log(f"direct/auto any-hit walk: cuda {ms:.4f} ms, bound {bms:.4f} ms"
+            f" ({bby})")
+
+    tms = [time_cuda(traverse_cuda, *a) for a in captured["traverse"]]
+    log("path/pallas packet walks, ms by bounce: "
+        + ", ".join(f"{ms:.4f}" for ms in tms) + f"; {sum(tms):.4f} in all")
+    if len(tms) > 1:
+        i = max(range(1, len(tms)), key=tms.__getitem__)
+        rays, packed = captured["traverse"][i]
+        steps, leaves = compare_traverse(f"packet walk, bounce {i} of the "
+                                         f"path/pallas frame", rays, packed)
+        bms, bby = traverse_bound(f"packet walk, bounce {i}", rays, packed,
+                                  steps, leaves)
+        log(f"packet walk bounce {i}: cuda {tms[i]:.4f} ms, bound "
+            f"{bms:.4f} ms ({bby})")
+    for v in captured.values():
+        v.clear()
+
+
 def render_slice(dev, results):
     """Phase 7: the renderer at full size through the CLI's code path."""
     import torch
@@ -679,6 +865,14 @@ def render_slice(dev, results):
                 "leafcull_cuda": leafcull_cuda, "compact_cuda": compact_cuda,
                 "anyhit_cuda": anyhit_cuda}
 
+    from tracer_torch.kernels import conecull as kcone, traverse as ktrav
+    # The walks' arguments as the frames ran them: every leaf walk of the
+    # path/auto frame, the any-hit walk of the direct/auto frame and every
+    # packet walk of the path/pallas frame.
+    captured = {"leafcull": [], "anyhit": [], "traverse": []}
+    hooks = {("path", "auto"): (kcone, "leafcull_call", "leafcull"),
+             ("direct", "auto"): (kcone, "anyhit_call", "anyhit"),
+             ("path", "pallas"): (ktrav, "traverse_call", "traverse")}
     sessions, images = {}, {}
     for mode in brender.MODES:
         for impl in brender.IMPLS:
@@ -693,7 +887,9 @@ def render_slice(dev, results):
     per = {}
     for key, sess in sessions.items():
         before = {k: c.launches for k, c in counters.items()}
-        images[key] = sess.frame(sess.camera, noise)
+        module, fn, walk = hooks.get(key, (None, None, None))
+        with recording(module, fn, captured.get(walk)):
+            images[key] = sess.frame(sess.camera, noise)
         torch.cuda.synchronize()
         per[key] = {k: c.launches - before[k] for k, c in counters.items()}
     launches = {k: c.launches for k, c in counters.items()}
@@ -782,6 +978,7 @@ def render_slice(dev, results):
     results["tilecull_cuda"] = dict(
         ms=ms, plain_ms=pms, library_ms=None, bound_ms=bms, bound_by=bby,
         max_abs_err=0, launches=launches["tilecull_cuda"])
+    frame_walks(captured)
 
     # One metrics line per (mode, impl): the CLI's timed frame loop.
     for key, sess in sessions.items():
@@ -1167,7 +1364,6 @@ def main() -> int:
     results["compact_cuda"] = dict(cres, bound_by="bytes", max_abs_err=0)
 
     # -- 3b. the walks vs their plain versions at 20k spheres -------------
-    walk_err = 0.0
     for name, mc, world, table_args in (
             ("20k x 64k", headline.MC, 500.0, {}),
             ("20k x 64k, group mode", 7, 500.0, {}),
@@ -1184,8 +1380,8 @@ def main() -> int:
         if table_args and C < 2:
             raise AssertionError("small max_chunk_bytes kept one chunk")
         if world == 500.0:
-            walk_err = max(walk_err, compare_walk(
-                f"walk {name} ({C} chunk(s))", feats, rows, tables.cull))
+            compare_walk(f"walk {name} ({C} chunk(s))", feats, rows,
+                         tables.cull)
             compare_conecull(f"phase B {name} ({C} chunk(s))", feats, rows,
                              phase_a(feats, tables, mc=mc)[1], tables.cull)
             if not table_args and mc == headline.MC:
@@ -1227,6 +1423,7 @@ def main() -> int:
                      ufeats, urows, ucones, tables.cull)
 
     tie_breaks(dev)
+    skewed_leaf_walks(dev)
     packet_and_tile_walks(dev)
     packet_cull_walks(dev)
 
@@ -1261,9 +1458,10 @@ def main() -> int:
 
     feats, _ = headline.prep(o, d)
     rows = phase_a_rows(feats, tables)
-    walk_err = max(walk_err, compare_walk("walk 100k x 512k", feats, rows,
-                                          cull))
+    compare_walk("walk 100k x 512k", feats, rows, cull)
+    leaf_rows("walk 100k x 512k rows", rows, cull.leaves_per_group)
     args = walk_args(feats, rows, cull)
+    leaf_launch_log("walk 100k x 512k", "leafcull", args)
     walk_ms = time_cuda(leafcull_cuda, *args)
     walk_plain_ms = time_cuda(leafcull_plain, *args, warmup=1, iters=3)
     wb, wby = walk_bound("walk 100k x 512k", feats, rows, cull,
@@ -1274,7 +1472,7 @@ def main() -> int:
         f"{walk_plain_ms:.4f} ms, bound {wb:.4f} ms ({wby})")
     results["leafcull_cuda"] = dict(
         ms=walk_ms, plain_ms=walk_plain_ms, library_ms=None, bound_ms=wb,
-        bound_by=wby, max_abs_err=walk_err,
+        bound_by=wby, max_abs_err=0,
         launches=launches["leafcull_cuda"])
     results["compact_cuda"]["launches"] = launches["compact_cuda"]
 
@@ -1302,7 +1500,9 @@ def main() -> int:
     sfeats = shadow_prep(o, d, t_max)
     srows = phase_a_rows(sfeats, tables)
     compare_anyhit("any-hit 100k x 512k", sfeats, srows, cull)
+    leaf_rows("any-hit 100k x 512k rows", srows, cull.leaves_per_group)
     sargs = walk_args(sfeats, srows, cull)
+    leaf_launch_log("any-hit 100k x 512k", "anyhit", sargs)
     any_ms = time_cuda(anyhit_cuda, *sargs)
     any_plain_ms = time_cuda(anyhit_plain, *sargs, warmup=1, iters=3)
     ab, aby = walk_bound("any-hit 100k x 512k", sfeats, srows, cull,

@@ -6,6 +6,14 @@ interpret mode) on the SAME feature planes and candidate rows: slots
 exactly, t to 1e-5 relative. Cases cover leaf sizes 8 and 32, group-mode
 rows and C > 1 chunks (the min-merge). Synthetic cases pin the tie-break
 rules, and a walk over every group is held against brute force.
+
+The CUDA kernel splits each row's walked leaves into items and merges each
+ray's best by the minimum of a packed (-u, slot) key. The item plan is held
+against an enumeration, the keys' order (on u, not t) is checked, and a
+model of the split built from the plain walk (each item's leaves walked as
+a row of their own, the keys merged by min) must equal the whole-row walk
+bit for bit, where one sphere is stored twice (an exact u tie) and in
+group mode.
 """
 
 import numpy as np
@@ -17,8 +25,10 @@ from tests import torch_parity as tp
 from tests.torch_parity import one_thread  # noqa: F401
 from tracer.kernels import conecull as jcone
 from tracer.kernels.leafcull import _leafcull_call as j_leafcull_call
-from tracer_torch.kernels.leafcull import (leafcull_plain, pack_ray_features,
-                                           _walk_pairs, _BIG, _NOSLOT)
+from tracer_torch.kernels import tilewalk as tw
+from tracer_torch.kernels.leafcull import (
+    MISS_KEY, closest_rows_u, item_leaves, leafcull_plain, pack_ray_features,
+    walked_leaves, _walk_pairs, _BIG, _NOSLOT)
 
 # case -> (spheres, leaf size, max_candidates, max_chunk_bytes)
 CASES = {
@@ -187,3 +197,107 @@ def test_empty_rows_and_misses_write_no_hit():
     assert (s_c == _NOSLOT).all() and (t_c == _BIG).all()
     t, slot = tt.leafcull_call(feats, _rows([[], [0]]), prims, LS, 2, 16)
     assert (slot == _NOSLOT).all()
+
+
+# ---------------------------------------------------------------------------
+# the split walk: item plan, (-u, slot) keys, split-and-merge model
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("counts,lpg,chunk", [
+    ([3, 1, 0, 7, 2, 9, 4, 1], 16, 2),           # leaf mode
+    ([-1, -3, 2, -2, 0, 5, -1, 1], 4, 3),        # group mode beside leaf mode
+    ([0] * 8, 16, 4),                            # nothing to walk
+    ([5, -2, 0, 1, 0, 3, -1, 8] * 2, 2, 4)])     # C = 2 chunks
+def test_leaf_item_plan_matches_enumeration(counts, lpg, chunk):
+    cand = torch.zeros((len(counts) // 8, 2, 4, 12), dtype=torch.int32)
+    cand.view(-1, 12)[:, 0] = torch.tensor(counts, dtype=torch.int32)
+    want = np.array([c if c > 0 else -c * lpg for c in counts])
+    walked = walked_leaves(cand, lpg)
+    np.testing.assert_array_equal(walked.numpy(), want)
+    starts = tw.plan_items(walked, chunk)
+    items = tp.np_items(want, chunk)
+    assert starts.dtype == torch.int32 and int(starts[-1]) == len(items)
+    np.testing.assert_array_equal(
+        starts[:-1].numpy(), np.searchsorted(items[:, 0], np.arange(
+            len(counts))))
+    got = np.stack([x.numpy() for x in tw.item_table(starts, walked, chunk)],
+                   1).reshape(-1, 3)
+    np.testing.assert_array_equal(got, items)
+    assert (item_leaves(32), item_leaves(16), item_leaves(4)) == (4, 8, 32)
+
+
+def test_u_keys_round_trip_and_order():
+    """(-u, slot) keys: pack/unpack are inverse, the minimum is the largest
+    u and then the lowest slot, and the miss key is above every hit key.
+    Two u that round to one t = (-u) * (1/a) still order by u, where a key
+    on t would take the lower slot."""
+    rng = np.random.default_rng(6)
+    u = -rng.choice(np.float32([1e-6, 0.5, 0.5000001, 3.0, 7e37, 3.4e38]),
+                    4000)
+    slot = rng.integers(0, 2 ** 30, 4000)
+    slot[:3] = [0, 2 ** 30 - 1, 1]
+    keys = tw.pack_keys(torch.as_tensor(-u), torch.as_tensor(slot))
+    nu, s = tw.unpack_keys(keys)
+    np.testing.assert_array_equal((-nu).numpy().view(np.uint32),
+                                  u.view(np.uint32))
+    np.testing.assert_array_equal(s.numpy(), slot)
+    order = np.lexsort((slot, -u))                  # largest u, then slot
+    np.testing.assert_array_equal(np.sort(keys.numpy()), keys.numpy()[order])
+    assert int(keys.max()) < MISS_KEY
+    inva = np.float32(1.0) / np.float32(3.0)
+    far = next(x for x in -(np.float32(10.0) + np.arange(1000, dtype=np.float32)
+                            * np.float32(0.37))
+               if np.float32(-x) * inva
+               == np.float32(-np.nextafter(x, np.float32(0))) * inva)
+    near = np.nextafter(far, np.float32(0))         # the larger u
+    pair = torch.tensor([far, near])
+    slots = torch.tensor([2, 9])
+    _, best = tw.unpack_keys(tw.pack_keys(-pair, slots).min())
+    assert int(best) == 9
+    t = -pair * torch.tensor(inva)
+    assert t[0] == t[1]
+    _, by_t = tw.unpack_keys(tw.pack_keys(t, slots).min())
+    assert int(by_t) == 2
+
+
+@pytest.fixture(scope="module")
+def tie_leaf_walk():
+    feats, cand, prims, ls, lpc, lpg = tp.tie_leaves(43)
+    return (feats, cand, prims, ls, lpg,
+            leafcull_plain(feats, cand, prims, ls, lpc, lpg))
+
+
+def split_merge(feats, cand, prims, ls, lpg, chunk):
+    """The kernel's split walk modelled with the plain walk: each item's
+    leaves walked by closest_rows_u as a row of their own, each ray's
+    (-u, slot) key min-merged over the items, then unpacked as the kernel's
+    epilogue does: t = (-u) * (1/a), (3e38, 2^30) for a miss."""
+    G, S, SP, F = feats.shape
+    C = cand.shape[0]
+    row, sub = tp.leaf_item_rows(cand, lpg, chunk)
+    u, slot = closest_rows_u(feats.reshape(G * S, SP, F), row % (G * S),
+                             row // (G * S), sub, prims, ls, lpg)
+    key = torch.where(slot < _NOSLOT, tw.pack_keys(-u, slot), MISS_KEY)
+    keys = torch.full((C * G * S * SP,), MISS_KEY, dtype=torch.int64)
+    keys.scatter_reduce_(0, (row[:, None] * SP + torch.arange(SP)).reshape(-1),
+                         key.reshape(-1), "amin")
+    keys = keys.reshape(C, G, S, SP)
+    nu, s = tw.unpack_keys(keys)
+    miss = keys == MISS_KEY
+    t = torch.where(miss, _BIG, nu * feats[..., 11])
+    s = torch.where(miss, _NOSLOT, s).to(torch.int32)
+    return (t.permute(0, 1, 3, 2).contiguous(),
+            s.permute(0, 1, 3, 2).contiguous())
+
+
+@pytest.mark.parametrize("chunk", [1, 3, 8])
+def test_split_and_merge_equals_whole_rows(tie_leaf_walk, chunk):
+    """Bit for bit, for items that split the two copies of the tied sphere
+    apart (1 leaf) or keep them together (8), in leaf and group mode."""
+    feats, cand, prims, ls, lpg, (t, slot) = tie_leaf_walk
+    got = split_merge(feats, cand, prims, ls, lpg, chunk)
+    assert torch.equal(got[0], t) and torch.equal(got[1], slot)
+    assert (slot == tp.LEAF_DUP[0]).sum() > 5
+    assert not (slot == tp.LEAF_DUP[1]).any()
+    assert (slot[0, 0, :, 0] == _NOSLOT).all()            # the empty row
+    assert (slot < _NOSLOT).float().mean() > 0.3

@@ -9,7 +9,9 @@ rows equal the port's, and the slice against the brute-force oracle: flags
 equal, except rays at a graze or with a hit within f32 rounding of t_max
 (the flip class of tests/test_shadow.py). Cases cover C = 1, group-mode
 rows and C > 1 chunks; synthetic cases pin the far clip and the OR over
-chunks.
+chunks. The CUDA kernel splits each row's walked leaves into items and ORs
+the flags: a model of that split built from the plain walk must give the
+whole-row flags.
 """
 
 import jax.numpy as jnp
@@ -211,3 +213,29 @@ def test_anyhit_ors_over_chunks_and_skips_empty_rows():
     grp = torch.full((2, 1, 1, 8), 2, dtype=torch.int32)
     grp[:, 0, 0, 0], grp[:, 0, 0, 1] = -1, 0
     assert anyhit_call(_feats(20.0), grp, prims, LS, 2, 2).all()
+
+
+# ---------------------------------------------------------------------------
+# the split walk: the OR over items
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("chunk", [1, 3, 8])
+def test_anyhit_or_over_items_equals_whole_rows(chunk):
+    """The kernel's split walk modelled with the plain walk: each item's
+    leaves walked by anyhit_plain as a row of their own (over the table as
+    one chunk, so the global slots stay), the flags ORed over the items of
+    every chunk; equal to the whole-row walk, in leaf and group mode."""
+    feats, cand, prims, ls, lpc, lpg = tp.tie_leaves(44, t_max=25.0)
+    whole = anyhit_plain(feats, cand, prims, ls, lpc, lpg)
+    G, S, SP, F = feats.shape
+    C = cand.shape[0]
+    row, sub = tp.leaf_item_rows(cand, lpg, chunk)
+    gs = row % (G * S)
+    sub[:, 1:] += (row // (G * S) * lpc).to(torch.int32)[:, None]
+    occ = anyhit_plain(feats.reshape(G * S, 1, SP, F)[gs], sub[None, :, None],
+                       prims.reshape(1, -1, 4), ls, C * lpc, lpg)
+    ors = torch.zeros((G * S, SP), dtype=torch.int32)
+    ors.index_put_((gs,), occ[:, :, 0], accumulate=True)
+    got = (ors > 0).reshape(G, S, SP).permute(0, 2, 1).to(torch.int32)
+    assert torch.equal(got, whole)
+    assert whole.any() and not whole.all()

@@ -91,6 +91,73 @@ def tie_tiles_np(num_tiles: int, b: int, seed: int):
     return c, r, o, d.astype(np.float32)
 
 
+LEAF_DUP = (1 * 4 + 2, 5 * 4 + 1)   # chunk-0 slots of one sphere, twice
+
+
+def tie_leaves(seed: int, t_max=None):
+    """A two-chunk leaf table (leaf size 4, 16 leaves per chunk, groups of
+    4 leaves) of 128 spheres, one stored twice in chunk 0 (slots
+    ``LEAF_DUP``: an exact u tie for every ray that hits it), 2 x 2
+    subpackets of 64 rays, a third of them aimed at that sphere, and rows
+    of every kind: empty, leaf mode (the two copies listed high leaf first,
+    every leaf descending, a run) and group mode (every group, two groups
+    out of order, one). Returns (feats (2, 2, 64, FEAT), cand (2, 2, 2, 17)
+    int32, prims (2, 64, 4), leaf_size, leaves_per_chunk,
+    leaves_per_group)."""
+    ls, lpc, lpg = 4, 16, 4
+    rng = np.random.default_rng(seed)
+    c = rng.uniform(-20, 20, (2 * lpc * ls, 3)).astype(np.float32)
+    r = rng.uniform(0.5, 2.0, 2 * lpc * ls).astype(np.float32)
+    c[LEAF_DUP[1]], r[LEAF_DUP[0]] = c[LEAF_DUP[0]], 3.0
+    r[LEAF_DUP[1]] = r[LEAF_DUP[0]]
+    b = 256
+    o = rng.uniform(-30, 30, (b, 3)).astype(np.float32)
+    aim = c[rng.integers(0, len(c), b)]
+    near = np.arange(b) % 3 == 0
+    off = rng.normal(size=(b, 3))
+    off /= np.linalg.norm(off, axis=1, keepdims=True)
+    o[near] = c[LEAF_DUP[0]] + 8.0 * off[near]
+    aim[near] = c[LEAF_DUP[0]]
+    d = aim - o + rng.normal(0, 0.2, (b, 3))
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    ct, rt = torch.as_tensor(c), torch.as_tensor(r)
+    ccr = ct[:, 0] * ct[:, 0] + ct[:, 1] * ct[:, 1] + ct[:, 2] * ct[:, 2] \
+        - rt * rt
+    prims = torch.cat([ct, ccr[:, None]], 1).reshape(2, lpc * ls, 4)
+    tm = None if t_max is None else torch.full((b,), float(t_max))
+    feats, _, _ = tt.pack_ray_features(torch.as_tensor(o), torch.as_tensor(d),
+                                       2, 64, t_max=tm)
+    lists = [[], [5, 1], [-4, 0, 1, 2, 3], list(range(15, -1, -1)),
+             [-2, 3, 0], list(range(8)), [], [-1, 1]]
+    cand = torch.full((8, 17), lpc, dtype=torch.int32)
+    for i, row in enumerate(lists):
+        count = row[0] if row and row[0] < 0 else len(row)
+        ids = row[1:] if count < 0 else row
+        cand[i, 0] = count
+        cand[i, 1:1 + len(ids)] = torch.tensor(ids, dtype=torch.int32)
+    return feats, cand.reshape(2, 2, 2, 17), prims, ls, lpc, lpg
+
+
+def leaf_item_rows(cand, leaves_per_group: int, chunk: int):
+    """The split leaf walks' items as rows of their own: (row (items,)
+    int64, the item's row of the flattened (C, G, S) grid; sub (items,
+    chunk + 1) int32 leaf-mode rows listing each item's walked leaves in
+    walk order). Built from the plain walks' pair enumeration and the
+    wrappers' item plan."""
+    from tracer_torch.kernels import tilewalk as tw
+    from tracer_torch.kernels.leafcull import _walk_pairs, walked_leaves
+    walked = walked_leaves(cand, leaves_per_group)
+    starts = tw.plan_items(walked, chunk)
+    row, _, n = tw.item_table(starts, walked, chunk)
+    q, leaf = _walk_pairs(cand.reshape(-1, cand.shape[-1]), leaves_per_group)
+    w = walked.long()
+    j = torch.arange(q.shape[0]) - (torch.cumsum(w, 0) - w)[q]
+    sub = torch.zeros((row.shape[0], chunk + 1), dtype=torch.int32)
+    sub[:, 0] = n.to(torch.int32)
+    sub[starts[q].long() + j // chunk, 1 + j % chunk] = leaf.to(torch.int32)
+    return row, sub
+
+
 def np_items(walked, chunk: int) -> np.ndarray:
     """Every (row, first listed position, tiles) item of the tile walks'
     plan, by enumeration: (items, 3) int64."""

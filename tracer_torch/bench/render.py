@@ -30,9 +30,10 @@ SPHERES = 100_000
 WIDTH, HEIGHT = 800, 600
 MODES = ("path", "direct")
 IMPLS = ("auto", "pallas", "tilecull")
-# Substrings of the hand-written kernels' names; the tile cull's walk is
+# Substrings of the hand-written kernels' names; the split walks are
+# leafwalk::walk_items<LeafcullWalk>, <AnyhitWalk> and
 # tilewalk::walk_items<TileWalk>.
-KERNELS = ("leafcull_kernel", "compact_kernel", "anyhit_kernel",
+KERNELS = ("LeafcullWalk", "compact_kernel", "AnyhitWalk",
            "traverse_kernel", "TileWalk")
 
 

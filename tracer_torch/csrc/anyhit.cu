@@ -2,84 +2,86 @@
 // candidate leaves over the segment (EPSILON, t_max)?
 //
 // Replaces the TPU kernel tracer/kernels/leafcull.py:_anyhit_kernel,
-// reached through leafcull._anyhit_call. Per chunk a ray is occluded when a
-// walked prim gives disc > 0, u < -eps*a and u > -a*t_max (feature column
-// 13; u > -a*t_max <=> t < t_max); the result is ORed over chunks. The
-// TPU kernel's 4-leaf lane-quarter blocks, i32 masks in place of i1 and
-// 16-leaf while_loop steps exist for the TPU and are gone:
-//   * the shape of leafcull.cu: one CTA per (chunk c, packet g, subpacket
-//     s), one thread per ray, batches of 512 prims staged in shared memory,
-//     the same (ray, prim) test (walk::ray_prim_u), bit for bit;
-//   * early exit: after each staged batch, __syncthreads_and(occluded)
-//     ends the walk once every ray of the subpacket is occluded, in leaf
-//     and group mode alike. The result does not depend on it: a ray that
-//     is occluded stays so, and the plain version, which walks everything,
-//     gives identical flags;
-//   * the OR over chunks needs no atomics: the output starts at 0 and a
-//     CTA writes 1 for its occluded rays; CTAs of other chunks write the
-//     same value to the same place.
-// Bound on this card: like leafcull.cu, instruction throughput in the
-// inner loop (~20 fp32 operations per (ray, prim) test) over prims read
-// from L2; the early exit cuts the work to what occlusion needs.
+// reached through leafcull._anyhit_call (tracer/kernels/leafcull.py:953).
+// Per chunk a ray is occluded when a walked prim gives disc > 0,
+// u < -eps*a and u > -a*t_max (feature column 13; u > -a*t_max <=>
+// t < t_max); the result is ORed over chunks. The TPU kernel's 4-leaf
+// lane-quarter blocks, i32 masks in place of i1 and 16-leaf while_loop
+// steps exist for the TPU and are gone:
+//   * the walk of leafcull.cu: rows split into items of at most W leaves on
+//     a persistent grid, one thread per ray, the split test, a two-stage
+//     cp.async ring (leafwalk.cuh), bit for bit with anyhit_plain;
+//   * the OR over items and chunks needs no atomics: the output starts at
+//     0 and a CTA writes 1 for its occluded rays with a plain store; other
+//     CTAs write the same value to the same place;
+//   * early exit: a thread stops testing its item at the first occluding
+//     prim, and before each item it reads its ray's flag from the output
+//     and skips the item's tests where it is set, so a warp or a whole CTA
+//     skips items once all of its rays are occluded. A flag another CTA
+//     has not written yet only costs work; the flags do not depend on it
+//     and stay those of anyhit_plain, which walks everything.
+//
+// Bound on this card: operations, as leafcull.cu (16 fp32 operations per
+// missed test, each its own instruction, prims from L2); the early exit
+// cuts the work to what occlusion needs.
 
-#include "walk.cuh"
+#include "leafwalk.cuh"
 
 namespace {
 
-__global__ void anyhit_kernel(const float* __restrict__ feats,
-                              const int32_t* __restrict__ cand,
-                              const float4* __restrict__ prims,
-                              int32_t* __restrict__ occ_out,
-                              int G, int S, int SP, int rowlen,
-                              int leaf_size, int lpc, int lpg) {
-  __shared__ float4 s_prim[walk::kStage];
+struct AnyhitWalk {
+  static constexpr bool kSlots = false;
+  int32_t* occ;   // (G, SP, S)
+  int S;
 
-  const int blk = blockIdx.x;
-  const int s = blk % S;
-  const int g = (blk / S) % G;
-  const int c = blk / (S * G);
-  const int r = threadIdx.x;
-
-  const int32_t* row = cand + ((size_t)(c * G + g) * S + s) * rowlen;
-  const int nc = row[0];
-  const int total = walk::row_leaves(nc, lpg);   // CTA-uniform
-  const walk::Ray ray =
-      walk::load_ray(feats + (((size_t)g * S + s) * SP + r) * walk::kFeat);
-  const float4* cprims = prims + (size_t)c * lpc * leaf_size;
-  const int leaves_per_stage = walk::kStage / leaf_size;
-
-  int occ = 0;
-  for (int j0 = 0; j0 < total; j0 += leaves_per_stage) {
-    const int np = min(leaves_per_stage, total - j0) * leaf_size;
-    walk::stage(row, nc, j0, np, leaf_size, lpg, cprims, 0, s_prim,
-                nullptr);
-    __syncthreads();
-    for (int i = 0; i < np; ++i) {
-      float disc;
-      const float u = walk::ray_prim_u(ray, s_prim[i], &disc);
-      occ |= disc > 0.0f && u < -ray.epsa && u > ray.negat;
-    }
-    // Barrier and vote in one: every thread reaches it the same number of
-    // times, so the exit is uniform across the CTA.
-    if (__syncthreads_and(occ)) break;
+  __device__ __forceinline__ int32_t* flag(int gs, int x) const {
+    return occ + ((size_t)(gs / S) * blockDim.x + x) * S + gs % S;
   }
-  if (occ) occ_out[((size_t)g * SP + r) * S + s] = 1;
-}
+
+  __device__ __forceinline__ bool done(int gs, int x) const {
+    return __ldcg(flag(gs, x)) != 0;
+  }
+
+  __device__ __forceinline__ void run(int, int gs, int x,
+                                      const walk::Ray& ray, const float4* q,
+                                      const int32_t*, int np) const {
+#pragma unroll 8
+    for (int i = 0; i < np; ++i) {
+      float bp;
+      const float disc = walk::ray_prim_disc(ray, q[i], &bp);
+      if (disc > 0.0f) {
+        const float u = __fadd_rn(bp, __fsqrt_rn(disc));
+        if (u < -ray.epsa && u > ray.negat) {
+          *flag(gs, x) = 1;
+          return;
+        }
+      }
+    }
+  }
+};
 
 }  // namespace
 
 // feats (G, S, SP, 16) f32; cand (C, G, S, rowlen) i32; prims
-// (C, lpc * leaf_size, 4) f32; occ (G, SP, S) i32, zero on entry. Returns
+// (C, lpc * leaf_size, 4) f32; starts (C * G * S + 1,) i32 the item plan for
+// W leaves per item; occ (G, SP, S) i32, zero on entry. Returns
 // cudaGetLastError() after the launch.
 extern "C" int tracer_anyhit(const void* feats, const void* cand,
-                             const void* prims, void* occ, int C, int G,
-                             int S, int SP, int rowlen, int leaf_size,
-                             int lpc, int lpg, void* stream) {
-  const long long blocks = (long long)C * G * S;
-  if (blocks > 0) {
-    anyhit_kernel<<<(unsigned)blocks, SP, 0, (cudaStream_t)stream>>>(
-        (const float*)feats, (const int32_t*)cand, (const float4*)prims,
-        (int32_t*)occ, G, S, SP, rowlen, leaf_size, lpc, lpg);
-  }
-  return (int)cudaGetLastError();
+                             const void* prims, const void* starts, void* occ,
+                             int C, int G, int S, int SP, int rowlen,
+                             int leaf_size, int lpc, int lpg, int W,
+                             void* stream) {
+  const leafwalk::Rows rows{(const float*)feats, (const int32_t*)cand,
+                            (const float4*)prims, (const int32_t*)starts,
+                            C * G * S, G * S, rowlen, leaf_size, lpc, lpg,
+                            W};
+  return leafwalk::launch(AnyhitWalk{(int32_t*)occ, S}, rows, SP,
+                          (cudaStream_t)stream);
+}
+
+// The persistent grid of tracer_anyhit for SP-ray subpackets and items of
+// W leaves of leaf_size prims, on the current device.
+extern "C" int tracer_anyhit_grid(int SP, int leaf_size, int W) {
+  return leafwalk::grid_size<AnyhitWalk>(
+      SP, leafwalk::smem_bytes(leaf_size, W));
 }

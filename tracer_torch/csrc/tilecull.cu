@@ -54,7 +54,7 @@ struct TileWalk {
                                        uint32_t slot,
                                        unsigned long long& best) const {
     float bp;
-    const float disc = tilewalk::ray_prim_disc(ray, q, &bp);
+    const float disc = walk::ray_prim_disc(ray, q, &bp);
     if (disc > 0.0f) {
       const float u = __fadd_rn(bp, __fsqrt_rn(disc));
       const float t = __fmul_rn(-u, ray.inva);

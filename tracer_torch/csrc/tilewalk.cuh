@@ -51,47 +51,6 @@ static __device__ __forceinline__ unsigned long long pack(float t,
   return ((unsigned long long)__float_as_uint(t) << 32) | idx;
 }
 
-// walk::ray_prim_u split in two: disc and b' = oc.d here, in the same
-// operations; the near root's u = b' + sqrt(disc) is the caller's, where
-// disc > 0 (there sqrt(max(disc, 0)) is sqrt(disc)).
-static __device__ __forceinline__ float ray_prim_disc(const walk::Ray& r,
-                                                      float4 q, float* bp) {
-  const float m1 = __fadd_rn(__fadd_rn(__fmul_rn(r.dx, q.x),
-                                       __fmul_rn(r.dy, q.y)),
-                             __fmul_rn(r.dz, q.z));            // c.d
-  const float m2 = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(r.nox2, q.x),
-                                                 __fmul_rn(r.noy2, q.y)),
-                                       __fmul_rn(r.noz2, q.z)),
-                             q.w);                             // -2o.c + ccr
-  *bp = __fsub_rn(r.od, m1);                                   // oc.d
-  const float cq = __fadd_rn(m2, r.oo);                        // |oc|^2 - r^2
-  return __fsub_rn(__fmul_rn(*bp, *bp), __fmul_rn(r.av, cq));
-}
-
-static __device__ __forceinline__ void cp_async16(void* smem,
-                                                  const void* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-static __device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// The row of ``item``: the largest r with starts[r] <= item (rows with no
-// items share their start with the next row, so this is the non-empty one).
-static __device__ __forceinline__ int row_of(const int32_t* starts, int R,
-                                             int item) {
-  int lo = 0, hi = R - 1;
-  while (lo < hi) {
-    const int mid = (lo + hi + 1) >> 1;
-    if (__ldg(starts + mid) <= item) lo = mid; else hi = mid - 1;
-  }
-  return lo;
-}
-
 // The walk. ``Walk`` supplies, for row r and lane x:
 //   Ray load(r, x)             the thread's ray;
 //   int count(r)               listed tiles the row walks;
@@ -110,21 +69,22 @@ walk_items(Walk w, const int32_t* __restrict__ starts, int R, int W,
   const int total = __ldg(starts + R);
   int stage = 0;
   for (int item = blockIdx.x; item < total; item += gridDim.x) {
-    const int r = row_of(starts, R, item);
+    const int r = walk::row_of(starts, R, item);
     const int k0 = (item - __ldg(starts + r)) * W;
     const int n = min(W, w.count(r) - k0);   // >= 1: the plan's clamps
     const int32_t* list = w.list(r) + k0;
     int tile = __ldg(list);
-    cp_async16(&s_tile[stage][x], w.tiles + (size_t)tile * kTile + x);
+    walk::cp_async16(&s_tile[stage][x],
+                     w.tiles + (size_t)tile * kTile + x);
     int next = n > 1 ? __ldg(list + 1) : 0;
     const typename Walk::Ray ray = w.load(r, x);
     unsigned long long best = kNone;
     for (int j = 0; j < n; ++j) {
-      cp_async_wait_all();
+      walk::cp_async_wait_all();
       __syncthreads();     // tile j landed; every thread is done with j - 1
       if (j + 1 < n) {
-        cp_async16(&s_tile[stage ^ 1][x],
-                   w.tiles + (size_t)next * kTile + x);
+        walk::cp_async16(&s_tile[stage ^ 1][x],
+                         w.tiles + (size_t)next * kTile + x);
       }
       const int after = j + 2 < n ? __ldg(list + j + 2) : 0;
       const float4* q = s_tile[stage];

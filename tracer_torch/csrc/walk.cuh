@@ -1,12 +1,14 @@
-// Pieces shared by the leaf walks: leafcull.cu (closest hit per chunk),
-// anyhit.cu (occlusion) and routed.cu (closest hit per routed pair).
+// Pieces shared by the walks over slot-major prims (float4 (cx, cy, cz,
+// |c|^2 - r^2)) and the 16-column ray features: the per-row closest walk of
+// routed.cu (closest_walk, one CTA per row), the (ray, prim) tests, and the
+// staging and item-plan helpers of the split walks (leafwalk.cuh for
+// leafcull.cu and anyhit.cu, tilewalk.cuh for tilecull.cu and cull.cu).
 //
-// Every walk runs one CTA per subpacket row and one thread per ray. It
-// stages a batch of its row's prims (slot-major float4 (cx, cy, cz,
-// |c|^2 - r^2)) in shared memory, then every thread tests every staged prim
-// with ray_prim_u. A row is [count, ids...]: count > 0 lists relative leaf
-// ids, count < 0 lists -count relative group ids whose leaves_per_group
-// member leaves are all walked, 0 means nothing.
+// closest_walk runs one CTA per subpacket row and one thread per ray. It
+// stages a batch of its row's prims in shared memory, then every thread
+// tests every staged prim with ray_prim_u. A row is [count, ids...]:
+// count > 0 lists relative leaf ids, count < 0 lists -count relative group
+// ids whose leaves_per_group member leaves are all walked, 0 means nothing.
 //
 // The (ray, prim) test is spelled with __fmul_rn / __fadd_rn so that nvcc
 // does not contract it into FMAs: each kernel then rounds exactly like its
@@ -53,6 +55,49 @@ static __device__ __forceinline__ float ray_prim_u(const Ray& r, float4 q,
   const float cq = __fadd_rn(m2, r.oo);                        // |oc|^2 - r^2
   *disc = __fsub_rn(__fmul_rn(bp, bp), __fmul_rn(r.av, cq));
   return __fadd_rn(bp, sqrtf(fmaxf(*disc, 0.0f)));
+}
+
+// ray_prim_u split in two: disc and b' = oc.d here, in the same operations;
+// the near root's u = b' + sqrt(disc) is the caller's, where disc > 0 (there
+// sqrt(max(disc, 0)) is sqrt(disc), so the split changes no bit).
+static __device__ __forceinline__ float ray_prim_disc(const Ray& r, float4 q,
+                                                      float* bp) {
+  const float m1 = __fadd_rn(__fadd_rn(__fmul_rn(r.dx, q.x),
+                                       __fmul_rn(r.dy, q.y)),
+                             __fmul_rn(r.dz, q.z));            // c.d
+  const float m2 = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(r.nox2, q.x),
+                                                 __fmul_rn(r.noy2, q.y)),
+                                       __fmul_rn(r.noz2, q.z)),
+                             q.w);                             // -2o.c + ccr
+  *bp = __fsub_rn(r.od, m1);                                   // oc.d
+  const float cq = __fadd_rn(m2, r.oo);                        // |oc|^2 - r^2
+  return __fsub_rn(__fmul_rn(*bp, *bp), __fmul_rn(r.av, cq));
+}
+
+// One 16-byte cp.async into shared memory, committed as its own group.
+static __device__ __forceinline__ void cp_async16(void* smem,
+                                                  const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+static __device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// The row of ``item`` in an item plan (kernels/tilewalk.py:plan_items): the
+// largest r with starts[r] <= item (rows with no items share their start
+// with the next row, so this is the non-empty one).
+static __device__ __forceinline__ int row_of(const int32_t* starts, int R,
+                                             int item) {
+  int lo = 0, hi = R - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (__ldg(starts + mid) <= item) lo = mid; else hi = mid - 1;
+  }
+  return lo;
 }
 
 // Number of leaves a row walks.

@@ -55,11 +55,15 @@ def load() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(path))
             vp, i = ctypes.c_void_p, ctypes.c_int
             lib.tracer_leafcull.restype = i
-            lib.tracer_leafcull.argtypes = [vp] * 5 + [i] * 8 + [vp]
+            lib.tracer_leafcull.argtypes = [vp] * 7 + [i] * 9 + [vp]
+            lib.tracer_leafcull_grid.restype = i
+            lib.tracer_leafcull_grid.argtypes = [i] * 3
             lib.tracer_compact_rows.restype = i
             lib.tracer_compact_rows.argtypes = [vp] * 3 + [i] * 4 + [vp]
             lib.tracer_anyhit.restype = i
-            lib.tracer_anyhit.argtypes = [vp] * 4 + [i] * 8 + [vp]
+            lib.tracer_anyhit.argtypes = [vp] * 5 + [i] * 9 + [vp]
+            lib.tracer_anyhit_grid.restype = i
+            lib.tracer_anyhit_grid.argtypes = [i] * 3
             lib.tracer_routed.restype = i
             lib.tracer_routed.argtypes = [vp] * 7 + [i] * 7 + [vp]
             lib.tracer_traverse.restype = i

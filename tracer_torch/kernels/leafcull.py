@@ -11,7 +11,13 @@ Each walk is a hand-written CUDA kernel on CUDA tensors (``leafcull_cuda``,
 ``csrc/leafcull.cu``; ``anyhit_cuda``, ``csrc/anyhit.cu``) and a plain
 PyTorch version with the same contract on CPU tensors (``leafcull_plain``,
 ``anyhit_plain``); :func:`leafcull_call` and :func:`anyhit_call` pick by
-device and raise for any other.
+device and raise for any other. Both kernels run one split walk
+(``csrc/leafwalk.cuh``): each row's walked leaves are cut into items of
+:func:`item_leaves` leaves, planned on the device
+(``tilewalk.plan_items`` over :func:`walked_leaves`) and walked by a
+persistent grid; the closest hit merges each ray's best by an
+``atomicMin`` on the key (float bits of -u) << 32 | slot, the any hit ORs
+its flags.
 
 Number semantics follow the reference acceptance rule (disc > 0, near root
 only, t > EPSILON; src/hit.c:19-39) in f32, in the kernels' u-form.
@@ -28,7 +34,7 @@ from torch import Tensor
 from tracer_torch.bvh.flat import FlatBVH
 from tracer_torch.core.sort import octahedral_codes, plan_bucket_pad
 from tracer_torch.intersect.sphere import EPSILON
-from tracer_torch.kernels import _lib
+from tracer_torch.kernels import _lib, tilewalk
 from tracer_torch.scene.scene import Scene
 
 _BIG = 3.0e38
@@ -39,6 +45,8 @@ FEAT = 16           # per-ray feature columns (14 used)
 # candidate row, matches the JAX package for the same max_chunk_bytes.
 _PAIR_BYTES = 8 * 128 * 4
 _SENTINEL_CCR = 1.0e30
+ITEM_PRIMS = 128    # prims per item of the split walks (chip_smoke.py sweep)
+MISS_KEY = 2 ** 63 - 1   # the closest-hit walk's key of a ray with no hit
 
 
 @dataclass
@@ -325,8 +333,19 @@ def closest_rows_plain(f: Tensor, fidx: Tensor, chunk: Tensor, rows: Tensor,
     """The closest-hit walk of every row (see :func:`_pair_slices`):
     (t, slot), each (Q, SP): the largest u (smallest t = -u/a) over the
     walked prims, lowest global slot on ties; (3e38, 2^30) where nothing
-    hits. Per slice, each pair's best is merged into the rows' bests by max
-    u, then min slot among equal u."""
+    hits."""
+    return _closest_t(*closest_rows_u(f, fidx, chunk, rows, prims, leaf_size,
+                                      leaves_per_group, pair_elems),
+                      f[:, :, 11][fidx])
+
+
+def closest_rows_u(f: Tensor, fidx: Tensor, chunk: Tensor, rows: Tensor,
+                   prims: Tensor, leaf_size: int, leaves_per_group: int,
+                   pair_elems: int = 1 << 24):
+    """:func:`closest_rows_plain` before t: (u f32, slot int64), each
+    (Q, SP), -3e38 and 2^30 where nothing hits. Per slice, each pair's best
+    is merged into the rows' bests by max u, then min slot among equal
+    u."""
     Q, SP = rows.shape[0], f.shape[1]
     dev = f.device
     best_u = torch.full((Q, SP), -_BIG, dtype=torch.float32, device=dev)
@@ -338,7 +357,7 @@ def closest_rows_plain(f: Tensor, fidx: Tensor, chunk: Tensor, rows: Tensor,
         uv = torch.where(ok, u, torch.full_like(u, -_BIG))
         pu, arg = torch.max(uv, dim=2)                   # first max: low slot
         _merge_best(best_u, best_slot, q, pu, torch.gather(gslot, 1, arg))
-    return _closest_t(best_u, best_slot, f[:, :, 11][fidx])
+    return best_u, best_slot
 
 
 def _merge_best(best_u: Tensor, best_slot: Tensor, q: Tensor, pu: Tensor,
@@ -392,33 +411,78 @@ def leafcull_plain(feats: Tensor, cand: Tensor, prims: Tensor,
 def leafcull_cuda(feats: Tensor, cand: Tensor, prims: Tensor,
                   leaf_size: int, leaves_per_chunk: int,
                   leaves_per_group: int):
-    """The leaf walk as the hand-written CUDA kernel (``csrc/leafcull.cu``).
+    """The leaf walk as the hand-written CUDA kernel (``csrc/leafcull.cu``):
+    rows split into items of :func:`item_leaves` leaves on a persistent
+    grid, merged per ray by a packed (-u, slot) key.
 
     Same arguments and per-chunk (t, slot) outputs as :func:`leafcull_plain`.
-    Raises for tensors that are not on one CUDA device. Adds one to
-    ``leafcull_cuda.launches`` per launch.
+    Raises for tensors that are not on one CUDA device. Reads no device
+    value on the host. Adds one to ``leafcull_cuda.launches`` per launch.
     """
-    dev = _lib.require_cuda("leafcull_cuda", feats, cand, prims)
+    _lib.require_cuda("leafcull_cuda", feats, cand, prims)
     _check_walk_args(feats, cand, prims, leaf_size, leaves_per_chunk)
-    G, S, SP, _ = feats.shape
+    return _leafcull_launch(feats, cand, prims, leaf_size, leaves_per_chunk,
+                            leaves_per_group, item_leaves(leaf_size))
+
+
+def _leafcull_launch(feats: Tensor, cand: Tensor, prims: Tensor,
+                     leaf_size: int, leaves_per_chunk: int,
+                     leaves_per_group: int, chunk: int):
+    """:func:`leafcull_cuda` with items of ``chunk`` walked leaves."""
+    dev = feats.device
+    G, S, SP, _ = _walk_shape(feats)
     C, _, _, rowlen = cand.shape
-    if not 1 <= SP <= 1024:
-        raise ValueError(f"subpacket {SP} is not a valid CTA size")
     feats, cand, prims = (x.contiguous() for x in (feats, cand, prims))
+    starts = tilewalk.plan_items(walked_leaves(cand, leaves_per_group), chunk)
+    keys = torch.full((C, G, S, SP), MISS_KEY, dtype=torch.int64, device=dev)
     t = torch.empty((C, G, SP, S), dtype=torch.float32, device=dev)
     slot = torch.empty((C, G, SP, S), dtype=torch.int32, device=dev)
     lib = _lib.load()
     with torch.cuda.device(dev):
         rc = lib.tracer_leafcull(
-            _lib.ptr(feats), _lib.ptr(cand), _lib.ptr(prims), _lib.ptr(t),
-            _lib.ptr(slot), C, G, S, SP, rowlen, leaf_size,
-            leaves_per_chunk, leaves_per_group, _lib.stream(dev))
+            _lib.ptr(feats), _lib.ptr(cand), _lib.ptr(prims), _lib.ptr(starts),
+            _lib.ptr(keys), _lib.ptr(t), _lib.ptr(slot), C, G, S, SP, rowlen,
+            leaf_size, leaves_per_chunk, leaves_per_group, chunk,
+            _lib.stream(dev))
     _lib.check(lib, rc, "leafcull_cuda")
     leafcull_cuda.launches += 1
     return t, slot
 
 
 leafcull_cuda.launches = 0
+
+
+def _walk_shape(feats: Tensor):
+    """feats' shape (G, S, SP, FEAT); raises unless SP rays fit a CTA."""
+    SP = feats.shape[2]
+    if not 1 <= SP <= 1024:
+        raise ValueError(f"subpacket {SP} is not a valid CTA size")
+    return feats.shape
+
+
+def walked_leaves(cand: Tensor, leaves_per_group: int) -> Tensor:
+    """(C * G * S,) int32 leaves each count-embedded row of ``cand`` walks:
+    count in leaf mode, -count * leaves_per_group in group mode. Stays on
+    the device."""
+    nc = cand.reshape(-1, cand.shape[-1])[:, 0]
+    return torch.where(nc > 0, nc, nc * -leaves_per_group)
+
+
+def item_leaves(leaf_size: int, prims: int = ITEM_PRIMS) -> int:
+    """W, the walked leaves of one item of the split walks: ``prims``
+    prims' worth, at least one leaf."""
+    return max(1, prims // leaf_size)
+
+
+def leaf_grid(walk: str, subpacket: int, leaf_size: int, chunk: int,
+              device: torch.device) -> int:
+    """The persistent grid the ``walk`` kernel ("leafcull" or "anyhit")
+    launches on ``device`` for ``subpacket``-ray rows and items of
+    ``chunk`` leaves: SMs x resident CTAs."""
+    lib = _lib.load()
+    with torch.cuda.device(device):
+        return getattr(lib, f"tracer_{walk}_grid")(subpacket, leaf_size,
+                                                    chunk)
 
 
 def leafcull_call(feats: Tensor, cand: Tensor, prims: Tensor,
@@ -500,26 +564,35 @@ def anyhit_plain(feats: Tensor, cand: Tensor, prims: Tensor, leaf_size: int,
 
 def anyhit_cuda(feats: Tensor, cand: Tensor, prims: Tensor, leaf_size: int,
                 leaves_per_chunk: int, leaves_per_group: int) -> Tensor:
-    """The any-hit walk as the hand-written CUDA kernel (``csrc/anyhit.cu``).
+    """The any-hit walk as the hand-written CUDA kernel (``csrc/anyhit.cu``):
+    the split walk of :func:`leafcull_cuda`, its flags ORed by plain stores.
 
     Same arguments and (G, SP, S) i32 output as :func:`anyhit_plain`.
-    Raises for tensors that are not on one CUDA device. Adds one to
-    ``anyhit_cuda.launches`` per launch.
+    Raises for tensors that are not on one CUDA device. Reads no device
+    value on the host. Adds one to ``anyhit_cuda.launches`` per launch.
     """
-    dev = _lib.require_cuda("anyhit_cuda", feats, cand, prims)
+    _lib.require_cuda("anyhit_cuda", feats, cand, prims)
     _check_walk_args(feats, cand, prims, leaf_size, leaves_per_chunk)
-    G, S, SP, _ = feats.shape
+    return _anyhit_launch(feats, cand, prims, leaf_size, leaves_per_chunk,
+                          leaves_per_group, item_leaves(leaf_size))
+
+
+def _anyhit_launch(feats: Tensor, cand: Tensor, prims: Tensor,
+                   leaf_size: int, leaves_per_chunk: int,
+                   leaves_per_group: int, chunk: int) -> Tensor:
+    """:func:`anyhit_cuda` with items of ``chunk`` walked leaves."""
+    dev = feats.device
+    G, S, SP, _ = _walk_shape(feats)
     C, _, _, rowlen = cand.shape
-    if not 1 <= SP <= 1024:
-        raise ValueError(f"subpacket {SP} is not a valid CTA size")
     feats, cand, prims = (x.contiguous() for x in (feats, cand, prims))
+    starts = tilewalk.plan_items(walked_leaves(cand, leaves_per_group), chunk)
     occ = torch.zeros((G, SP, S), dtype=torch.int32, device=dev)
     lib = _lib.load()
     with torch.cuda.device(dev):
         rc = lib.tracer_anyhit(
-            _lib.ptr(feats), _lib.ptr(cand), _lib.ptr(prims), _lib.ptr(occ),
-            C, G, S, SP, rowlen, leaf_size, leaves_per_chunk,
-            leaves_per_group, _lib.stream(dev))
+            _lib.ptr(feats), _lib.ptr(cand), _lib.ptr(prims), _lib.ptr(starts),
+            _lib.ptr(occ), C, G, S, SP, rowlen, leaf_size, leaves_per_chunk,
+            leaves_per_group, chunk, _lib.stream(dev))
     _lib.check(lib, rc, "anyhit_cuda")
     anyhit_cuda.launches += 1
     return occ

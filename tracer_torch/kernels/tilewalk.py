@@ -11,6 +11,10 @@ the lowest index. The wrappers make the plan, initialise the keys and
 unpack them with the torch functions here, on the device and without a
 host sync; the tests hold the same functions against a numpy enumeration
 and a split-and-merge model built from the plain walks.
+
+The leaf walks (``csrc/leafwalk.cuh``) plan their items with the same
+:func:`plan_items`, over the walked leaves of each row
+(``leafcull.walked_leaves``) and ``leafcull.item_leaves`` leaves per item.
 """
 
 from __future__ import annotations
