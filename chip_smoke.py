@@ -20,7 +20,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    skewed rows at SP = 64 and 128 in C > 1 chunks (one row per chunk walks
    every group, the others 1-2 leaves); ``routed_cuda`` on TLAS rows at 20k
    spheres in 8 chunks, where the routed query must also equal the dense
-   multi-chunk one;
+   multi-chunk one, and on skewed routed rows (the first row of each
+   chunk's first pair walks every group, the others 1-2 leaves);
 4. the closest-hit slice at full size: 100k spheres x 512k origin rays
    through prep, phase A and the leaf walk, with launch counters reset
    just before and read just after; overflow, hit fraction, and agreement
@@ -48,7 +49,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    rays through prep, routing, routed phase A, the routed walk and the
    merge, counters reset and read the same way; overflow, slots equal to
    the dense multi-chunk query on every ray, agreement with brute force on
-   the first 4096 rays; kernel vs plain on its rows;
+   the first 4096 rays; kernel vs plain on its rows, their walked-leaf
+   distribution, the item sweep and the keys' bytes;
 7. the render slice at full size: 100k spheres in the 1000-unit world,
    the default camera, 800x600, through ``tracer_torch.cli``'s own code
    path, in path mode (depth 5) and direct mode, both with compaction,
@@ -59,19 +61,25 @@ Phases, each of which raises on failure (the script then exits non-zero):
    versions on the frame's primary rays; the walks on the arguments the
    frames gave them (every leaf walk of the path/auto frame with its rows,
    time and bound, the heaviest also against its plain version and swept;
-   the direct/auto any-hit walk; the path/pallas packet walks, the longest
-   bounce against its plain version and its bound); one metrics JSON line
-   per (mode, impl);
+   the direct/auto any-hit walk; every packet walk of the path/pallas
+   frame against its plain version, with its steps per packet, time, time
+   per step of its longest packet and bound, then the packet walk's split
+   swept over the five; the direct/pallas packet walk against its plain
+   version); one metrics JSON line per (mode, impl);
 8. the headline measurement (``tracer_torch.bench``, with its shadow and
    LBVH extras) and the large-scene measurement
    (``tracer_torch.bench.large``), one JSON line each;
 9. one JSON line of per-kernel results, then the final status line.
 
 Phase 3 also holds ``traverse_cuda`` and ``tilecull_cuda`` against their
-plain versions at 20k spheres x 64k rays: a ragged tail, a 2-D batch
-through the wrappers, a tile budget of one (overflowing rows), rows that
-list the sentinel tile and skewed rows (one lists every tile, the others
-1-2); t, slots and steps must be equal exactly. And ``cull_cuda`` against
+plain versions at 20k spheres x 64k rays: a ragged tail, divergent packets
+(one of live rays spread through the scene, one half parked, six parked,
+a live tail; the packet walk's split swept there too: one launch, and
+every step cap of SWEEP_CAPS with every cluster size, each equal to the
+wrapper's), a 2-D batch through the wrappers, a tile budget of one
+(overflowing rows), rows that list the sentinel tile and skewed rows (one
+lists every tile, the others 1-2); t, slots and steps must be equal
+exactly. And ``cull_cuda`` against
 its plain version at 20k spheres x (64k + 37) direction-sorted rays: the
 full budget, an overflowing budget of 8 tiles (the walk stops at K), skewed
 rows, and the sentinel tile listed after every packet's own tiles. Beside
@@ -151,6 +159,8 @@ PLAIN_ELEMS = 1 << 26   # slice size of the plain walks on the card
 MIN_AGREE_OTHER_ROUNDING = 0.99
 WALK_SPHERES, WALK_RAYS = 20_000, 65_536   # packet and tile walk settings
 LEAF_ITEM_PRIMS = (128, 256, 512)   # prims per item in the leaf walks' sweep
+SWEEP_CAPS = (64, 256, 1024)        # the packet walk's step caps swept
+LONG_WALK = 1000        # packets over this many steps are logged
 RENDER_FRAMES = 3       # timed frames per (mode, impl); the first dropped
 PIXEL_ATOL = 1e-5       # two renders of a pixel agree within this
 
@@ -429,24 +439,40 @@ def skewed_leaf_rows(C, R, lpc, lpg, gen):
     return rows
 
 
-def leaf_launch_log(name, walk, args):
-    """Log a leaf walk's split (``walk``: "leafcull" or "anyhit"): the
-    items of the rows at ITEM_PRIMS prims per item, the persistent grid,
-    the device operations one call launches (the walk, for the closest hit
-    its epilogue, and the glue: item plan, key or flag init), and the walk's
-    time at each of LEAF_ITEM_PRIMS prims per item, each result equal to the
-    wrapper's bit for bit. Returns {prims per item: ms}."""
-    import torch
+def device_ops(fn, args, kernels):
+    """"N device operations per call (K kernel(s) + N - K glue)" for one
+    call of ``fn(*args)`` launching ``kernels`` kernels, by torch.profiler;
+    "not measured" where the profiler saw no device time."""
     from tracer_torch.bench.profile import profile_calls
-    from tracer_torch.bench.timing import time_cuda
-    from tracer_torch.kernels import leafcull as lc
-    from tracer_torch.kernels.tilewalk import plan_items
-    fn, launch = getattr(lc, f"{walk}_cuda"), getattr(lc, f"_{walk}_launch")
-    feats, rows, _, ls, _, lpg = args
-    sp, w = feats.shape[2], lc.item_leaves(ls)
-    items = int(plan_items(lc.walked_leaves(rows, lpg), w)[-1])
     ops = profile_calls(fn, *args, iters=1)["launches"]
-    kernels = 2 if walk == "leafcull" else 1
+    if ops is None:
+        return "device operations per call not measured"
+    return (f"{ops} device operations per call ({kernels} kernel(s) + "
+            f"{ops - kernels} glue)")
+
+
+def leaf_launch_log(name, walk, args):
+    """Log a leaf walk's split (``walk``: "leafcull", "anyhit" or
+    "routed"): the items of the rows at the wrapper's prims per item, the
+    persistent grid, the device operations one call launches (the walk, for
+    the closest hits their epilogue, and the glue: item plan, key or flag
+    init), and the walk's time at each of LEAF_ITEM_PRIMS prims per item,
+    each result equal to the wrapper's bit for bit. Returns {prims per
+    item: ms}."""
+    import torch
+    from tracer_torch.bench.timing import time_cuda
+    from tracer_torch.kernels import leafcull as lc, tlas
+    from tracer_torch.kernels.tilewalk import plan_items
+    if walk == "routed":
+        mod, prims0 = tlas, tlas.ROUTED_ITEM_PRIMS
+        _, _, rows, feats, _, ls, _, lpg = args
+    else:
+        mod, prims0 = lc, lc.ITEM_PRIMS
+        feats, rows, _, ls, _, lpg = args
+    fn, launch = getattr(mod, f"{walk}_cuda"), getattr(mod, f"_{walk}_launch")
+    sp, w = feats.shape[2], lc.item_leaves(ls, prims0)
+    items = int(plan_items(lc.walked_leaves(rows, lpg), w)[-1])
+    ops = device_ops(fn, args, 1 if walk == "anyhit" else 2)
     want = fn(*args)
     times = {}
     for prims in LEAF_ITEM_PRIMS:
@@ -458,13 +484,33 @@ def leaf_launch_log(name, walk, args):
             raise AssertionError(f"{name}: {prims} prims per item changed "
                                  f"a result")
         times[prims] = time_cuda(launch, *args, lc.item_leaves(ls, prims))
-    log(f"{name}: {lc.ITEM_PRIMS} prims ({w} leaves of {ls}) per item, "
+    log(f"{name}: {prims0} prims ({w} leaves of {ls}) per item, "
         f"{items} items over {rows[..., 0].numel()} rows of {sp} rays, grid "
         f"{lc.leaf_grid(walk, sp, ls, w, feats.device)} CTAs of {sp} "
-        f"threads, {ops} device operations per call ({kernels} kernel(s) + "
-        f"{ops - kernels} glue); ms by prims per item "
+        f"threads, {ops}; ms by prims per item "
         + ", ".join(f"{p}: {ms:.4f}" for p, ms in times.items()))
     return times
+
+
+def skewed_routed_rows(pair_c, S, rowlen, lpc, lpg, gen):
+    """(Np, S, rowlen) int32 routed rows for chunk-major pairs ``pair_c``:
+    the first row of each chunk's first pair walks every group of the
+    chunk (group mode), every other row lists 1-2 random leaves."""
+    import torch
+    gpc = lpc // lpg
+    pc = pair_c.cpu()
+    n = pc.shape[0]
+    rows = torch.full((n, S, rowlen), lpc, dtype=torch.int32)
+    rows[..., 0] = torch.randint(1, 3, (n, S), generator=gen,
+                                 dtype=torch.int32)
+    rows[..., 1:3] = torch.randint(0, lpc, (n, S, 2), generator=gen,
+                                   dtype=torch.int32)
+    first = torch.ones(n, dtype=torch.bool)
+    first[1:] = pc[1:] != pc[:-1]
+    rows[first, 0, 0] = -gpc
+    rows[first, 0, 1:1 + gpc] = torch.arange(gpc, dtype=torch.int32)
+    rows[first, 0, 1 + gpc:] = gpc
+    return rows.to(pair_c.device)
 
 
 def skewed_lists(rows, T, gen):
@@ -488,11 +534,10 @@ def walk_launch_log(name, fn, launch, args, walked, grid):
     walk's time at W = 4, 8, 16, each result equal to the wrapper's bit for
     bit."""
     import torch
-    from tracer_torch.bench.profile import profile_calls
     from tracer_torch.bench.timing import time_cuda
     from tracer_torch.kernels.tilewalk import CHUNK, plan_items
     items = int(plan_items(walked, CHUNK)[-1])
-    ops = profile_calls(fn, *args, iters=1)["launches"]
+    ops = device_ops(fn, args, 1)
     want = fn(*args)
     times = {}
     for w in (4, 8, 16):
@@ -502,8 +547,7 @@ def walk_launch_log(name, fn, launch, args, walked, grid):
             raise AssertionError(f"{name}: W = {w} changed a result")
         times[w] = time_cuda(launch, *args, w)
     log(f"{name}: W = {CHUNK}, {items} items over {walked.numel()} rows of "
-        f"128 rays, grid {grid} CTAs of 128 threads, {ops} device "
-        f"operations per call (1 walk + {ops - 1} glue); ms by W "
+        f"128 rays, grid {grid} CTAs of 128 threads, {ops}; ms by W "
         + ", ".join(f"{w}: {ms:.4f}" for w, ms in times.items()))
 
 
@@ -535,6 +579,80 @@ def compare_traverse(name, rays, packed):
         f"{int(leaves.sum())} leaf visits; t, slots, steps equal bit for "
         f"bit")
     return stp, leaves
+
+
+def packet_steps(name, steps):
+    """Log a packet walk's steps per packet: mean, p99, max, sum and the
+    packets over LONG_WALK steps."""
+    import torch
+    c = steps.float()
+    log(f"{name}: {c.numel()} packets, steps per packet mean "
+        f"{c.mean().item():.2f}, p99 {torch.quantile(c, 0.99).item():.0f}, "
+        f"max {int(c.max())}, sum {int(c.sum())}, "
+        f"{int((steps > LONG_WALK).sum())} over {LONG_WALK}")
+
+
+def traverse_sweep(name, calls):
+    """The packet walk's split on ``calls`` ((rays, packed) each): one
+    launch walking every packet to its end, and every step cap of
+    SWEEP_CAPS with every cluster size of ``traverse.CLUSTERS``; each
+    result equal to the wrapper's bit for bit. Logs the resume grids (the
+    occupancy query) and each setting's ms per call and in all. Returns
+    {(cap, cluster): [ms per call]}."""
+    import torch
+    from tracer_torch.bench.timing import time_cuda
+    from tracer_torch.kernels import traverse as tv
+    dev = calls[0][0].device
+    ls = calls[0][1].leaf_size
+    log(f"{name}: resume clusters resident by cluster size " + ", ".join(
+        f"{k}: {tv.resume_clusters(k, ls, dev)}" for k in tv.CLUSTERS))
+    want = [tv.traverse_cuda(*a) for a in calls]
+    settings = [(0, 1)] + [(cap, k) for cap in SWEEP_CAPS
+                           for k in tv.CLUSTERS]
+    mine = (tv.STEP_CAP, tv.CLUSTER) if tv.STEP_CAP else (0, 1)
+    if mine not in settings:
+        settings.append(mine)
+    out = {}
+    for cap, k in settings:
+        for a, w in zip(calls, want):
+            got = tv._traverse_launch(*a, k, cap)
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(got, w)):
+                raise AssertionError(f"{name}: cap {cap}, cluster {k} "
+                                     f"changed a result")
+        ms = [time_cuda(tv._traverse_launch, *a, k, cap, warmup=1, iters=3)
+              for a in calls]
+        out[cap, k] = ms
+        what = "one launch" if cap == 0 else f"cap {cap}, cluster {k}"
+        log(f"{name} sweep, {what}: ms " + ", ".join(f"{m:.4f}" for m in ms)
+            + f"; {sum(ms):.4f} in all")
+    best = min(out, key=lambda key: sum(out[key]))
+    log(f"{name} sweep: fastest in all (cap, cluster) {best}, "
+        f"{sum(out[best]):.4f} ms; the wrapper's {mine} {sum(out[mine]):.4f}")
+    return out
+
+
+def divergent_rays(n_packets, tail, world, gen, device):
+    """(origins, directions) of n_packets packets and a ragged tail of the
+    kind compaction leaves on a late bounce: packet 0 all live rays, with
+    origins spread through the scene and random directions, packet 1 half
+    live, the rest parked as the integrator parks finished rays (origin
+    1e18, direction +x), the tail live."""
+    import torch
+    from tracer_torch.kernels.traverse import PACKET
+    b = n_packets * PACKET + tail
+    o = torch.full((b, 3), 1e18)
+    d = torch.zeros((b, 3))
+    d[:, 0] = 1.0
+    live = torch.zeros(b, dtype=torch.bool)
+    live[:PACKET] = True
+    live[PACKET:2 * PACKET:2] = True
+    live[n_packets * PACKET:] = True
+    n = int(live.sum())
+    o[live] = (torch.rand((n, 3), generator=gen) - 0.5) * world
+    dl = torch.randn((n, 3), generator=gen)
+    d[live] = dl / dl.norm(dim=1, keepdim=True)
+    return o.to(device), d.to(device)
 
 
 def compare_tilecull(name, feats, cand, prims):
@@ -648,6 +766,15 @@ def packet_and_tile_walks(dev):
     rays, g, pad = pack_rays(o[:n], d[:n])
     compare_traverse(f"packet walk {WALK_SPHERES} x {n} ({g} packets, "
                      f"{pad} padding rays)", rays, packed)
+    # Divergent packets: one spans the scene beside parked rays.
+    od, dd = divergent_rays(8, 300, 500.0, torch.Generator().manual_seed(14),
+                            dev)
+    drays, dg, _ = pack_rays(od, dd)
+    name = (f"divergent packet walk {WALK_SPHERES} x {od.shape[0]} ({dg} "
+            f"packets)")
+    steps, _ = compare_traverse(name, drays, packed)
+    packet_steps(name, steps)
+    traverse_sweep(name, [(drays, packed)])
     # A 2-D batch through the wrapper, against the plain walk's slots.
     o2, d2 = o.reshape(-1, 256, 3), d.reshape(-1, 256, 3)
     rec, steps = nearest_hit_bvh_packets(Ray(o2, d2), scene, packed,
@@ -774,8 +901,10 @@ def frame_walks(captured):
     each leaf walk of the path/auto frame (its rows, time and bound; every
     launch of an escalating query is kept, the last at each bounce is the
     budget it settled on), the direct/auto frame's any-hit walk, and the
-    path/pallas frame's packet walks (time each; plain version and bound
-    on the bounce whose walk takes longest)."""
+    path/pallas frame's packet walks (each bounce against its plain
+    version, its steps per packet, time, time per step of its longest
+    packet and bound; then the split's sweep over the five) and the
+    direct/pallas frame's against its plain version."""
     import types
     import torch
     from tracer_torch.bench.timing import time_cuda
@@ -827,18 +956,23 @@ def frame_walks(captured):
         log(f"direct/auto any-hit walk: cuda {ms:.4f} ms, bound {bms:.4f} ms"
             f" ({bby})")
 
-    tms = [time_cuda(traverse_cuda, *a) for a in captured["traverse"]]
-    log("path/pallas packet walks, ms by bounce: "
-        + ", ".join(f"{ms:.4f}" for ms in tms) + f"; {sum(tms):.4f} in all")
-    if len(tms) > 1:
-        i = max(range(1, len(tms)), key=tms.__getitem__)
-        rays, packed = captured["traverse"][i]
-        steps, leaves = compare_traverse(f"packet walk, bounce {i} of the "
-                                         f"path/pallas frame", rays, packed)
-        bms, bby = traverse_bound(f"packet walk, bounce {i}", rays, packed,
-                                  steps, leaves)
-        log(f"packet walk bounce {i}: cuda {tms[i]:.4f} ms, bound "
-            f"{bms:.4f} ms ({bby})")
+    calls = captured["traverse"]
+    total_ms = total_bound = 0.0
+    for i, (rays, packed) in enumerate(calls):
+        name = f"path/pallas packet walk, bounce {i}"
+        steps, leaves = compare_traverse(name, rays, packed)
+        packet_steps(name, steps)
+        ms = time_cuda(traverse_cuda, rays, packed)
+        bms, bby = traverse_bound(name, rays, packed, steps, leaves)
+        log(f"{name}: cuda {ms:.4f} ms, {ms * 1e3 / int(steps.max()):.4f} us"
+            f" per step of the longest packet, bound {bms:.4f} ms ({bby})")
+        total_ms, total_bound = total_ms + ms, total_bound + bms
+    log(f"path/pallas frame: {len(calls)} traverse_cuda launches, "
+        f"{total_ms:.4f} ms in all, bound {total_bound:.4f} ms")
+    for rays, packed in captured["traverse_direct"]:
+        compare_traverse("direct/pallas packet walk (primary rays)", rays,
+                         packed)
+    traverse_sweep("path/pallas packet walks", calls)
     for v in captured.values():
         v.clear()
 
@@ -868,11 +1002,14 @@ def render_slice(dev, results):
     from tracer_torch.kernels import conecull as kcone, traverse as ktrav
     # The walks' arguments as the frames ran them: every leaf walk of the
     # path/auto frame, the any-hit walk of the direct/auto frame and every
-    # packet walk of the path/pallas frame.
-    captured = {"leafcull": [], "anyhit": [], "traverse": []}
+    # packet walk of the two pallas frames.
+    captured = {"leafcull": [], "anyhit": [], "traverse": [],
+                "traverse_direct": []}
     hooks = {("path", "auto"): (kcone, "leafcull_call", "leafcull"),
              ("direct", "auto"): (kcone, "anyhit_call", "anyhit"),
-             ("path", "pallas"): (ktrav, "traverse_call", "traverse")}
+             ("path", "pallas"): (ktrav, "traverse_call", "traverse"),
+             ("direct", "pallas"): (ktrav, "traverse_call",
+                                    "traverse_direct")}
     sessions, images = {}, {}
     for mode in brender.MODES:
         for impl in brender.IMPLS:
@@ -1400,6 +1537,16 @@ def main() -> int:
             compare_routed(f"routed {name} ({C} chunks)",
                            (pc, pg, trows, feats, cull.prims, cull.leaf_size,
                             cull.leaves_per_chunk, cull.leaves_per_group))
+            srows = skewed_routed_rows(
+                pc, trows.shape[1], trows.shape[2], cull.leaves_per_chunk,
+                cull.leaves_per_group, torch.Generator().manual_seed(15))
+            gpc = cull.leaves_per_chunk // cull.leaves_per_group
+            sname = (f"routed {name} ({C} chunks), skewed rows (one row a "
+                     f"chunk walks all {gpc} groups)")
+            leaf_rows(sname, srows, cull.leaves_per_group)
+            compare_routed(sname, (pc, pg, srows, feats, cull.prims,
+                                   cull.leaf_size, cull.leaves_per_chunk,
+                                   cull.leaves_per_group))
             _, s_r, o_r = nearest_hit_tlas_feats(
                 feats, tables, headline.MG, headline.MC, npairs, C)
             _, s_d, o_d = nearest_hit_hybrid_feats(feats, tables)
@@ -1566,6 +1713,11 @@ def main() -> int:
     rargs = (pc, pg, trows, bfeats, bcull.prims, bcull.leaf_size,
              bcull.leaves_per_chunk, bcull.leaves_per_group)
     compare_routed("routed 10M", rargs)
+    leaf_rows("routed 10M rows", trows, bcull.leaves_per_group)
+    leaf_launch_log("routed 10M", "routed", rargs)
+    npr, nsub = trows.shape[:2]
+    log(f"routed 10M: keys {npr * nsub * bfeats.shape[2] * 8} bytes ({npr} "
+        f"pairs x {nsub} subpackets x {bfeats.shape[2]} rays x 8)")
     routed_ms = time_cuda(routed_cuda, *rargs)
     routed_plain_ms = time_cuda(
         lambda *a: routed_plain(*a, pair_elems=PLAIN_ELEMS), *rargs,

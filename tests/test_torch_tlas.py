@@ -11,6 +11,11 @@ slots of JAX's (on the spread-origin rays), of the port's dense
 multi-chunk query and of brute force. The JAX side runs its Pallas kernels
 in interpret mode, the routed one once per module. One case pins the port's deliberate difference: group-mode
 rows that need more groups than the JAX prefix keeps list every group.
+The routed walk also meets skewed rows (one row per chunk walks every
+group, the others 1-2 leaves), against JAX's routed kernel, and a model of
+the kernel's split walk (items over the routed rows, merged by (-u, global
+slot)) must equal ``routed_plain`` bit for bit, ties across leaves
+included.
 """
 
 import numpy as np
@@ -22,8 +27,11 @@ from tests import torch_parity as tp
 from tests.torch_parity import one_thread  # noqa: F401
 from tracer.kernels import conecull as jcone
 from tracer.kernels import tlas as jtlas
+from tracer_torch.kernels import tilewalk as tw
 from tracer_torch.kernels import tlas as ttlas
 from tracer_torch.kernels.conecull import bounds_from_feats
+from tracer_torch.kernels.leafcull import (MISS_KEY, _BIG, _NOSLOT,
+                                           closest_rows_u)
 
 S, SP, CELL_BITS = 8, 64, 4
 CHUNK_BYTES = 1 << 18
@@ -219,3 +227,98 @@ def test_group_rows_list_every_group_where_jax_pads_them():
     ref = tt.nearest_hit_brute(tt.Ray(origin=torch.as_tensor(o),
                                       direction=torch.as_tensor(d)), tscene)
     np.testing.assert_array_equal(tp.np_(ids[kod]), tp.np_(ref.index))
+
+
+def _skewed_pairs(C, G, lpc, lpg, rowlen, seed):
+    """Routed pairs over C chunks, chunk-major, two g-blocks each (the last
+    chunk's second pair all empty rows), and their (Np, S, rowlen) rows:
+    the first row of each chunk's first pair walks every group of the
+    chunk, the others list 1-2 random leaves."""
+    rng = np.random.default_rng(seed)
+    gpc = lpc // lpg
+    pc = np.repeat(np.arange(C), 2).astype(np.int32)
+    pg = np.tile([0, G - 1], C).astype(np.int32)
+    rows = np.full((2 * C, S, rowlen), lpc, np.int32)
+    rows[..., 0] = rng.integers(1, 3, (2 * C, S))
+    rows[..., 1:3] = rng.integers(0, lpc, (2 * C, S, 2))
+    rows[0::2, 0, 0] = -gpc
+    rows[0::2, 0, 1:1 + gpc] = np.arange(gpc)
+    rows[0::2, 0, 1 + gpc:] = gpc
+    rows[-1, :, 0] = 0
+    return (torch.as_tensor(pc), torch.as_tensor(pg), torch.as_tensor(rows))
+
+
+def test_routed_skewed_rows_match_jax(world):
+    """routed_plain against JAX's routed kernel on skewed rows: slots
+    exactly, t to the leaf walks' tolerance."""
+    feats = world["feats"][30.0][0]
+    cull, jcull = world["tables"].cull, world["jtables"].cull
+    lpc, lpg = cull.leaves_per_chunk, cull.leaves_per_group
+    rowlen = ttlas.tlas_candidates(feats, world["tables"], MG, MC, NPAIRS,
+                                   KC)[0].shape[-1]
+    assert rowlen > lpc // lpg
+    pc, pg, rows = _skewed_pairs(cull.num_chunks, feats.shape[0], lpc, lpg,
+                                 rowlen, seed=3)
+    t, slot = ttlas.routed_call(pc, pg, rows, feats, cull.prims,
+                                cull.leaf_size, lpc, lpg)
+    jt, js = jtlas._routed_call(tp.to_jax(pc), tp.to_jax(pg),
+                                tp.to_jax(rows[:, None]), tp.to_jax(feats),
+                                jcull.entries, S, SP, cull.leaf_size, lpc,
+                                lpg, interpret=True)
+    np.testing.assert_array_equal(tp.np_(slot), tp.np_(js))
+    hit = tp.np_(slot) < 2 ** 30
+    assert hit[0::2, :, 0].any() and not hit[-1].any()
+    for p in np.nonzero(hit.any(axis=(1, 2)))[0]:
+        tp.assert_walk_t_close(t[p][None], tp.np_(jt)[p][None],
+                               feats[int(pg[p])][None], slot[p][None],
+                               cull.prims)
+
+
+def routed_split_merge(pc, pg, rows, feats, prims, ls, lpg, chunk):
+    """The routed kernel's split walk modelled with the plain walk: rows
+    r = p * S + s cut into items of ``chunk`` walked leaves, each item
+    walked by closest_rows_u as a row of its own on chunk pc[p] and
+    feature row pg[p] * S + s, each ray's (-u, global slot) key
+    min-merged over the items, then unpacked as the epilogue does:
+    t = (-u) * (1/a), (3e38, 2^30) for a miss; (Np, SP, S)."""
+    G, S_, SP_, F = feats.shape
+    Np = rows.shape[0]
+    item_row, sub = tp.leaf_item_rows(rows, lpg, chunk)
+    p = item_row // S_
+    fidx = pg.long()[p] * S_ + item_row % S_
+    u, slot = closest_rows_u(feats.reshape(G * S_, SP_, F), fidx,
+                             pc.long()[p], sub, prims, ls, lpg)
+    key = torch.where(slot < _NOSLOT, tw.pack_keys(-u, slot), MISS_KEY)
+    keys = torch.full((Np * S_ * SP_,), MISS_KEY, dtype=torch.int64)
+    keys.scatter_reduce_(0, (item_row[:, None] * SP_
+                             + torch.arange(SP_)).reshape(-1),
+                         key.reshape(-1), "amin")
+    keys = keys.reshape(Np, S_, SP_)
+    nu, s = tw.unpack_keys(keys)
+    r = torch.arange(Np * S_)
+    inva = feats.reshape(G * S_, SP_, F)[pg.long()[r // S_] * S_ + r % S_,
+                                         :, 11].reshape(Np, S_, SP_)
+    miss = keys == MISS_KEY
+    t = torch.where(miss, _BIG, nu * inva)
+    s = torch.where(miss, _NOSLOT, s).to(torch.int32)
+    return t.permute(0, 2, 1).contiguous(), s.permute(0, 2, 1).contiguous()
+
+
+@pytest.mark.parametrize("chunk", [1, 3, 8])
+def test_routed_split_and_merge_equals_whole_rows(chunk):
+    """Routed rows over the two-chunk tie table (one sphere stored twice in
+    chunk 0, in leaves 1 and 5): pairs (chunk, g-block) in chunk-major
+    order; items that split the two copies apart (1 leaf) or keep them
+    together (8), in leaf and group mode, bit for bit."""
+    feats, cand, prims, ls, lpc, lpg = tp.tie_leaves(44)
+    C, G = cand.shape[:2]
+    pc = torch.arange(C, dtype=torch.int32).repeat_interleave(G)
+    pg = torch.arange(G, dtype=torch.int32).repeat(C)
+    rows = cand.reshape(C * G, *cand.shape[2:])
+    t, slot = ttlas.routed_plain(pc, pg, rows, feats, prims, ls, lpc, lpg)
+    got = routed_split_merge(pc, pg, rows, feats, prims, ls, lpg, chunk)
+    assert torch.equal(got[0], t) and torch.equal(got[1], slot)
+    assert (slot == tp.LEAF_DUP[0]).sum() > 5
+    assert not (slot == tp.LEAF_DUP[1]).any()
+    assert (slot[0, :, 0] == _NOSLOT).all()               # the empty row
+    assert (slot < _NOSLOT).float().mean() > 0.2

@@ -5,9 +5,11 @@ of the CUDA kernel ``traverse_cuda``. It is held against JAX
 ``_traverse_packets`` (Pallas, in interpret mode) on the same packed rays
 and tables: slots and steps exactly, t within f32 rounding (XLA on the CPU
 contracts mul+add into FMA where the port rounds each op, which moves t by
-an ulp or so, more on grazing rays). The HitRecord wrappers are held
-against their JAX counterparts, and autograd through the recomputed t
-against ``jax.grad``.
+an ulp or so, more on grazing rays), also on a packet that spans the scene
+beside parked rays, as compacted bounce rays are. The walk cut at step caps
+and resumed from its state equals the whole walk, as the kernel's two
+launches need. The HitRecord wrappers are held against their JAX
+counterparts, and autograd through the recomputed t against ``jax.grad``.
 """
 
 import jax
@@ -100,6 +102,88 @@ def test_traverse_plain_matches_jax_kernel(n, world, span, leaf_size, nrays):
     _, _, steps2, leaves = traverse_plain(rays, packed, leaf_visits=True)
     assert torch.equal(steps2, steps)
     assert bool((leaves <= steps).all()) and bool((leaves > 0).all())
+
+
+def _spanning_rays(b, live, world, seed):
+    """b rays of which ``live`` (random positions) have origins spread
+    through the scene and random directions; the rest are parked as the
+    wavefront integrator parks finished rays (origin 1e18, direction +x)."""
+    rng = np.random.default_rng(seed)
+    o = np.full((b, 3), 1e18, np.float32)
+    d = np.zeros((b, 3), np.float32)
+    d[:, 0] = 1.0
+    idx = rng.choice(b, live, replace=False)
+    lo, ld = _rays_np(live, world / 2, seed + 1)
+    o[idx], d[idx] = lo, ld
+    return o, d
+
+
+@pytest.mark.parametrize("leaf_size,live", [(4, 700), (16, 1100)])
+def test_scene_spanning_packet_matches_jax_kernel(leaf_size, live):
+    """Live rays with origins all over the scene and random directions,
+    mixed with parked rays, in a full packet and a ragged one: the live
+    rays' union of nodes is most of the tree, the parked rays miss the
+    root. Slots and steps exactly, t to f32 rounding."""
+    jscene, tscene, jb, tb = _setup(500, 20.0, leaf_size, seed=9)
+    nrays = PACKET + 371
+    o, d = _spanning_rays(nrays, live, 20.0, seed=leaf_size)
+    jpacked = j_pack_bvh(jscene, jb)
+    jt, jslot, jsteps = _traverse_packets(_jax_packed_rays(o, d), jpacked,
+                                          interpret=True)
+    packed = pack_bvh(tscene, tb)
+    rays, g, _ = pack_rays(torch.as_tensor(o), torch.as_tensor(d))
+    t, slot, steps, leaves = traverse_plain(rays, packed, leaf_visits=True)
+    np.testing.assert_array_equal(tp.np_(slot).reshape(-1),
+                                  tp.np_(jslot).reshape(-1))
+    np.testing.assert_array_equal(tp.np_(steps), tp.np_(jsteps)[:, 0, 0])
+    s = tp.np_(slot).reshape(-1)
+    parked = np.zeros(g * PACKET, bool)
+    parked[:nrays] = o[:, 0] >= 1e17
+    parked[nrays:] = parked[nrays - 1]
+    assert (s[parked] == -1).all() and (s[~parked] >= 0).sum() > 100
+    # Most of the tree is visited, and leaves of every part of it tested.
+    assert (tp.np_(steps) > packed.num_nodes // 2).all()
+    assert (tp.np_(leaves) > 20).all()
+    r = tp.np_(rays).reshape(-1, 8)
+    hit = s >= 0
+    q = tp.np_(packed.prims)[s[hit]]
+    tp.assert_sphere_t_close(tp.np_(t).reshape(-1)[hit],
+                             tp.np_(jt).reshape(-1)[hit], r[hit, 0:3],
+                             r[hit, 3:6], q[:, :3], q[:, 3])
+
+
+@pytest.fixture(scope="module")
+def spanning_walk():
+    """Three packets of 500 spheres in leaves of 8: one scene-spanning,
+    one of parked rays, one coherent from the origin; and the whole walk."""
+    c, r, a = tp.scene_np(500, seed=4, world=60.0)
+    _, tscene = tp.scenes(c, r, a)
+    packed = pack_bvh(tscene, tp.bvhs(c, r, 8)[1])
+    o, d = _spanning_rays(2 * PACKET, 600, 60.0, seed=3)
+    o[:PACKET] = _spanning_rays(PACKET, 900, 60.0, seed=5)[0]
+    o[PACKET:], d[PACKET:] = np.float32(1e18), np.float32([1.0, 0.0, 0.0])
+    oc, dc = _rays_np(PACKET, 0.0, seed=6)
+    dc = dc * np.float32(0.05) + np.float32([1.0, 0.0, 0.0])
+    dc /= np.linalg.norm(dc, axis=1, keepdims=True)
+    rays, _, _ = pack_rays(torch.as_tensor(np.concatenate([o, oc])),
+                           torch.as_tensor(np.concatenate([d, dc])))
+    return rays, packed, traverse_plain(rays, packed, leaf_visits=True)
+
+
+@pytest.mark.parametrize("caps", [(1,), (2, 9), (40,), (5, 60, 61, 150),
+                                  (10 ** 6,)])
+def test_walk_cut_at_caps_and_resumed_equals_whole_walk(spanning_walk,
+                                                        caps):
+    """t, slots, steps and leaf visits bit for bit, whatever the caps: a
+    cap of one step, caps inside the spanning packet's walk, consecutive
+    caps, and a cap no packet reaches."""
+    rays, packed, whole = spanning_walk
+    steps = whole[2]
+    assert int(steps[1]) == 1
+    assert int(steps[0]) > max(packed.num_nodes // 2, int(steps[2]), 61)
+    got = traverse_plain(rays, packed, leaf_visits=True, caps=caps)
+    for x, y in zip(got, whole):
+        assert torch.equal(x, y)
 
 
 def test_packed_tables_match_jax():

@@ -12,8 +12,10 @@ The metric ``lbvh_10m_tlas_mrays`` is B over the CUDA-event time of the
 whole query, prep to raw-order (t, slot). The line also carries the stage
 times (prep, routing + phase A, walk, merge), the device LBVH build time,
 the host table build time (set-up, like ``bvh_build_ms``), the chunk and
-pair counts, overflow, hit fraction, the kernels' launches per query and
-the card's name.
+pair counts, overflow, hit fraction, the kernels' launches per query, the
+query's peak device memory (``torch.cuda.max_memory_allocated`` over one
+query, with the scene and tables already resident, and the part above
+them) and the card's name.
 
 Run ``python -m tracer_torch.bench.large``: it prints one JSON line and
 exits non-zero on any failure, including the absence of a CUDA device.
@@ -126,8 +128,13 @@ def measure(tables, o, d, build_ms: float, tables_ms: float,
     budget = budgets(n_spheres, cull.num_chunks, b)
     mg, npairs, kc, pair_block = budget
     ms = time_cuda(query, o, d, tables, budget)
+    torch.cuda.synchronize(o.device)
+    torch.cuda.reset_peak_memory_stats(o.device)
+    resident = torch.cuda.memory_allocated(o.device)
     routed_cuda.launches = compact_cuda.launches = 0
     t, _, dest, overflow = query(o, d, tables, budget)
+    torch.cuda.synchronize(o.device)
+    peak = torch.cuda.max_memory_allocated(o.device)
     launches = {"routed_cuda": routed_cuda.launches,
                 "compact_cuda": compact_cuda.launches}
     hit_fraction = torch.isfinite(t[dest]).float().mean().item()
@@ -174,6 +181,8 @@ def measure(tables, o, d, build_ms: float, tables_ms: float,
         "bvh_build_device_ms": build_ms,
         "tables_ms": tables_ms,
         "launches": launches,
+        "query_peak_mib": peak / 2 ** 20,
+        "query_peak_above_resident_mib": (peak - resident) / 2 ** 20,
         "device_ms": prof["device_ms"],
         "idle_share": prof["idle_share"],
         "device_launches": prof["launches"],

@@ -31,10 +31,11 @@ WIDTH, HEIGHT = 800, 600
 MODES = ("path", "direct")
 IMPLS = ("auto", "pallas", "tilecull")
 # Substrings of the hand-written kernels' names; the split walks are
-# leafwalk::walk_items<LeafcullWalk>, <AnyhitWalk> and
-# tilewalk::walk_items<TileWalk>.
-KERNELS = ("LeafcullWalk", "compact_kernel", "AnyhitWalk",
-           "traverse_kernel", "TileWalk")
+# leafwalk::walk_items<ClosestWalk<GridRows>>, <AnyhitWalk> and
+# tilewalk::walk_items<TileWalk>, the packet walk's two launches
+# walk_kernel<LS> and resume_kernel<K, LS>.
+KERNELS = ("ClosestWalk", "compact_kernel", "AnyhitWalk", "walk_kernel",
+           "resume_kernel", "TileWalk")
 
 
 def argv(mode: str, impl: str) -> list[str]:

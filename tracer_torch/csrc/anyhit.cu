@@ -29,7 +29,7 @@
 
 namespace {
 
-struct AnyhitWalk {
+struct AnyhitWalk : leafwalk::GridRows {
   static constexpr bool kSlots = false;
   int32_t* occ;   // (G, SP, S)
   int S;
@@ -73,9 +73,8 @@ extern "C" int tracer_anyhit(const void* feats, const void* cand,
                              void* stream) {
   const leafwalk::Rows rows{(const float*)feats, (const int32_t*)cand,
                             (const float4*)prims, (const int32_t*)starts,
-                            C * G * S, G * S, rowlen, leaf_size, lpc, lpg,
-                            W};
-  return leafwalk::launch(AnyhitWalk{(int32_t*)occ, S}, rows, SP,
+                            C * G * S, rowlen, leaf_size, lpc, lpg, W};
+  return leafwalk::launch(AnyhitWalk{{G * S}, (int32_t*)occ, S}, rows, SP,
                           (cudaStream_t)stream);
 }
 

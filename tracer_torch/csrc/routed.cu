@@ -6,65 +6,49 @@
 // pair_c[p]'s prims for the S subpackets of packet pair_gb[p], each with
 // its chunk-relative candidate row; the global slot offset is
 // pair_c[p] * lpc * leaf_size.
-//   * one CTA per (pair p, subpacket s), one thread per ray; the body is
-//     leafcull.cu's (walk::closest_walk): prims staged in shared memory,
-//     largest u, lowest global slot on ties, bit for bit with the plain
-//     version;
-//   * a row with count 0 writes (3e38, 2^30) at once;
-//   * the TPU's scalar prefetch, SMEM pair tables and entries-block
-//     residency do not carry over: a CTA reads its pair's two ids itself,
-//     and a chunk's prims come through L2, kept warm because pairs are
-//     sorted chunk-major and CTAs start in pair order.
-// Bound on this card: instruction throughput in the inner loop (~20 fp32
-// operations per (ray, prim) test); the prim table (10M spheres: ~160 MB)
-// is read chunk by chunk through the 50 MB L2.
+//   * the split closest-hit walk of leafcull.cu (leafwalk.cuh): the rows
+//     r = p * S + s are cut into items of at most W walked leaves, planned
+//     on the device, walked by a persistent grid of SP-thread CTAs, one
+//     thread per ray, the sqrt only where disc > 0 and the next item
+//     staged by cp.async; leafwalk::PairRows maps a row to its chunk
+//     pair_c[p] and feature row pair_gb[p] * S + s;
+//   * each ray's best merges by a 64-bit atomicMin on (bits of -u) << 32 |
+//     global slot into keys (Npairs, S, SP): largest u, lowest global slot
+//     on ties, bit for bit with the plain version; an epilogue writes
+//     t = (-u) * (1/a) and the slot in the (Npairs, SP, S) layout, and
+//     (3e38, 2^30) for a row with count 0;
+//   * pairs are sorted chunk-major and items follow row order, so the
+//     persistent grid walks the prim table (10M spheres: ~160 MB against
+//     a 50 MB L2) chunk by chunk.
+// Bound on this card: operations, as leafcull.cu (16 fp32 operations per
+// missed test, each its own instruction); before the split one CTA walked
+// a whole row, and the longest rows ran alone at the end of the launch.
 
-#include "walk.cuh"
-
-namespace {
-
-__global__ void routed_kernel(const int32_t* __restrict__ pair_c,
-                              const int32_t* __restrict__ pair_gb,
-                              const float* __restrict__ feats,
-                              const int32_t* __restrict__ cand,
-                              const float4* __restrict__ prims,
-                              float* __restrict__ t_out,
-                              int32_t* __restrict__ slot_out,
-                              int S, int SP, int rowlen, int leaf_size,
-                              int lpc, int lpg) {
-  __shared__ float4 s_prim[walk::kStage];
-  __shared__ int32_t s_slot[walk::kStage];
-
-  const int p = blockIdx.x / S;
-  const int s = blockIdx.x % S;
-  const int c = pair_c[p];
-  const int g = pair_gb[p];
-  const int r = threadIdx.x;
-
-  const int32_t* row = cand + ((size_t)p * S + s) * rowlen;
-  const size_t out = ((size_t)p * SP + r) * S + s;
-  const float* f = feats + (((size_t)g * S + s) * SP + r) * walk::kFeat;
-  const int chunk_slot0 = c * lpc * leaf_size;
-  walk::closest_walk(row, f, prims + chunk_slot0, chunk_slot0, leaf_size,
-                     lpg, s_prim, s_slot, t_out + out, slot_out + out);
-}
-
-}  // namespace
+#include "leafwalk.cuh"
 
 // pair_c, pair_gb (Npairs,) i32; feats (G, S, SP, 16) f32; cand
-// (Npairs, S, rowlen) i32; prims (C, lpc * leaf_size, 4) f32; t / slot
-// (Npairs, SP, S). Returns cudaGetLastError() after the launch.
+// (Npairs, S, rowlen) i32; prims (C, lpc * leaf_size, 4) f32; starts
+// (Npairs * S + 1,) i32 the item plan for W leaves per item; keys
+// (Npairs, S, SP) u64 initialised to the miss key; t / slot
+// (Npairs, SP, S). Returns cudaGetLastError() after the launches.
 extern "C" int tracer_routed(const void* pair_c, const void* pair_gb,
                              const void* feats, const void* cand,
-                             const void* prims, void* t, void* slot,
-                             int npairs, int S, int SP, int rowlen,
-                             int leaf_size, int lpc, int lpg, void* stream) {
-  const long long blocks = (long long)npairs * S;
-  if (blocks > 0) {
-    routed_kernel<<<(unsigned)blocks, SP, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)pair_c, (const int32_t*)pair_gb, (const float*)feats,
-        (const int32_t*)cand, (const float4*)prims, (float*)t,
-        (int32_t*)slot, S, SP, rowlen, leaf_size, lpc, lpg);
-  }
-  return (int)cudaGetLastError();
+                             const void* prims, const void* starts,
+                             void* keys, void* t, void* slot, int npairs,
+                             int S, int SP, int rowlen, int leaf_size,
+                             int lpc, int lpg, int W, void* stream) {
+  const leafwalk::Rows rows{(const float*)feats, (const int32_t*)cand,
+                            (const float4*)prims, (const int32_t*)starts,
+                            npairs * S, rowlen, leaf_size, lpc, lpg, W};
+  const leafwalk::PairRows map{(const int32_t*)pair_c,
+                               (const int32_t*)pair_gb, S};
+  return leafwalk::closest(map, rows, keys, t, slot, S, SP,
+                           (cudaStream_t)stream);
+}
+
+// The persistent grid of tracer_routed for SP-ray subpackets and items of
+// W leaves of leaf_size prims, on the current device.
+extern "C" int tracer_routed_grid(int SP, int leaf_size, int W) {
+  return leafwalk::grid_size<leafwalk::ClosestWalk<leafwalk::PairRows>>(
+      SP, leafwalk::smem_bytes(leaf_size, W));
 }

@@ -1,12 +1,8 @@
 // Pieces shared by the walks over slot-major prims (float4 (cx, cy, cz,
-// |c|^2 - r^2)) and the 16-column ray features: the per-row closest walk of
-// routed.cu (closest_walk, one CTA per row), the (ray, prim) tests, and the
-// staging and item-plan helpers of the split walks (leafwalk.cuh for
-// leafcull.cu and anyhit.cu, tilewalk.cuh for tilecull.cu and cull.cu).
-//
-// closest_walk runs one CTA per subpacket row and one thread per ray. It
-// stages a batch of its row's prims in shared memory, then every thread
-// tests every staged prim with ray_prim_u. A row is [count, ids...]:
+// |c|^2 - r^2)) and the 16-column ray features: the (ray, prim) tests, and
+// the staging and item-plan helpers of the split walks (leafwalk.cuh for
+// leafcull.cu, routed.cu and anyhit.cu, tilewalk.cuh for tilecull.cu and
+// cull.cu) and of the packet walk (traverse.cu). A row is [count, ids...]:
 // count > 0 lists relative leaf ids, count < 0 lists -count relative group
 // ids whose leaves_per_group member leaves are all walked, 0 means nothing.
 //
@@ -24,7 +20,6 @@ namespace walk {
 constexpr float kBig = 3.0e38f;
 constexpr int kNoSlot = 1 << 30;
 constexpr int kFeat = 16;
-constexpr int kStage = 512;   // prims staged per batch (8 KB of float4)
 
 // Ray features (leafcull._feature_rows): d, -2o, 1, 0, o.d, |o|^2, a, 1/a,
 // eps*a, -a*t_max.
@@ -103,56 +98,6 @@ static __device__ __forceinline__ int row_of(const int32_t* starts, int R,
 // Number of leaves a row walks.
 static __device__ __forceinline__ int row_leaves(int nc, int lpg) {
   return nc > 0 ? nc : -nc * lpg;
-}
-
-// Stage the prims of leaves [j0, j0 + n) of a row (n * leaf_size <= kStage)
-// into shared memory, with their global slots when s_slot is not null.
-// Every thread of the CTA calls it; the caller syncs afterwards.
-static __device__ __forceinline__ void stage(
-    const int32_t* row, int nc, int j0, int np, int leaf_size, int lpg,
-    const float4* __restrict__ cprims, int chunk_slot0, float4* s_prim,
-    int32_t* s_slot) {
-  for (int i = threadIdx.x; i < np; i += blockDim.x) {
-    const int j = j0 + i / leaf_size;
-    const int leaf = nc > 0 ? row[1 + j] : row[1 + j / lpg] * lpg + j % lpg;
-    const int p = leaf * leaf_size + i % leaf_size;
-    s_prim[i] = cprims[p];
-    if (s_slot) s_slot[i] = chunk_slot0 + p;
-  }
-}
-
-// The closest-hit walk of one row; every thread of the CTA calls it with
-// the same row. Keeps the largest u below -eps*a, lowest global slot on
-// ties: ok && (u > ub || (u == ub && slot < ib)). Writes t = -u/a and the
-// slot, or (3e38, 2^30) where nothing hits.
-static __device__ __forceinline__ void closest_walk(
-    const int32_t* row, const float* f, const float4* __restrict__ cprims,
-    int chunk_slot0, int leaf_size, int lpg, float4* s_prim, int32_t* s_slot,
-    float* t_out, int32_t* slot_out) {
-  const int nc = row[0];
-  const Ray ray = load_ray(f);
-  const int total = row_leaves(nc, lpg);
-  const int leaves_per_stage = kStage / leaf_size;
-  float ub = -kBig;
-  int ib = kNoSlot;
-  for (int j0 = 0; j0 < total; j0 += leaves_per_stage) {
-    const int np = min(leaves_per_stage, total - j0) * leaf_size;
-    stage(row, nc, j0, np, leaf_size, lpg, cprims, chunk_slot0, s_prim,
-          s_slot);
-    __syncthreads();
-    for (int i = 0; i < np; ++i) {
-      float disc;
-      const float u = ray_prim_u(ray, s_prim[i], &disc);
-      const int slot = s_slot[i];
-      if (disc > 0.0f && u < -ray.epsa && (u > ub || (u == ub && slot < ib))) {
-        ub = u;
-        ib = slot;
-      }
-    }
-    __syncthreads();
-  }
-  *t_out = ib < kNoSlot ? __fmul_rn(-ub, ray.inva) : kBig;
-  *slot_out = ib;
 }
 
 }  // namespace walk

@@ -65,9 +65,13 @@ def load() -> ctypes.CDLL:
             lib.tracer_anyhit_grid.restype = i
             lib.tracer_anyhit_grid.argtypes = [i] * 3
             lib.tracer_routed.restype = i
-            lib.tracer_routed.argtypes = [vp] * 7 + [i] * 7 + [vp]
+            lib.tracer_routed.argtypes = [vp] * 9 + [i] * 8 + [vp]
+            lib.tracer_routed_grid.restype = i
+            lib.tracer_routed_grid.argtypes = [i] * 3
             lib.tracer_traverse.restype = i
-            lib.tracer_traverse.argtypes = [vp] * 7 + [i] * 3 + [vp]
+            lib.tracer_traverse.argtypes = [vp] * 8 + [i] * 5 + [vp]
+            lib.tracer_traverse_clusters.restype = i
+            lib.tracer_traverse_clusters.argtypes = [i] * 2
             lib.tracer_tilecull.restype = i
             lib.tracer_tilecull.argtypes = [vp] * 5 + [i] * 3 + [vp]
             lib.tracer_tilecull_grid.restype = i

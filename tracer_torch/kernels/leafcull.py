@@ -476,9 +476,9 @@ def item_leaves(leaf_size: int, prims: int = ITEM_PRIMS) -> int:
 
 def leaf_grid(walk: str, subpacket: int, leaf_size: int, chunk: int,
               device: torch.device) -> int:
-    """The persistent grid the ``walk`` kernel ("leafcull" or "anyhit")
-    launches on ``device`` for ``subpacket``-ray rows and items of
-    ``chunk`` leaves: SMs x resident CTAs."""
+    """The persistent grid the ``walk`` kernel ("leafcull", "anyhit" or
+    "routed") launches on ``device`` for ``subpacket``-ray rows and items
+    of ``chunk`` leaves: SMs x resident CTAs."""
     lib = _lib.load()
     with torch.cuda.device(device):
         return getattr(lib, f"tracer_{walk}_grid")(subpacket, leaf_size,

@@ -13,8 +13,11 @@ them empty. This path adds the top level of a two-level hierarchy:
      come out chunk-relative; pairs are processed in blocks of
      ``pair_block`` to bound memory.
   3. WALK (:func:`routed_call`): one closest-hit walk per routed pair,
-     ``routed_cuda`` (hand-written CUDA, ``csrc/routed.cu``) on CUDA
-     tensors and ``routed_plain`` on CPU tensors.
+     ``routed_cuda`` (hand-written CUDA, ``csrc/routed.cu``, the split
+     leaf walk of ``leafcull_cuda``: the routed rows cut into items of
+     ``ROUTED_ITEM_PRIMS`` prims on a persistent grid, merged per ray by a
+     packed (-u, slot) key) on CUDA tensors and ``routed_plain`` on CPU
+     tensors.
   4. MERGE: per g-block, the pair partials are min-merged by t, first
      minimum in ascending chunk order (the lowest slot wins ties).
 
@@ -34,17 +37,21 @@ from __future__ import annotations
 import torch
 from torch import Tensor
 
-from tracer_torch.kernels import _lib
+from tracer_torch.kernels import _lib, tilewalk
 from tracer_torch.kernels.conecull import (ConeTables, bounds_from_feats,
                                            compact_ascending_rows,
                                            _pad_cols, _round_up,
                                            _slab_hit_cols, _ROW_ALIGN)
-from tracer_torch.kernels.leafcull import (FEAT, _BIG, _NOSLOT,
-                                           closest_rows_plain)
+from tracer_torch.kernels.leafcull import (FEAT, MISS_KEY, _BIG, _NOSLOT,
+                                           closest_rows_plain, item_leaves,
+                                           walked_leaves)
 
 # g-block rows merged at a time: bounds the gathered (rows, kc, SP*S)
 # temporaries (the JAX _tlas_merge's row_block).
 _MERGE_ROWS = 64
+# Prims per item of the routed walk: the fastest of 128/256/512 on the 10M
+# rows (chip_smoke.py sweeps them), where the render's leaf walks keep 128.
+ROUTED_ITEM_PRIMS = 256
 
 
 def route_pairs(o_lo, o_hi, d_lo, d_hi, tables: ConeTables, subpackets: int,
@@ -267,31 +274,46 @@ def routed_plain(pair_c: Tensor, pair_gb: Tensor, cand: Tensor,
 def routed_cuda(pair_c: Tensor, pair_gb: Tensor, cand: Tensor,
                 feats: Tensor, prims: Tensor, leaf_size: int,
                 leaves_per_chunk: int, leaves_per_group: int):
-    """The routed walk as the hand-written CUDA kernel (``csrc/routed.cu``).
+    """The routed walk as the hand-written CUDA kernel (``csrc/routed.cu``):
+    the routed rows split into items of :func:`item_leaves` leaves
+    (``ROUTED_ITEM_PRIMS`` prims) on a persistent grid, merged per ray by a
+    packed (-u, slot) key.
 
     Same arguments and (Np, SP, S) outputs as :func:`routed_plain`. Raises
-    for tensors that are not on one CUDA device. Adds one to
-    ``routed_cuda.launches`` per launch.
+    for tensors that are not on one CUDA device. Reads no device value on
+    the host. Adds one to ``routed_cuda.launches`` per launch.
     """
-    dev = _lib.require_cuda("routed_cuda", pair_c, pair_gb, cand, feats,
-                            prims)
+    _lib.require_cuda("routed_cuda", pair_c, pair_gb, cand, feats, prims)
     _check_routed_args(pair_c, pair_gb, cand, feats, prims, leaf_size,
                        leaves_per_chunk)
+    return _routed_launch(pair_c, pair_gb, cand, feats, prims, leaf_size,
+                          leaves_per_chunk, leaves_per_group,
+                          item_leaves(leaf_size, ROUTED_ITEM_PRIMS))
+
+
+def _routed_launch(pair_c: Tensor, pair_gb: Tensor, cand: Tensor,
+                   feats: Tensor, prims: Tensor, leaf_size: int,
+                   leaves_per_chunk: int, leaves_per_group: int, chunk: int):
+    """:func:`routed_cuda` with items of ``chunk`` walked leaves."""
+    dev = feats.device
     npairs, S, rowlen = cand.shape
     SP = feats.shape[2]
     if not 1 <= SP <= 1024:
         raise ValueError(f"subpacket {SP} is not a valid CTA size")
     pair_c, pair_gb, cand, feats, prims = (
         x.contiguous() for x in (pair_c, pair_gb, cand, feats, prims))
+    starts = tilewalk.plan_items(walked_leaves(cand, leaves_per_group), chunk)
+    keys = torch.full((npairs, S, SP), MISS_KEY, dtype=torch.int64,
+                      device=dev)
     t = torch.empty((npairs, SP, S), dtype=torch.float32, device=dev)
     slot = torch.empty((npairs, SP, S), dtype=torch.int32, device=dev)
     lib = _lib.load()
     with torch.cuda.device(dev):
         rc = lib.tracer_routed(
             _lib.ptr(pair_c), _lib.ptr(pair_gb), _lib.ptr(feats),
-            _lib.ptr(cand), _lib.ptr(prims), _lib.ptr(t), _lib.ptr(slot),
-            npairs, S, SP, rowlen, leaf_size, leaves_per_chunk,
-            leaves_per_group, _lib.stream(dev))
+            _lib.ptr(cand), _lib.ptr(prims), _lib.ptr(starts), _lib.ptr(keys),
+            _lib.ptr(t), _lib.ptr(slot), npairs, S, SP, rowlen, leaf_size,
+            leaves_per_chunk, leaves_per_group, chunk, _lib.stream(dev))
     _lib.check(lib, rc, "routed_cuda")
     routed_cuda.launches += 1
     return t, slot

@@ -14,6 +14,14 @@ raises for any other. Both spell the same f32 operations in the same
 order (no FMA contraction, correctly rounded sqrt), so they agree bit for
 bit: t, slots and steps.
 
+The kernel walks in two launches: one CTA per packet up to ``STEP_CAP``
+steps, then thread-block clusters of ``CLUSTER`` CTAs, each holding
+1024 / CLUSTER of the packet's rays, resume the packets still walking (on
+bounce rays, the few whose rays span the scene). The walk's state (cursor,
+steps, each ray's best t and slot) is all a resumed walk needs, so the cut
+changes nothing; ``traverse_plain(..., caps=...)`` cuts its walk the same
+way and the tests hold it to the whole walk.
+
 The leaf test is the b-form of the JAX kernel (b = 2 oc.d, c = |oc|^2 - r^2,
 disc = b^2 - 4ac, t = (-b - sqrt(disc)) / 2a), not the u-form of the leaf
 walks; the kernel returns slots only, and :func:`nearest_hit_bvh_packets`
@@ -35,9 +43,14 @@ from tracer_torch.kernels import _lib
 from tracer_torch.kernels.leafcull import _pad_edge, _sqrt_rn
 from tracer_torch.scene.scene import Scene
 
-PACKET = 1024          # rays per packet (one CTA)
+PACKET = 1024          # rays per packet
 RAY_COLS = 8           # per-ray columns: ox oy oz dx dy dz 0 0
 _HUGE = 3.0e38         # 1/d stand-in where d == 0
+# The kernel's split (chip_smoke.py sweeps them on the render's walks): the
+# first launch's step cap and the resume launch's cluster size.
+STEP_CAP = 256
+CLUSTER = 8
+CLUSTERS = (1, 2, 4, 8, 16)   # the cluster sizes the kernel takes
 
 
 @dataclass
@@ -136,7 +149,7 @@ def _ray_terms(rays: Tensor):
 
 @torch.no_grad()
 def traverse_plain(rays: Tensor, packed: PackedBVH,
-                   leaf_visits: bool = False):
+                   leaf_visits: bool = False, caps=()):
     """Plain PyTorch packet walk: the contract of ``traverse_cuda``.
 
     rays (g, PACKET, 8) f32 from :func:`pack_rays`. Returns (t (g, PACKET)
@@ -149,23 +162,48 @@ def traverse_plain(rays: Tensor, packed: PackedBVH,
     the leaves that some ray of the packet reached. Within a leaf the first
     of equal minima wins and a later prim only with a strictly smaller t,
     as the kernel's in-order strict update gives.
+
+    ``caps`` (ascending step counts) cut the walk as the kernel's launches
+    do: it stops every packet at each cap in turn and resumes from the
+    state (best t and slot per ray, cursor and steps per packet) alone.
+    The result does not depend on them.
     """
     _check_args(rays, packed)
+    state = _walk_start(rays)
+    terms = _ray_terms(rays)
+    for cap in (*caps, None):
+        _walk_steps(terms, packed, state, cap)
+    tb, ib, _, steps, leaves = state
+    if leaf_visits:
+        return tb, ib, steps, leaves
+    return tb, ib, steps
+
+
+def _walk_start(rays: Tensor):
+    """The walk's state before its first step: (best t (g, PACKET) +inf,
+    best slot -1, cursor (g,) 0, steps 0, leaf visits 0)."""
     g = rays.shape[0]
     dev = rays.device
+    return (torch.full((g, PACKET), float("inf"), dtype=torch.float32,
+                       device=dev),
+            torch.full((g, PACKET), -1, dtype=torch.int32, device=dev),
+            torch.zeros(g, dtype=torch.int64, device=dev),
+            torch.zeros(g, dtype=torch.int32, device=dev),
+            torch.zeros(g, dtype=torch.int32, device=dev))
+
+
+def _walk_steps(terms, packed: PackedBVH, state, cap=None) -> None:
+    """Advance the walk ``state`` in place until every packet has left the
+    tree or walked ``cap`` steps (None: no cap)."""
+    o, d, inv, a, inv2a = terms
+    tb, ib, cursor, steps, leaves = state
     M = packed.num_nodes
     ls = packed.leaf_size
-    o, d, inv, a, inv2a = _ray_terms(rays)
-    tb = torch.full((g, PACKET), float("inf"), dtype=torch.float32,
-                    device=dev)
-    ib = torch.full((g, PACKET), -1, dtype=torch.int32, device=dev)
-    cursor = torch.zeros(g, dtype=torch.int64, device=dev)
-    steps = torch.zeros(g, dtype=torch.int32, device=dev)
-    leaves = torch.zeros(g, dtype=torch.int32, device=dev)
     links = packed.links.long()
-    lane = torch.arange(ls, device=dev)
-    live = torch.arange(g, device=dev) if M > 0 else \
-        torch.zeros(0, dtype=torch.int64, device=dev)
+    lane = torch.arange(ls, device=tb.device)
+    live = torch.nonzero(cursor < M).reshape(-1)
+    if cap is not None:
+        live = live[steps[live] < cap]
     while live.numel():
         cur = cursor[live]
         nd = packed.nodes[cur]                                 # (n, 8)
@@ -194,10 +232,10 @@ def traverse_plain(rays: Tensor, packed: PackedBVH,
             leaves[pl] += 1
         cursor[live] = torch.where(any_hit, ln[:, 1], ln[:, 0])
         steps[live] += 1
-        live = live[cursor[live] < M]
-    if leaf_visits:
-        return tb, ib, steps, leaves
-    return tb, ib, steps
+        keep = cursor[live] < M
+        if cap is not None:
+            keep &= steps[live] < cap
+        live = live[keep]
 
 
 def _bform_t(ox, oy, oz, dx, dy, dz, a, inv2a, cx, cy, cz, rsq):
@@ -214,33 +252,63 @@ def _bform_t(ox, oy, oz, dx, dy, dz, a, inv2a, cx, cy, cz, rsq):
 
 def traverse_cuda(rays: Tensor, packed: PackedBVH):
     """The packet walk as the hand-written CUDA kernel
-    (``csrc/traverse.cu``): one CTA of 1024 threads per packet.
+    (``csrc/traverse.cu``): one CTA of 1024 threads per packet for up to
+    ``STEP_CAP`` steps, then clusters of ``CLUSTER`` CTAs resume the
+    packets still walking.
 
     Same arguments and (t, slot, steps) outputs as :func:`traverse_plain`.
-    Raises for tensors that are not on one CUDA device. Adds one to
-    ``traverse_cuda.launches`` per launch.
+    Raises for tensors that are not on one CUDA device, and when the card
+    refuses a launch. Reads no device value on the host. Adds one to
+    ``traverse_cuda.launches`` per call.
     """
-    dev = _lib.require_cuda("traverse_cuda", rays, packed.nodes,
-                            packed.links, packed.prims)
+    _lib.require_cuda("traverse_cuda", rays, packed.nodes, packed.links,
+                      packed.prims)
     _check_args(rays, packed)
+    return _traverse_launch(rays, packed, CLUSTER, STEP_CAP)
+
+
+def _traverse_launch(rays: Tensor, packed: PackedBVH, cluster: int,
+                     cap: int):
+    """:func:`traverse_cuda` with the resume launch's cluster size and the
+    step cap of the first launch (0: one launch walks every packet to its
+    end)."""
+    if cluster not in CLUSTERS:
+        raise ValueError(f"cluster size {cluster} not in {CLUSTERS}")
+    if not 1 <= packed.leaf_size <= 32:
+        raise ValueError(f"leaf_size {packed.leaf_size} not in 1..32")
+    dev = rays.device
     g = rays.shape[0]
     rays = rays.contiguous()
     t = torch.empty((g, PACKET), dtype=torch.float32, device=dev)
     slot = torch.empty((g, PACKET), dtype=torch.int32, device=dev)
     steps = torch.empty((g,), dtype=torch.int32, device=dev)
+    scratch = torch.empty((1 + 2 * g,), dtype=torch.int32, device=dev)
     lib = _lib.load()
     with torch.cuda.device(dev):
         rc = lib.tracer_traverse(
             _lib.ptr(rays), _lib.ptr(packed.nodes), _lib.ptr(packed.links),
             _lib.ptr(packed.prims), _lib.ptr(t), _lib.ptr(slot),
-            _lib.ptr(steps), g, packed.num_nodes, packed.leaf_size,
-            _lib.stream(dev))
+            _lib.ptr(steps), _lib.ptr(scratch), g, packed.num_nodes,
+            packed.leaf_size, cluster, cap, _lib.stream(dev))
     _lib.check(lib, rc, "traverse_cuda")
     traverse_cuda.launches += 1
     return t, slot, steps
 
 
 traverse_cuda.launches = 0
+
+
+def resume_clusters(cluster: int, leaf_size: int,
+                    device: torch.device) -> int:
+    """Clusters of ``cluster`` CTAs the resume launch keeps resident on
+    ``device`` (the occupancy query; its grid is this many clusters, or
+    the packet count when smaller). Raises when the query fails."""
+    lib = _lib.load()
+    with torch.cuda.device(device):
+        n = lib.tracer_traverse_clusters(cluster, leaf_size)
+    if n < 0:
+        _lib.check(lib, -n, "traverse_cuda occupancy query")
+    return n
 
 
 def traverse_call(rays: Tensor, packed: PackedBVH):
