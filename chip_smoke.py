@@ -5,6 +5,8 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
+(``--compact-baseline FILE.cu`` adds another compactor to phase 7b.)
+
 Phases, each of which raises on failure (the script then exits non-zero):
 
 1. device check: exits 1 unless ``torch.cuda.is_available()``; prints the
@@ -12,13 +14,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
 2. build: compiles the CUDA kernels under ``tracer_torch/csrc`` with nvcc,
    one process per source, all at once;
 3. kernel vs plain on the card: ``compact_cuda`` at the phase-A shapes of
-   the 100k-sphere query; ``leafcull_cuda``, ``conecull_cuda`` (phase B)
-   and ``anyhit_cuda`` on phase-A rows at 20k spheres x 64k rays (default
-   budgets, group-mode rows, C > 1 chunks, for phase B also unsorted rays
-   whose cones are degenerate, and for any-hit a dense scene where whole
-   subpackets are occluded); ``leafcull_cuda`` and ``anyhit_cuda`` on
-   skewed rows at SP = 64 and 128 in C > 1 chunks (one row per chunk walks
-   every group, the others 1-2 leaves); ``routed_cuda`` on TLAS rows at 20k
+   the 100k-sphere query (synthetic planes); ``leafcull_cuda``,
+   ``conecull_cuda`` (phase B) and ``anyhit_cuda`` on phase-A rows at 20k
+   spheres x 64k rays (default budgets, group-mode rows, C > 1 chunks, for
+   phase B also unsorted rays whose cones are degenerate, and for any-hit
+   a dense scene where whole subpackets are occluded); ``leafcull_cuda``,
+   ``anyhit_cuda`` and ``conecull_cuda`` on skewed rows at SP = 64 and 128
+   in C > 1 chunks (one row per chunk walks every group, the others 1-2
+   leaves); ``routed_cuda`` on TLAS rows at 20k
    spheres in 8 chunks, where the routed query must also equal the dense
    multi-chunk one, and on skewed routed rows (the first row of each
    chunk's first pair walks every group, the others 1-2 leaves);
@@ -44,7 +47,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    leaves, counters reset and read the same way; no overflow; at leaf 32
    ids and t equal the headline leaf-walk query's on every ray; agreement
    with brute force on the first 16k rays; kernel vs plain and vs
-   ``leafcull_cuda`` on its rows, all bit for bit;
+   ``leafcull_cuda`` on its rows, all bit for bit; its rows' walked
+   leaves and its split swept over 128, 256 and 512 prims per item;
 6. the 10M TLAS slice at full size: 10M spheres, device LBVH, 131k origin
    rays through prep, routing, routed phase A, the routed walk and the
    merge, counters reset and read the same way; overflow, slots equal to
@@ -66,6 +70,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
    per step of its longest packet and bound, then the packet walk's split
    swept over the five; the direct/pallas packet walk against its plain
    version); one metrics JSON line per (mode, impl);
+7b. the compactor on the planes each main path of phases 4-7 gave it
+   (its calls recorded while the counters ran, checked as soon as the
+   path's counts are read, then dropped): ``compact_cuda`` equal to its
+   plain version on every plane; timed on the headline's two phase-A
+   planes, the ``tile_candidates`` planes of the packet cull (ragged:
+   1102 tiles) and the render, and the 10M routing planes; per path the
+   launches' (P, M, keep) shapes and their summed device time
+   (``tracer_torch.bench.compact``), and the sum over every path. With
+   ``--compact-baseline FILE.cu`` another compactor source (an older
+   checkout's ``csrc/compact.cu``) is held equal and timed beside it on
+   the same planes;
 8. the headline measurement (``tracer_torch.bench``, with its shadow and
    LBVH extras) and the large-scene measurement
    (``tracer_torch.bench.large``), one JSON line each;
@@ -101,12 +116,19 @@ grazes or a hit t within 1e-5 of t_max, on at most 0.01% of rays (0.5% against `
 reference quadratic rounds differently, see MIN_AGREE_REFERENCE). Every
 kernel equals its plain version exactly.
 
+Each kernel's ``ms`` in the per-kernel line is its wrapper's call timed
+on CUDA events over back-to-back calls; ``compact_cuda``'s is summed over
+the two synthetic planes of phase 3a. The calls of ``compact_cuda`` and
+``conecull_cuda`` take less device time than the host takes to issue
+them, so their device time (the call captured in a CUDA graph and
+replayed between CUDA events: ``timing.time_graph``) is logged beside.
 Each kernel's ``bound_ms`` is the larger of its bytes (each input read
 once, each output written once) over 3.35 TB/s and its operations over
 67 TFLOP/s (the H100's fp32 rate outside the tensor cores): 19 fp32
 operations per (ray, prim) test, counted over the tests this run's rows
 need (for the any-hit walk, up to the leaf where every ray of the
-subpacket is occluded), and for the compactor 3 32-bit operations per id.
+subpacket is occluded), and for the compactor 3 32-bit operations per id
+(its bound is bytes: each plane read once, prefix and counts written once).
 The packet walk counts 25 operations per (ray, node) slab test over the
 nodes each packet visited (steps x 1024) and 25 per b-form (ray, prim)
 test over the leaves it tested (leaf visits x leaf size x 1024); the tile
@@ -159,6 +181,7 @@ PLAIN_ELEMS = 1 << 26   # slice size of the plain walks on the card
 MIN_AGREE_OTHER_ROUNDING = 0.99
 WALK_SPHERES, WALK_RAYS = 20_000, 65_536   # packet and tile walk settings
 LEAF_ITEM_PRIMS = (128, 256, 512)   # prims per item in the leaf walks' sweep
+CONE_ITEM_PRIMS = (128, 256, 512)   # and in the phase-B walk's
 SWEEP_CAPS = (64, 256, 1024)        # the packet walk's step caps swept
 LONG_WALK = 1000        # packets over this many steps are logged
 RENDER_FRAMES = 3       # timed frames per (mode, impl); the first dropped
@@ -707,11 +730,21 @@ def wrapper_ids_match(name, rec, ids, o, d, scene):
         raise AssertionError(f"{name}: 2-D wrapper != plain walk")
 
 
+def cones_of(feats, tables):
+    """The subpackets' cones (G, S, CONE_FEAT), as the phase-B path builds
+    them."""
+    from tracer_torch.kernels.conecull import (CONE_FEAT, bounds_from_feats,
+                                               cone_from_feats)
+    cones = cone_from_feats(feats, *bounds_from_feats(feats), tables.r_max)
+    return cones.reshape(*feats.shape[:2], CONE_FEAT)
+
+
 def skewed_leaf_walks(dev):
-    """Phase 3b, skewed rows: leafcull_cuda and anyhit_cuda vs their plain
-    versions at SP = 64 and 128, 20k spheres x 64k rays in C > 1 chunks of
-    the dense scene (so that 1-2 random leaves give hits): in each chunk
-    one row walks every group (group mode), the others list 1-2 leaves."""
+    """Phase 3b, skewed rows: leafcull_cuda, anyhit_cuda and conecull_cuda
+    vs their plain versions at SP = 64 and 128, 20k spheres x 64k rays in
+    C > 1 chunks of the dense scene (so that 1-2 random leaves give hits):
+    in each chunk one row walks every group (group mode), the others list
+    1-2 leaves."""
     import torch
     from tracer_torch.bench import headline
     from tracer_torch.kernels.leafcull import prep_feats_bucketed
@@ -735,6 +768,8 @@ def skewed_leaf_walks(dev):
         leaf_rows(name, rows, lpg)
         compare_walk(f"walk, {name}", feats, rows, cull)
         compare_anyhit(f"any-hit, {name}", feats, rows, cull)
+        compare_conecull(f"phase B, {name}", feats, rows,
+                         cones_of(feats, tables), cull)
 
 
 def packet_and_tile_walks(dev):
@@ -877,6 +912,79 @@ def ref_t_of(o, d, scene):
     return t_of
 
 
+class Compactions:
+    """The compactor's calls on the main paths: recorded while a path runs
+    (``record``), then held equal to the plain version, timed, logged per
+    path and dropped as soon as the path's counts are read (``check``)."""
+
+    def __init__(self, base=None):
+        self.base = base    # another compactor, held equal and timed beside
+        self.calls = []     # (plane, sentinel, keep) since the last check
+        self.paths = {}     # path -> tracer_torch.bench.compact.report's row
+
+    def record(self):
+        from tracer_torch.bench.compact import recording
+        return recording(self.calls)
+
+    def check(self, name, timed=0):
+        """compact_cuda vs its plain version, exactly, on every plane the
+        path ``name`` gave it; the first ``timed`` planes timed, one per
+        shape (``time_compactor``); the path's launches, (P, M, keep)
+        shapes and summed device time logged (bench.compact.report); the
+        planes dropped. The launches made here are not the path's: the
+        count is restored."""
+        import torch
+        from tracer_torch.bench.compact import report
+        from tracer_torch.kernels.conecull import (
+            compact_ascending_rows_plain, compact_cuda)
+        calls, self.calls = self.calls, []
+        launches = compact_cuda.launches
+        for ids, sentinel, keep in calls:
+            ok, ck = compact_cuda(ids, sentinel, keep)
+            op, cp = compact_ascending_rows_plain(ids, sentinel, keep)
+            torch.cuda.synchronize()
+            if not (torch.equal(ok, op) and torch.equal(ck, cp)):
+                raise AssertionError(f"{name}: compact_cuda != plain on a "
+                                     f"{tuple(ids.shape)} plane")
+        seen = set()
+        for call in calls[:timed]:
+            shape = tuple(call[0].shape)
+            if shape not in seen:
+                seen.add(shape)
+                ragged = " (ragged)" if shape[1] % 4 else ""
+                time_compactor(f"compact, {name} {shape}{ragged}", *call)
+        self.paths.update(report({name: calls}, self.base, log))
+        compact_cuda.launches = launches
+        del calls
+        torch.cuda.empty_cache()
+
+    def summary(self):
+        """Phase 7b: the compactor over every main path."""
+        rows = self.paths.values()
+        total = {k: sum(r[k] for r in rows) for k in
+                 ("launches", "bound_ms", "device_ms")
+                 + (("baseline_ms",) if self.base else ())}
+        log(f"compact_cuda equal to its plain version on all "
+            f"{total['launches']} planes of {len(self.paths)} paths; "
+            f"every path: {total}")
+
+
+def kernel_ms(fn, args, name, tries=3):
+    """Device time per call of the kernels whose name holds ``name`` in
+    ``fn(*args)``, by torch.profiler; None where it saw no device time in
+    ``tries`` profiled windows (a window now and then comes back empty)."""
+    from tracer_torch.bench.profile import profile_calls
+    for _ in range(tries):
+        r = profile_calls(fn, *args, iters=5, names=(name,))
+        if r["shares"] is not None and r["shares"][name] > 0:
+            return r["shares"][name] * r["window_ms"]
+    return None
+
+
+def fmt_ms(v):
+    return "not measured" if v is None else f"{v:.4f} ms"
+
+
 @contextlib.contextmanager
 def recording(module, fn_name, into):
     """Within the block, calls of ``module.fn_name`` run unchanged and
@@ -977,8 +1085,10 @@ def frame_walks(captured):
         v.clear()
 
 
-def render_slice(dev, results):
-    """Phase 7: the renderer at full size through the CLI's code path."""
+def render_slice(dev, results, comp):
+    """Phase 7: the renderer at full size through the CLI's code path; the
+    compactor's planes of each frame recorded and checked (``comp``, a
+    Compactions)."""
     import torch
     from tracer_torch import cli
     from tracer_torch.bench import render as brender
@@ -1025,10 +1135,12 @@ def render_slice(dev, results):
     for key, sess in sessions.items():
         before = {k: c.launches for k, c in counters.items()}
         module, fn, walk = hooks.get(key, (None, None, None))
-        with recording(module, fn, captured.get(walk)):
+        with recording(module, fn, captured.get(walk)), comp.record():
             images[key] = sess.frame(sess.camera, noise)
         torch.cuda.synchronize()
         per[key] = {k: c.launches - before[k] for k, c in counters.items()}
+        comp.check(f"render {key[0]}/{key[1]}",
+                   timed=1 if key == ("path", "tilecull") else 0)
     launches = {k: c.launches for k, c in counters.items()}
     log(f"render slice launches: {launches}")
     for key, n in per.items():
@@ -1127,15 +1239,12 @@ def phase_a(feats, tables, mg=None, mc=None):
     """Phase A of the leaf and cone walks at the bench budgets (or the
     given ones): (rows (C, G, S, rowlen), cones (G, S, CONE_FEAT))."""
     from tracer_torch.bench import headline
-    from tracer_torch.kernels.conecull import (CONE_FEAT, bounds_from_feats,
-                                               cone_candidates,
-                                               cone_from_feats)
+    from tracer_torch.kernels.conecull import cone_candidates
     rows, _, _ = cone_candidates(feats, tables, mg or headline.MG,
                                  mc or headline.MC)
-    cones = cone_from_feats(feats, *bounds_from_feats(feats), tables.r_max)
     G, S = feats.shape[:2]
     return (rows.reshape(tables.cull.num_chunks, G, S, rows.shape[-1]),
-            cones.reshape(G, S, CONE_FEAT))
+            cones_of(feats, tables))
 
 
 def compare_conecull(name, feats, rows, cones, cull):
@@ -1180,6 +1289,35 @@ def conecull_bound(name, feats, rows, cones, cull, kept, walked):
     log(f"{name}: {walked} cone tests, {quads} (ray, survivor) tests, "
         f"{n_bytes} bytes")
     return bound(n_bytes, walked * OPS_PER_CONE + quads * OPS_PER_TEST)
+
+
+def cone_sweep(name, args):
+    """Log the phase-B walk's split: items at the wrapper's prims per item,
+    and the walk's time (CUDA events for the call,
+    torch.profiler for the walk kernel) at each of CONE_ITEM_PRIMS prims
+    per item, each result equal to the wrapper's bit for bit."""
+    import torch
+    from tracer_torch.bench.timing import time_cuda
+    from tracer_torch.kernels import conecull as kc, leafcull as lc
+    from tracer_torch.kernels.tilewalk import plan_items
+    feats, rows, _, _, ls, _, lpg = args
+    w = lc.item_leaves(ls, kc.CONE_ITEM_PRIMS)
+    items = int(plan_items(lc.walked_leaves(rows, lpg), w)[-1])
+    want = kc.conecull_cuda(*args)
+    times = []
+    for prims in CONE_ITEM_PRIMS:
+        wp = lc.item_leaves(ls, prims)
+        got = kc._conecull_launch(*args, wp)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(got, want)):
+            raise AssertionError(f"{name}: {prims} prims per item changed "
+                                 f"a result")
+        ms = time_cuda(kc._conecull_launch, *args, wp)
+        walk = kernel_ms(kc._conecull_launch, (*args, wp), "cone_items")
+        times.append(f"{prims}: {ms:.4f} ms (walk {fmt_ms(walk)})")
+    log(f"{name}: {kc.CONE_ITEM_PRIMS} prims ({w} leaves of {ls}) per item, "
+        f"{items} items over {rows[..., 0].numel()} rows of "
+        f"{feats.shape[2]} rays; by prims per item " + ", ".join(times))
 
 
 def compare_cull(name, rays, tiles, cand, counts):
@@ -1275,11 +1413,12 @@ def packet_cull_walks(dev):
         raise AssertionError("the sentinel tile changed a result")
 
 
-def cull_slice(dev, scene, o, d, results):
+def cull_slice(dev, scene, o, d, results, comp):
     """Phase 5b: the packet cull at full size, 100k spheres in 16-prim
     leaves and the 512k origin rays sorted by direction, through
     ``nearest_hit_cull_checked`` from K = 128; counters reset just before
-    and read just after. Returns the 16-prim-leaf BVH."""
+    and read just after, the compactor's planes recorded and checked
+    (``comp``, a Compactions). Returns the 16-prim-leaf BVH."""
     import torch
     from tracer_torch.bench.timing import time_cuda
     from tracer_torch.bvh.builder import build_bvh
@@ -1302,10 +1441,13 @@ def cull_slice(dev, scene, o, d, results):
     rs, _ = sort_rays_by_direction(Ray(o, d))
     so, sd = rs.origin, rs.direction
     cull_cuda.launches = compact_cuda.launches = 0
-    rec, esc = nearest_hit_cull_checked(rs, scene, packed, table, CULL_K)
+    with comp.record():
+        rec, esc = nearest_hit_cull_checked(rs, scene, packed, table,
+                                            CULL_K)
     torch.cuda.synchronize()
     launches = {"cull_cuda": cull_cuda.launches,
                 "compact_cuda": compact_cuda.launches}
+    comp.check("packet cull", timed=1)
     k = min(CULL_K, T)
     for _ in range(esc):
         k = min(2 * k, T)
@@ -1354,18 +1496,22 @@ def cull_slice(dev, scene, o, d, results):
     return bvh
 
 
-def phase_b_slice(dev, scene, tables, bvh16, o, d, t_ref, sid_ref, results):
+def phase_b_slice(dev, scene, tables, bvh16, o, d, t_ref, sid_ref, results,
+                  comp):
     """Phase 5c: the phase-B query at full size, 100k x 512k, on the
     headline tables (leaf 32) and on 16-prim leaves: prep_rays_bucketed,
     phase A with cones and the cone-cull walk through
     ``nearest_hit_conecull_t`` with the checked queries' budget doubling;
-    counters reset just before and read just after. At leaf 32 the slots
+    counters reset just before and read just after, the compactor's planes
+    recorded and checked (``comp``, a Compactions). At leaf 32 the slots
     and t must equal the headline leaf-walk query's (``t_ref``,
     ``sid_ref``, ray order) exactly; at both sizes the walk must equal
-    conecull_plain and leafcull_cuda on its rows, and the ids brute force."""
+    conecull_plain and leafcull_cuda on its rows, and the ids brute
+    force. The walk's rows are logged and its split swept over
+    CONE_ITEM_PRIMS prims per item, each result equal to the wrapper's."""
     import torch
     from tracer_torch.bench import headline
-    from tracer_torch.bench.timing import time_cuda
+    from tracer_torch.bench.timing import time_cuda, time_graph
     from tracer_torch.core.sort import prep_rays_bucketed
     from tracer_torch.core.types import Ray
     from tracer_torch.intersect.brute import brute_t_fast
@@ -1379,12 +1525,14 @@ def phase_b_slice(dev, scene, tables, bvh16, o, d, t_ref, sid_ref, results):
         conecull_cuda.launches = compact_cuda.launches = 0
         padded, pdest = prep_rays_bucketed(Ray(o, d), SP,
                                            cell_bits=headline.CELL_BITS)
-        (t, sid, ovf), esc = _escalate(
-            lambda k0, k: (lambda r: (r, r[2]))(nearest_hit_conecull_t(
-                padded, tb, k0, k, S, SP)), tb, headline.MG, headline.MC)
+        with comp.record():
+            (t, sid, ovf), esc = _escalate(
+                lambda k0, k: (lambda r: (r, r[2]))(nearest_hit_conecull_t(
+                    padded, tb, k0, k, S, SP)), tb, headline.MG, headline.MC)
         torch.cuda.synchronize()
         launches = {"conecull_cuda": conecull_cuda.launches,
                     "compact_cuda": compact_cuda.launches}
+        comp.check(f"phase B leaf {leaf}")
         mg = min(headline.MG << esc, tb.cull.num_groups)
         mc = min(headline.MC << esc, tb.cull.leaves_per_chunk)
         log(f"phase B slice, leaf {leaf}: launches {launches}; {esc} "
@@ -1418,15 +1566,24 @@ def phase_b_slice(dev, scene, tables, bvh16, o, d, t_ref, sid_ref, results):
             f"phase B walk 100k x {o.shape[0]}, leaf {leaf}", feats, rows,
             cones, cull)
         args = walk_args(feats, rows, cull)[2:]
+        name = f"phase B walk, leaf {leaf}"
+        leaf_rows(f"{name} rows", rows, cull.leaves_per_group)
+        cone_sweep(name, (feats, rows, cones, *args))
         ms = time_cuda(conecull_cuda, feats, rows, cones, *args)
+        gms = time_graph(conecull_cuda, feats, rows, cones, *args)
         lms = time_cuda(leafcull_cuda, feats, rows, *args)
+        dms = kernel_ms(conecull_cuda, (feats, rows, cones, *args),
+                        "cone_items")
+        dlms = kernel_ms(leafcull_cuda, (feats, rows, *args), "ClosestWalk")
         pms = time_cuda(conecull_plain, feats, rows, cones, *args,
                         warmup=0, iters=1)
-        bms, bby = conecull_bound(f"phase B walk, leaf {leaf}", feats, rows,
-                                  cones, cull, kept, walked)
-        log(f"phase B walk, leaf {leaf}: cuda {ms:.4f} ms (leafcull_cuda on "
-            f"the same rows {lms:.4f} ms), plain {pms:.4f} ms, bound "
-            f"{bms:.4f} ms ({bby}); survivor share {kept / walked:.4f}")
+        bms, bby = conecull_bound(name, feats, rows, cones, cull, kept,
+                                  walked)
+        log(f"{name}: cuda {ms:.4f} ms (device time {gms:.4f} ms, the walk "
+            f"kernel {fmt_ms(dms)} of it; leafcull_cuda on the same rows "
+            f"{lms:.4f} ms, its walk kernel {fmt_ms(dlms)}), plain "
+            f"{pms:.4f} ms, bound {bms:.4f} ms ({bby}); survivor share "
+            f"{kept / walked:.4f}")
         if leaf == 32:
             results["conecull_cuda"] = dict(
                 ms=ms, plain_ms=pms, library_ms=None, bound_ms=bms,
@@ -1434,9 +1591,48 @@ def phase_b_slice(dev, scene, tables, bvh16, o, d, t_ref, sid_ref, results):
                 launches=launches["conecull_cuda"])
 
 
-def main() -> int:
+def time_compactor(name, ids, sentinel, keep):
+    """compact_cuda vs its plain version on one plane, exactly, and the
+    plane timed on CUDA events over back-to-back calls: (ms, plain_ms,
+    library_ms, bound_ms), the library call torch.sort, the yardstick,
+    which puts the survivors first (the sentinel exceeds every id). The
+    kernel's device time (timing.time_graph: a call is shorter than the
+    host's time to issue it) is logged beside."""
+    import torch
+    from tracer_torch.bench.timing import time_cuda, time_graph
+    from tracer_torch.kernels.conecull import (compact_ascending_rows_plain,
+                                               compact_cuda)
+    P, M = ids.shape
+    keep = min(keep, M)
+    ok, ck = compact_cuda(ids, sentinel, keep)
+    op, cp = compact_ascending_rows_plain(ids, sentinel, keep)
+    torch.cuda.synchronize()
+    if not (torch.equal(ok, op) and torch.equal(ck, cp)):
+        raise AssertionError(f"{name}: compact_cuda != plain")
+    if not torch.equal(torch.sort(ids, dim=1).values[:, :keep], op):
+        raise AssertionError(f"{name}: torch.sort is not the compactor's "
+                             f"yardstick")
+    ms = time_cuda(compact_cuda, ids, sentinel, keep)
+    gms = time_graph(compact_cuda, ids, sentinel, keep)
+    pms = time_cuda(compact_ascending_rows_plain, ids, sentinel, keep)
+    lms = time_cuda(torch.sort, ids, 1)
+    bms, _ = bound(nbytes(ids, ok, ck), P * M * OPS_PER_ID)
+    log(f"{name}: equal; cuda {ms:.4f} ms (device time {gms:.4f} ms), plain "
+        f"{pms:.4f} ms, torch.sort {lms:.4f} ms, bound {bms:.4f} ms")
+    return ms, pms, lms, bms
+
+
+def main(argv=None) -> int:
+    import argparse
     import torch
     t_start = time.perf_counter()
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--compact-baseline", metavar="FILE.cu",
+                    help="another compactor source exporting "
+                    "tracer_compact_rows (an older checkout's "
+                    "tracer_torch/csrc/compact.cu), held equal to "
+                    "compact_cuda and timed beside it on every path's planes")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
@@ -1453,13 +1649,16 @@ def main() -> int:
     _lib.load()
     log(f"kernels built in {_lib.build_seconds:.1f} s")
     print(_lib.build_log, file=sys.stderr, flush=True)
+    from tracer_torch.bench.compact import baseline
+    comp = Compactions(baseline(args.compact_baseline)
+                       if args.compact_baseline else None)
 
     from tracer_torch.bench import headline, large
     from tracer_torch.bench.timing import time_cuda
     from tracer_torch.intersect.brute import any_hit_brute, brute_t_fast
     from tracer_torch.core.types import Ray
-    from tracer_torch.kernels.conecull import (
-        compact_cuda, compact_ascending_rows_plain, nearest_hit_hybrid_feats)
+    from tracer_torch.kernels.conecull import (compact_cuda,
+                                               nearest_hit_hybrid_feats)
     from tracer_torch.kernels.leafcull import (
         anyhit_cuda, anyhit_plain, leafcull_cuda, leafcull_plain,
         pack_ray_features, prep_feats_bucketed)
@@ -1477,28 +1676,15 @@ def main() -> int:
 
     # -- 3a. compact_cuda vs plain at the 100k query's phase-A shapes -----
     gen = torch.Generator().manual_seed(7)
-    cres = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    cres = [0.0] * 4
     for P, M, keep in ((4608, 384, 384), (4608, 1024, 512)):
         ids, sentinel = masked_rows(P, M, gen, dev)
-        ok, ck = compact_cuda(ids, sentinel, keep)
-        op, cp = compact_ascending_rows_plain(ids, sentinel, keep)
-        torch.cuda.synchronize()
-        if not (torch.equal(ok, op) and torch.equal(ck, cp)):
-            raise AssertionError(f"compact_cuda != plain at ({P}, {M})")
-        # torch.sort puts survivors first: the sentinel exceeds every id.
-        if not torch.equal(torch.sort(ids, dim=1).values[:, :keep], op):
-            raise AssertionError("torch.sort is not the compactor's yardstick")
-        ms = time_cuda(compact_cuda, ids, sentinel, keep)
-        pms = time_cuda(compact_ascending_rows_plain, ids, sentinel, keep)
-        lms = time_cuda(torch.sort, ids, 1)
-        bms, _ = bound(nbytes(ids, ok, ck), P * M * OPS_PER_ID)
-        for key, v in zip(("ms", "plain_ms", "library_ms", "bound_ms"),
-                          (ms, pms, lms, bms)):
-            cres[key] += v
-        log(f"compact ({P}, {M}) keep {keep}: equal; cuda {ms:.4f} ms, "
-            f"plain {pms:.4f} ms, torch.sort {lms:.4f} ms, bound "
-            f"{bms:.4f} ms")
-    results["compact_cuda"] = dict(cres, bound_by="bytes", max_abs_err=0)
+        got = time_compactor(f"compact ({P}, {M}) keep {keep}", ids,
+                             sentinel, keep)
+        cres = [a + b for a, b in zip(cres, got)]
+    results["compact_cuda"] = dict(
+        zip(("ms", "plain_ms", "library_ms", "bound_ms"), cres),
+        bound_by="bytes", max_abs_err=0)
 
     # -- 3b. the walks vs their plain versions at 20k spheres -------------
     for name, mc, world, table_args in (
@@ -1580,11 +1766,13 @@ def main() -> int:
     log(f"100k scene: bvh build {build_ms:.1f} ms, {cull.num_chunks} "
         f"chunk(s), {cull.num_real_leaves} leaves")
     leafcull_cuda.launches = compact_cuda.launches = 0
-    t, slot, dest, overflow = headline.query(o, d, tables)
+    with comp.record():
+        t, slot, dest, overflow = headline.query(o, d, tables)
     torch.cuda.synchronize()
     launches = {"leafcull_cuda": leafcull_cuda.launches,
                 "compact_cuda": compact_cuda.launches}
     log(f"closest-hit slice launches: {launches}")
+    comp.check("headline", timed=2)
     if min(launches.values()) < 1:
         raise AssertionError("the slice did not run through every kernel")
     if bool(overflow):
@@ -1625,11 +1813,13 @@ def main() -> int:
 
     # -- 5. the shadow slice at full size ----------------------------------
     anyhit_cuda.launches = compact_cuda.launches = 0
-    occ, sdest, s_overflow = headline.shadow_query(o, d, tables)
+    with comp.record():
+        occ, sdest, s_overflow = headline.shadow_query(o, d, tables)
     torch.cuda.synchronize()
     s_launches = {"anyhit_cuda": anyhit_cuda.launches,
                   "compact_cuda": compact_cuda.launches}
     log(f"shadow slice launches: {s_launches}")
+    comp.check("shadow")
     if min(s_launches.values()) < 1:
         raise AssertionError("the shadow slice did not run through every "
                              "kernel")
@@ -1662,8 +1852,8 @@ def main() -> int:
         bound_by=aby, max_abs_err=0, launches=s_launches["anyhit_cuda"])
 
     # -- 5b, 5c. the packet cull and phase B at full size -------------------
-    bvh16 = cull_slice(dev, scene, o, d, results)
-    phase_b_slice(dev, scene, tables, bvh16, o, d, tr, sid, results)
+    bvh16 = cull_slice(dev, scene, o, d, results, comp)
+    phase_b_slice(dev, scene, tables, bvh16, o, d, tr, sid, results, comp)
 
     # -- 6. the 10M TLAS slice at full size ---------------------------------
     big, btables, bo, bd, lbvh_ms, tables_ms = large.benchmark_inputs(dev)
@@ -1673,11 +1863,13 @@ def main() -> int:
         f"ms, {bcull.num_chunks} chunks; budgets (mg, npairs, kc, block) "
         f"{budget}")
     routed_cuda.launches = compact_cuda.launches = 0
-    bt, bslot, bdest, b_overflow = large.query(bo, bd, btables, budget)
+    with comp.record():
+        bt, bslot, bdest, b_overflow = large.query(bo, bd, btables, budget)
     torch.cuda.synchronize()
     b_launches = {"routed_cuda": routed_cuda.launches,
                   "compact_cuda": compact_cuda.launches}
     log(f"TLAS slice launches: {b_launches}")
+    comp.check("10M TLAS", timed=3)
     if min(b_launches.values()) < 1:
         raise AssertionError("the TLAS slice did not run through every "
                              "kernel")
@@ -1734,7 +1926,10 @@ def main() -> int:
         launches=b_launches["routed_cuda"])
 
     # -- 7. the render slice at full size -------------------------------------
-    render_slice(dev, results)
+    render_slice(dev, results, comp)
+
+    # -- 7b. the compactor over the main paths -------------------------------
+    comp.summary()
 
     # -- 8. the bench lines --------------------------------------------------
     log(json.dumps(headline.measure(scene, tables, o, d, build_ms)))

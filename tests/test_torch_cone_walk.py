@@ -15,8 +15,20 @@ of the CUDA kernel ``conecull_cuda``. Tolerances:
   chunks, and unsorted rays whose cones are degenerate;
 * the checked query against ``nearest_hit_brute``: ids exactly;
 * ``nearest_hit_conecull_t`` against ``nearest_hit_hybrid_t``: t and ids
-  exactly.
+  exactly;
+* on skewed rows (``torch_parity.tie_leaves`` with narrow ray bundles, at
+  leaf sizes 16 and 32 in two chunks: one row walks every group, one
+  sphere is stored twice for exact u ties, one subpacket's cone is
+  degenerate): ``conecull_plain`` against JAX ``_conecull_call`` (slots
+  exactly, t to the leaf-walk tolerance) and against ``leafcull_plain``
+  (t and slots bit for bit);
+* the CUDA kernel's split (rows cut into items, each item's prims
+  cone-filtered, the survivors' (-u, slot) keys min-merged over items,
+  kept summed over items) modelled with the plain pieces: equal to
+  ``conecull_plain`` bit for bit at 1, 3 and 8 leaves per item.
 """
+
+import types
 
 import numpy as np
 import pytest
@@ -27,9 +39,11 @@ from tests import torch_parity as tp
 from tests.torch_parity import one_thread  # noqa: F401
 from tracer.core.types import Ray as JRay
 from tracer.kernels import conecull as jcone
-from tracer_torch.kernels import conecull as tcone
-from tracer_torch.kernels.leafcull import (leafcull_call, pack_ray_features,
-                                           _walk_pairs)
+from tracer_torch.kernels import conecull as tcone, tilewalk as tw
+from tracer_torch.kernels.leafcull import (MISS_KEY, leafcull_call,
+                                           leafcull_plain, pack_ray_features,
+                                           ray_prim_u, _min_merge_chunks,
+                                           _walk_pairs, _BIG, _NOSLOT)
 
 N, LEAF, B = 500, 8, 512
 # A scene with more groups than a group-mode row lists at small budgets.
@@ -230,3 +244,105 @@ def test_conecull_wrappers_run_plain_on_cpu_and_refuse_others(world):
     with pytest.raises(ValueError, match="cones"):
         tt.conecull_call(feats, rows, cones[:, :1], *args)
     assert tcone.conecull_cuda.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# skewed rows, and the kernel's split of them into items
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module", params=[16, 32], ids=["leaf16", "leaf32"])
+def cone_tie(request):
+    """tie_leaves' skewed two-chunk rows at leaf size 16 or 32 with ray
+    bundles, their cones (built as the phase-B path builds them) and
+    conecull_plain's per-chunk (t, slot, kept)."""
+    feats, cand, prims, ls, lpc, lpg = tp.tie_leaves(
+        45, leaf_size=request.param, bundles=True)
+    G, S = feats.shape[:2]
+    cones = tcone.cone_from_feats(feats, *tcone.bounds_from_feats(feats),
+                                  3.0).reshape(G, S, -1)   # r_max: the dup
+    args = (prims, ls, lpc, lpg)
+    return dict(feats=feats, cand=cand, cones=cones, args=args,
+                whole=tcone.conecull_plain(feats, cand, cones, *args))
+
+
+def test_skewed_phase_b_rows_match_jax_and_leaf_walk(cone_tie):
+    feats, cand, cones = cone_tie["feats"], cone_tie["cand"], cone_tie["cones"]
+    prims, ls, lpc, lpg = cone_tie["args"]
+    t, slot, kept = cone_tie["whole"]
+    t_l, slot_l = leafcull_plain(feats, cand, *cone_tie["args"])
+    assert torch.equal(slot, slot_l) and torch.equal(t, t_l)
+    G, S, SP = feats.shape[:3]
+    jt, js = jcone._conecull_call(
+        tp.to_jax(feats), tp.to_jax(cand), tp.to_jax(cones.reshape(G, 1, S, -1)),
+        tp.prims_to_entries(prims, ls), S, SP, ls, lpc, lpg, interpret=True)
+    tm, sm = _min_merge_chunks(t, slot)
+    np.testing.assert_array_equal(tp.np_(sm), tp.np_(js))
+    tp.assert_walk_t_close(tm, tp.np_(jt), feats, sm, prims)
+    dup = tp.leaf_dup(ls)
+    assert (sm == dup[0]).sum() > 5 and not (sm == dup[1]).any()
+    assert ((sm[1] < _NOSLOT).sum(dim=0) > 0).all()   # both bundles of
+                                                      # packet 1 hit
+    degenerate = cones[..., 6] >= 1e17
+    assert degenerate.sum() == 1 and bool(degenerate[0, 1])
+    walked = _walked_prims(cand, types.SimpleNamespace(
+        leaf_size=ls, leaves_per_group=lpg))
+    assert torch.equal(kept[:, degenerate], walked[:, degenerate].int())
+    tight = ~degenerate & (walked > 0)
+    assert (kept[tight] < walked[tight]).all() and kept[tight].sum() > 0
+
+
+def cone_split_merge(feats, cand, cones, prims, ls, lpc, lpg, chunk):
+    """conecull_cuda's split modelled with the plain pieces: each row's
+    walked leaves cut into items of ``chunk`` leaves (the wrapper's item
+    plan), each item's prims cone-tested (leaves at or past lpc hold no
+    prim) and its survivors counted into kept, each survivor's (-u, slot)
+    key min-merged per item and then over the row's items, and the keys
+    unpacked as the epilogue does: t = (-u) * (1/a), (3e38, 2^30) for a
+    miss. Returns per-chunk (t, slot) (C, G, SP, S) and kept (C, G, S)."""
+    G, S, SP, F = feats.shape
+    C = cand.shape[0]
+    row, sub = tp.leaf_item_rows(cand, lpg, chunk)
+    fidx, c = row % (G * S), row // (G * S)
+    q, leaf = _walk_pairs(sub, lpg)                  # q: the item
+    inside = leaf < lpc
+    q, leaf = q[inside], leaf[inside]
+    pslot = leaf[:, None] * ls + torch.arange(ls)
+    pr = prims[c[q][:, None], pslot]                 # (n, ls, 4)
+    keep = tcone.cone_keep(cones.reshape(G * S, -1)[fidx[q]], pr)
+    kept = torch.zeros(C * G * S, dtype=torch.int64) \
+        .index_add_(0, row[q], keep.sum(dim=1))
+    pi, li = keep.nonzero(as_tuple=True)
+    it = q[pi]                                       # item of each survivor
+    fb = feats.reshape(G * S, SP, F)[fidx[it]]
+    u, disc = ray_prim_u(fb, pr[pi, li][:, None, :])
+    ok = (disc > 0.0) & (u < -fb[:, :, 12:13])
+    gslot = (c[it] * prims.shape[1] + pslot[pi, li])[:, None].expand(-1, SP)
+    key = torch.where(ok[..., 0], tw.pack_keys(-u[..., 0], gslot), MISS_KEY)
+    lanes = torch.arange(SP)
+    item_keys = torch.full((row.shape[0] * SP,), MISS_KEY, dtype=torch.int64)
+    item_keys.scatter_reduce_(0, (it[:, None] * SP + lanes).reshape(-1),
+                              key.reshape(-1), "amin")
+    keys = torch.full((C * G * S * SP,), MISS_KEY, dtype=torch.int64)
+    keys.scatter_reduce_(0, (row[:, None] * SP + lanes).reshape(-1),
+                         item_keys, "amin")
+    keys = keys.reshape(C, G, S, SP)
+    nu, s = tw.unpack_keys(keys)
+    miss = keys == MISS_KEY
+    t = torch.where(miss, _BIG, nu * feats[..., 11])
+    s = torch.where(miss, _NOSLOT, s).to(torch.int32)
+    return (t.permute(0, 1, 3, 2).contiguous(),
+            s.permute(0, 1, 3, 2).contiguous(),
+            kept.reshape(C, G, S).to(torch.int32))
+
+
+@pytest.mark.parametrize("chunk", [1, 3, 8])
+def test_cone_split_and_merge_equals_whole_rows(cone_tie, chunk):
+    """Bit for bit, for items that split the two copies of the tied sphere
+    apart (1 leaf) or keep them together (8), in leaf and group mode, with
+    kept summed over items."""
+    got = cone_split_merge(cone_tie["feats"], cone_tie["cand"],
+                           cone_tie["cones"], *cone_tie["args"], chunk)
+    for a, b in zip(got, cone_tie["whole"]):
+        assert torch.equal(a, b)
+    slot = cone_tie["whole"][1]
+    assert (slot < _NOSLOT).float().mean() > 0.3

@@ -82,21 +82,68 @@ def jax_rows(world):
 # building blocks
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("P,M,keep", [(16, 128, 128), (24, 384, 200),
-                                      (8, 1024, 512)])
-def test_compact_ascending_rows_matches_jax(P, M, keep):
+# (P, M, keep): the phase-A shapes; widths that are no multiple of 4, which
+# the compactor's kernel reads two ids a load (a tile_candidates T, and
+# the 10M routing plane's 102 chunks) or one (an odd width); and rows
+# longer than the kernel's 1,024-id register batch.
+COMPACT_CASES = [(16, 128, 128), (24, 384, 200), (8, 1024, 512),
+                 (8, 782, 128), (16, 102, 16), (8, 777, 100),
+                 (8, 4608, 1000)]
+
+
+def _compact_ids(P, M, keep):
+    """(P, M) masked ascending ids and their sentinel: row 0 all masked,
+    row 1 none, row 2 fewer survivors than ``keep``, row 3 (where
+    keep < M) more, the other rows at random densities."""
     rng = np.random.default_rng(P + M)
     ids = np.cumsum(rng.integers(1, 4, (P, M)), axis=1).astype(np.int32)
     sentinel = 4 * M + 1
-    mask = rng.random((P, M)) < rng.random((P, 1))
+    density = rng.random((P, 1))
+    density[2], density[3] = 0.5 * keep / (4 * M), 0.97
+    mask = rng.random((P, M)) < density
     mask[0], mask[1] = False, True                # all masked / none masked
-    ids = np.where(mask, ids, sentinel).astype(np.int32)
-    jout, jcnt = jcone.compact_ascending_rows(jnp.asarray(ids), sentinel,
+    counts = mask.sum(axis=1)
+    assert counts[2] < keep and (keep >= M or counts[3] > keep)
+    return np.where(mask, ids, sentinel).astype(np.int32), sentinel
+
+
+def _jax_compact(ids, sentinel, keep):
+    """JAX's compactor (interpret mode) on rows padded with the sentinel to
+    a multiple of 128 ids, which it needs; the padding holds no survivor,
+    so its first min(keep, M) columns are the unpadded rows' prefix."""
+    P, M = ids.shape
+    pad = -M % 128
+    padded = np.concatenate([ids, np.full((P, pad), sentinel, np.int32)], 1)
+    jout, jcnt = jcone.compact_ascending_rows(jnp.asarray(padded), sentinel,
                                               keep, interpret=True)
+    return tp.np_(jout)[:, :min(keep, M)], tp.np_(jcnt)
+
+
+@pytest.mark.parametrize("P,M,keep", COMPACT_CASES)
+def test_compact_ascending_rows_matches_jax(P, M, keep):
+    ids, sentinel = _compact_ids(P, M, keep)
+    jout, jcnt = _jax_compact(ids, sentinel, keep)
     out, cnt = tt.compact_ascending_rows(torch.as_tensor(ids), sentinel, keep)
     assert out.dtype == cnt.dtype == torch.int32
-    np.testing.assert_array_equal(tp.np_(out), tp.np_(jout))
-    np.testing.assert_array_equal(tp.np_(cnt), tp.np_(jcnt))
+    assert tuple(out.shape) == (P, min(keep, M))
+    np.testing.assert_array_equal(tp.np_(out), jout)
+    np.testing.assert_array_equal(tp.np_(cnt), jcnt)
+
+
+@pytest.mark.parametrize("P,M,keep", COMPACT_CASES)
+def test_compact_warp_model_matches_plain_and_jax(P, M, keep):
+    """The kernel's warp-batched scan (torch_parity.compact_warp_model:
+    batches, 32-lane slices, the carry, the count-only tail) equals the
+    plain compactor and JAX's."""
+    ids, sentinel = _compact_ids(P, M, keep)
+    out, cnt = tp.compact_warp_model(ids, sentinel, keep)
+    want, want_cnt = tcone.compact_ascending_rows_plain(
+        torch.as_tensor(ids), sentinel, keep)
+    assert torch.equal(out, want) and torch.equal(cnt, want_cnt)
+    jout, jcnt = _jax_compact(ids, sentinel, keep)
+    np.testing.assert_array_equal(tp.np_(out), jout)
+    np.testing.assert_array_equal(tp.np_(cnt), jcnt)
+    assert (cnt > min(keep, M)).any() == (keep < M)
 
 
 @pytest.mark.parametrize("unsorted", [False, True])

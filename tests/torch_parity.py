@@ -91,34 +91,53 @@ def tie_tiles_np(num_tiles: int, b: int, seed: int):
     return c, r, o, d.astype(np.float32)
 
 
-LEAF_DUP = (1 * 4 + 2, 5 * 4 + 1)   # chunk-0 slots of one sphere, twice
+def leaf_dup(leaf_size: int):
+    """The chunk-0 slots of :func:`tie_leaves`' sphere that is stored
+    twice: slot 2 of leaf 1 and slot 1 of leaf 5."""
+    return (1 * leaf_size + 2, 5 * leaf_size + 1)
 
 
-def tie_leaves(seed: int, t_max=None):
-    """A two-chunk leaf table (leaf size 4, 16 leaves per chunk, groups of
-    4 leaves) of 128 spheres, one stored twice in chunk 0 (slots
-    ``LEAF_DUP``: an exact u tie for every ray that hits it), 2 x 2
-    subpackets of 64 rays, a third of them aimed at that sphere, and rows
-    of every kind: empty, leaf mode (the two copies listed high leaf first,
-    every leaf descending, a run) and group mode (every group, two groups
-    out of order, one). Returns (feats (2, 2, 64, FEAT), cand (2, 2, 2, 17)
-    int32, prims (2, 64, 4), leaf_size, leaves_per_chunk,
-    leaves_per_group)."""
-    ls, lpc, lpg = 4, 16, 4
+LEAF_DUP = leaf_dup(4)
+
+
+def tie_leaves(seed: int, t_max=None, leaf_size: int = 4,
+               bundles: bool = False):
+    """A two-chunk leaf table (16 leaves of ``leaf_size`` per chunk, groups
+    of 4 leaves) of 32 * leaf_size spheres, one stored twice in chunk 0
+    (slots ``leaf_dup(leaf_size)``: an exact u tie for every ray that hits
+    it), 2 x 2 subpackets of 64 rays, a third of them aimed at that sphere,
+    and rows of every kind: empty, leaf mode (the two copies listed high
+    leaf first, every leaf descending, a run) and group mode (every group,
+    two groups out of order, one). With ``bundles``, subpackets 0 and 2
+    are instead narrow bundles from two points 10 units off that sphere
+    aimed at it, subpacket 3 one aimed at another sphere, and subpacket 1
+    keeps the scattered rays: the first three get tight bounding cones, the
+    last a degenerate one. Returns (feats (2, 2, 64, FEAT), cand
+    (2, 2, 2, 17) int32, prims (2, 16 * leaf_size, 4), leaf_size,
+    leaves_per_chunk, leaves_per_group)."""
+    ls, lpc, lpg = leaf_size, 16, 4
+    dup = leaf_dup(ls)
     rng = np.random.default_rng(seed)
     c = rng.uniform(-20, 20, (2 * lpc * ls, 3)).astype(np.float32)
     r = rng.uniform(0.5, 2.0, 2 * lpc * ls).astype(np.float32)
-    c[LEAF_DUP[1]], r[LEAF_DUP[0]] = c[LEAF_DUP[0]], 3.0
-    r[LEAF_DUP[1]] = r[LEAF_DUP[0]]
+    c[dup[1]], r[dup[0]] = c[dup[0]], 3.0
+    r[dup[1]] = r[dup[0]]
     b = 256
     o = rng.uniform(-30, 30, (b, 3)).astype(np.float32)
     aim = c[rng.integers(0, len(c), b)]
     near = np.arange(b) % 3 == 0
     off = rng.normal(size=(b, 3))
     off /= np.linalg.norm(off, axis=1, keepdims=True)
-    o[near] = c[LEAF_DUP[0]] + 8.0 * off[near]
-    aim[near] = c[LEAF_DUP[0]]
+    o[near] = c[dup[0]] + 8.0 * off[near]
+    aim[near] = c[dup[0]]
     d = aim - o + rng.normal(0, 0.2, (b, 3))
+    if bundles:
+        for k, target in ((0, c[dup[0]]), (2, c[dup[0]]), (3, c[7])):
+            sub = slice(64 * k, 64 * (k + 1))
+            way = rng.normal(size=3)
+            o[sub] = target + 10.0 * way / np.linalg.norm(way) \
+                + rng.uniform(-0.5, 0.5, (64, 3))
+            d[sub] = target - o[sub] + rng.normal(0, 0.5, (64, 3))
     d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
     ct, rt = torch.as_tensor(c), torch.as_tensor(r)
     ccr = ct[:, 0] * ct[:, 0] + ct[:, 1] * ct[:, 1] + ct[:, 2] * ct[:, 2] \
@@ -136,6 +155,59 @@ def tie_leaves(seed: int, t_max=None):
         cand[i, 0] = count
         cand[i, 1:1 + len(ids)] = torch.tensor(ids, dtype=torch.int32)
     return feats, cand.reshape(2, 2, 2, 17), prims, ls, lpc, lpg
+
+
+def prims_to_entries(prims, leaf_size: int):
+    """The port's slot-major (C, lpc*leaf_size, 4) prim table -> JAX
+    pair-packed, lane-replicated entries (C, lpc/2 + 1, 8, 128) with the
+    sentinel entry last: the inverse of :func:`entries_to_prims`."""
+    p = np_(prims)
+    C, n = p.shape[:2]
+    E = n // (2 * leaf_size)
+    e = p.reshape(C, E, 2, leaf_size, 4).transpose(0, 1, 2, 4, 3) \
+        .reshape(C, E, 8, leaf_size)
+    e = np.tile(e, (1, 1, 1, 128 // leaf_size))
+    sentinel = np.zeros((C, 1, 8, 128), np.float32)
+    sentinel[:, :, 3] = sentinel[:, :, 7] = 1.0e30
+    return jnp.asarray(np.concatenate([e, sentinel], axis=1))
+
+
+BATCH_IDS = 1024   # ids a warp of compact_cuda loads before it ranks them
+
+
+def compact_warp_model(masked_ids, sentinel: int, keep: int):
+    """``compact_cuda`` (csrc/compact.cu) batch by batch: each row's ids in
+    batches of BATCH_IDS, a batch in 32-lane slices (V consecutive ids a
+    lane: 4 where M % 4 == 0, else 2 where M is even, else 1; the kernel
+    takes those widths where the rows are aligned for them, as torch's
+    allocations are), an id's rank = the survivors in lower
+    lanes of its slice plus its lane's earlier survivors, stored at
+    carry + rank while that is below keep; once the carry reaches keep the
+    rest of the row is only counted; then the sentinel tail. Returns
+    (prefix (P, min(keep, M)) int32, counts (P,) int32)."""
+    ids = torch.as_tensor(np_(masked_ids))
+    P, M = ids.shape
+    keep = min(keep, M)
+    V = 4 if M % 4 == 0 else 2 if M % 2 == 0 else 1
+    out = torch.full((P, keep), sentinel, dtype=torch.int32)
+    carry = torch.zeros(P, dtype=torch.int64)
+    rows = torch.arange(P)[:, None, None].expand(P, 32, V)
+    for base in range(0, M, BATCH_IDS):
+        batch = ids[:, base:base + BATCH_IDS]
+        n = batch.shape[1]
+        width = -(-n // (32 * V)) * 32 * V
+        batch = torch.cat([batch, torch.full((P, width - n), sentinel,
+                                             dtype=torch.int32)], 1)
+        for sl in batch.reshape(P, -1, 32, V).unbind(1):    # (P, 32, V)
+            flag = sl != sentinel
+            lanes = flag.sum(2)
+            before = (torch.cumsum(lanes, 1) - lanes)[:, :, None] \
+                + torch.cumsum(flag, 2) - flag.long()
+            pos = carry[:, None, None] + before
+            store = flag & (pos < keep) & (carry < keep)[:, None, None]
+            out[rows[store], pos[store]] = sl[store]
+            carry += lanes.sum(1)
+    return out, carry.to(torch.int32)
 
 
 def leaf_item_rows(cand, leaves_per_group: int, chunk: int):

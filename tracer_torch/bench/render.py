@@ -34,7 +34,7 @@ IMPLS = ("auto", "pallas", "tilecull")
 # leafwalk::walk_items<ClosestWalk<GridRows>>, <AnyhitWalk> and
 # tilewalk::walk_items<TileWalk>, the packet walk's two launches
 # walk_kernel<LS> and resume_kernel<K, LS>.
-KERNELS = ("ClosestWalk", "compact_kernel", "AnyhitWalk", "walk_kernel",
+KERNELS = ("ClosestWalk", "compact_rows", "AnyhitWalk", "walk_kernel",
            "resume_kernel", "TileWalk")
 
 

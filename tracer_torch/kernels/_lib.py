@@ -77,7 +77,7 @@ def load() -> ctypes.CDLL:
             lib.tracer_tilecull_grid.restype = i
             lib.tracer_tilecull_grid.argtypes = []
             lib.tracer_conecull.restype = i
-            lib.tracer_conecull.argtypes = [vp] * 7 + [i] * 8 + [vp]
+            lib.tracer_conecull.argtypes = [vp] * 9 + [i] * 9 + [vp]
             lib.tracer_cull.restype = i
             lib.tracer_cull.argtypes = [vp] * 6 + [i] * 3 + [vp]
             lib.tracer_cull_grid.restype = i

@@ -17,8 +17,13 @@ Phase B (``conecull_call``: ``conecull_cuda``, ``csrc/conecull.cu``, on
 CUDA tensors and ``conecull_plain`` on CPU tensors) walks the same rows as
 the leaf walk but cone-tests every walked prim first and runs the u-form
 quadratic only on the survivors. The cone test is conservative, so on the
-same rows its (t, slot) equal ``leafcull_call``'s bit for bit. The JAX
-package evaluated it and ships the leaf walk; the port keeps both.
+same rows its (t, slot) equal ``leafcull_call``'s bit for bit. The kernel
+walks the leaf walk's items (``csrc/leafwalk.cuh``): rows cut into items of
+``CONE_ITEM_PRIMS`` prims, planned on the device by the launch; each
+item's prims are cone-tested by the whole CTA, a row's survivors gathered
+and tested by its rays, and each ray's best merged by the (-u, slot) key.
+The JAX package evaluated phase B and ships the leaf walk; the port keeps
+both.
 """
 
 from __future__ import annotations
@@ -34,11 +39,11 @@ from tracer_torch.intersect.brute import record_from_ids
 from tracer_torch.intersect.sphere import EPSILON
 from tracer_torch.kernels import _lib
 from tracer_torch.kernels.leafcull import (CullTables, FEAT, anyhit_call,
-                                           build_cull_tables, leafcull_call,
-                                           pack_ray_features, ray_prim_u,
-                                           _check_walk_args, _closest_t,
-                                           _escalate, _merge_best,
-                                           _min_merge_chunks,
+                                           build_cull_tables, item_leaves,
+                                           leafcull_call, pack_ray_features,
+                                           ray_prim_u, _check_walk_args,
+                                           _closest_t, _escalate,
+                                           _merge_best, _min_merge_chunks,
                                            _sqrt_rn, _walk_pairs, _BIG,
                                            _NOSLOT)
 from tracer_torch.scene.scene import Scene
@@ -47,6 +52,7 @@ from tracer_torch.scene.scene import Scene
 # package, so that every row has the same length and padding on both sides.
 _ROW_ALIGN = 128
 CONE_FEAT = 16      # per-subpacket cone columns (11 used)
+CONE_ITEM_PRIMS = 256   # prims per item of the phase-B walk (chip_smoke.py)
 _SENTINEL_CCR = 1.0e29   # prims with |c|^2 - r^2 at or above this are slots
                          # that hold no sphere; the cone test drops them
 
@@ -449,22 +455,41 @@ def conecull_cuda(feats: Tensor, cand: Tensor, cones: Tensor, prims: Tensor,
                   leaf_size: int, leaves_per_chunk: int,
                   leaves_per_group: int):
     """The phase-B walk as the hand-written CUDA kernel
-    (``csrc/conecull.cu``): one CTA of SP threads per (chunk, subpacket).
+    (``csrc/conecull.cu``): the items of ``leafcull_cuda``'s split walk,
+    ``CONE_ITEM_PRIMS`` prims each, walked in runs of consecutive items;
+    each item's prims are cone-tested by the whole CTA, and the rays test
+    a row's survivors together.
 
     Same arguments and (t, slot, kept) outputs as :func:`conecull_plain`.
-    Raises for tensors that are not on one CUDA device. Adds one to
-    ``conecull_cuda.launches`` per launch.
+    Raises for tensors that are not on one CUDA device. Reads no device
+    value on the host. Adds one to ``conecull_cuda.launches`` per launch.
     """
-    dev = _lib.require_cuda("conecull_cuda", feats, cand, cones, prims)
+    _lib.require_cuda("conecull_cuda", feats, cand, cones, prims)
     _check_walk_args(feats, cand, prims, leaf_size, leaves_per_chunk)
     _check_cones(feats, cones)
-    G, S, SP, _ = feats.shape
-    C, _, _, rowlen = cand.shape
+    SP = feats.shape[2]
     if SP % 32 or not 32 <= SP <= 1024:
         raise ValueError(f"subpacket {SP} is not a whole number of warps "
                          f"in one CTA")
+    return _conecull_launch(feats, cand, cones, prims, leaf_size,
+                            leaves_per_chunk, leaves_per_group,
+                            item_leaves(leaf_size, CONE_ITEM_PRIMS))
+
+
+def _conecull_launch(feats: Tensor, cand: Tensor, cones: Tensor,
+                     prims: Tensor, leaf_size: int, leaves_per_chunk: int,
+                     leaves_per_group: int, chunk: int):
+    """:func:`conecull_cuda` with items of ``chunk`` walked leaves."""
+    dev = feats.device
+    G, S, SP, _ = feats.shape
+    C, _, _, rowlen = cand.shape
     feats, cand, cones, prims = (x.contiguous()
                                  for x in (feats, cand, cones, prims))
+    # The launch plans the items (tilewalk.plan_items over walked_leaves)
+    # and sets the keys and kept itself: torch ops for these took longer to
+    # issue than the walk takes on the card.
+    starts = torch.empty((C * G * S + 1,), dtype=torch.int32, device=dev)
+    keys = torch.empty((C, G, S, SP), dtype=torch.int64, device=dev)
     t = torch.empty((C, G, SP, S), dtype=torch.float32, device=dev)
     slot = torch.empty((C, G, SP, S), dtype=torch.int32, device=dev)
     kept = torch.empty((C, G, S), dtype=torch.int32, device=dev)
@@ -472,8 +497,9 @@ def conecull_cuda(feats: Tensor, cand: Tensor, cones: Tensor, prims: Tensor,
     with torch.cuda.device(dev):
         rc = lib.tracer_conecull(
             _lib.ptr(feats), _lib.ptr(cand), _lib.ptr(cones), _lib.ptr(prims),
-            _lib.ptr(t), _lib.ptr(slot), _lib.ptr(kept), C, G, S, SP, rowlen,
-            leaf_size, leaves_per_chunk, leaves_per_group, _lib.stream(dev))
+            _lib.ptr(starts), _lib.ptr(keys), _lib.ptr(t), _lib.ptr(slot),
+            _lib.ptr(kept), C, G, S, SP, rowlen, leaf_size, leaves_per_chunk,
+            leaves_per_group, chunk, _lib.stream(dev))
     _lib.check(lib, rc, "conecull_cuda")
     conecull_cuda.launches += 1
     return t, slot, kept
