@@ -16,6 +16,12 @@ scenes of many table chunks go through ``nearest_hit_tlas_feats`` (the
 TLAS-routed path), typically over ``build_bvh_device``'s LBVH. Scenes and
 trees are built on the CUDA device unless ``device`` names another.
 
+The differentiable path: ``soft_render`` (dense soft model),
+``soft_render_sparse`` and its packet forms over ``leaf_candidates``
+(BVH-sparsified), ``fit_scene`` (inverse rendering; ``python -m
+tracer_torch.cli fit``), ``refit_bvh`` and ``save_state``/``load_state``
+(checkpoints in the JAX package's file layout).
+
 The renderer (``render``, ``render_direct``; ``python -m tracer_torch.cli
 render``) takes any closest-hit intersector: the leaf walk
 (``nearest_hit_leafcull_checked``), the packet walk
@@ -82,6 +88,13 @@ from tracer_torch.integrator.wavefront import (Accumulator, bounce_noise,
                                                render, render_direct,
                                                sky_color, trace_direct,
                                                trace_radiance)
+from tracer_torch.kernels.leafcull import leaf_candidates
+from tracer_torch.diff.soft import SoftParams, soft_render
+from tracer_torch.diff.sparse import (soft_radius_scale, soft_render_sparse,
+                                      soft_render_sparse_leaforder)
+from tracer_torch.diff.fit import FitResult, fit_scene
+from tracer_torch.bvh.refit import RefitPlan, build_refit_plan, refit_bvh
+from tracer_torch.checkpoint import load_state, save_state
 
 __all__ = [
     "Ray", "HitRecord", "Scene", "fixed_scene", "random_scene",
@@ -106,5 +119,8 @@ __all__ = [
     "nearest_hit_conecull", "nearest_hit_conecull_checked",
     "nearest_hit_hybrid_t", "prep_rays_bucketed", "sort_rays_octahedral",
     "sort_rays_by_direction", "tile_candidates", "cull_call",
-    "nearest_hit_cull", "nearest_hit_cull_checked",
+    "nearest_hit_cull", "nearest_hit_cull_checked", "leaf_candidates",
+    "SoftParams", "soft_render", "soft_radius_scale", "soft_render_sparse",
+    "soft_render_sparse_leaforder", "FitResult", "fit_scene", "RefitPlan",
+    "build_refit_plan", "refit_bvh", "load_state", "save_state",
 ]

@@ -1,9 +1,11 @@
 """Where the headline query's time goes on the card, by torch.profiler.
 
 Run ``python -m tracer_torch.bench.profile`` on a CUDA machine. For the
-whole query, for each stage (prep, phase A, leaf walk) and for the shadow
-query at the headline size it profiles ``ITERS`` back-to-back calls and
-prints, per call: the window's time on CUDA events, the summed device time
+whole query, for each stage (prep, phase A, leaf walk), for the shadow
+query at the headline size, for the differentiable extra (its fwd+bwd and
+its forward alone) and for one step of ``cli fit`` at its full size
+(800x600, 20 spheres; ``fit_scene`` with one step, its set-up included) it
+profiles ``ITERS`` back-to-back calls and prints, per call: the window's time on CUDA events, the summed device time
 of its kernels and copies, the device's idle share of the window, the
 number of device launches, and the kernels that take the most device time.
 The last line is one JSON object with those numbers. Exits non-zero
@@ -63,12 +65,41 @@ def profile_calls(fn, *args, iters: int = ITERS, names=()) -> dict:
     }
 
 
+def describe(name: str, r: dict) -> str:
+    """A stage's profile as lines of text: window, device time, idle share
+    and launches per call, then its top kernels."""
+    busy = ("not measured" if r["device_ms"] is None else
+            f"device {r['device_ms']:.3f} ms, idle {r['idle_share']:.3f}, "
+            f"{r['launches']:.0f} launches")
+    return "\n".join([f"{name}: window {r['window_ms']:.3f} ms; {busy}"]
+                     + [f"    {ms:9.4f} ms  x{count:<5g} {key}"
+                        for key, ms, count in r["top"]])
+
+
+def diff_stages(scene, cull, o, d) -> dict:
+    """The differentiable extra's fwd+bwd and its forward, as stages."""
+    po, pd = headline.diff_rays(o, d)
+    return {"diff_fwd_bwd": (headline.diff_fwd_bwd, scene, cull, po, pd),
+            "diff_forward": (headline.diff_forward, scene, cull, po, pd)}
+
+
+def fit_stage(device) -> tuple:
+    """One step of ``cli fit`` at its defaults, as a stage."""
+    from tracer_torch import cli
+    from tracer_torch.diff.fit import fit_scene
+    args = cli.build_parser().parse_args(["fit"])
+    cfg, cam, soft, target, init = cli.fit_problem(args, device)
+    return (lambda: fit_scene(target, init, cam, steps=1, lr=args.lr,
+                              soft=soft, config=cfg),)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("tracer_torch.bench.profile needs a CUDA device",
               file=sys.stderr)
         return 1
-    _, tables, o, d, _ = headline.benchmark_inputs(torch.device("cuda"))
+    dev = torch.device("cuda")
+    scene, tables, o, d, _ = headline.benchmark_inputs(dev)
     cull = tables.cull
     feats, _ = headline.prep(o, d)
     rows = cone_candidates(feats, tables, headline.MG, headline.MC)[0]
@@ -82,16 +113,13 @@ def main() -> int:
         "walk": (leafcull_call, feats, rows, cull.prims, cull.leaf_size,
                  cull.leaves_per_chunk, cull.leaves_per_group),
         "shadow": (headline.shadow_query, o, d, tables),
+        **diff_stages(scene, cull, o, d),
+        "fit_step": fit_stage(dev),
     }
     out = {"device": torch.cuda.get_device_name(0)}
     for name, (fn, *args) in stages.items():
         out[name] = r = profile_calls(fn, *args)
-        busy = ("not measured" if r["device_ms"] is None else
-                f"device {r['device_ms']:.3f} ms, idle "
-                f"{r['idle_share']:.3f}, {r['launches']:.0f} launches")
-        print(f"{name}: window {r['window_ms']:.3f} ms; {busy}")
-        for key, ms, count in r["top"]:
-            print(f"    {ms:9.4f} ms  x{count:<5g} {key}")
+        print(describe(name, r))
     print(json.dumps(out))
     return 0
 

@@ -13,6 +13,8 @@ host's time drops out of the measurement.
 
 from __future__ import annotations
 
+import time
+
 import torch
 
 
@@ -66,3 +68,27 @@ def time_graph(fn, *args, calls: int = 10, replays: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (replays * calls)
+
+
+class Clock:
+    """Wall time of one unit of work (a frame, a fit step): CUDA events on
+    the card, the host clock on the CPU."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+
+    def start(self):
+        if self.cuda:
+            self.t0 = torch.cuda.Event(enable_timing=True)
+            self.t0.record()
+        else:
+            self.t0 = time.perf_counter()
+
+    def stop(self) -> float:
+        """Seconds since start(), after the work queued since has finished."""
+        if self.cuda:
+            t1 = torch.cuda.Event(enable_timing=True)
+            t1.record()
+            t1.synchronize()
+            return self.t0.elapsed_time(t1) / 1e3
+        return time.perf_counter() - self.t0

@@ -1,10 +1,13 @@
-"""Command line: ``python -m tracer_torch.cli render ...``.
+"""Command line: ``python -m tracer_torch.cli render ...`` and ``fit ...``.
 
-PyTorch counterpart of the ``render`` command of ``tracer/cli.py``: renders
-frames of a sphere scene (path tracing, or primary plus shadow rays) and
-writes the accumulated image as ``.npy`` and PNG, plus optional frame-time
-metrics. Runs on the CUDA device unless ``--device cpu`` is given; without
-a card it refuses rather than drop to the CPU.
+PyTorch counterpart of the ``render`` and ``fit`` commands of
+``tracer/cli.py``. ``render`` renders frames of a sphere scene (path
+tracing, or primary plus shadow rays) and writes the accumulated image as
+``.npy`` and PNG, plus optional frame-time metrics. ``fit`` is the
+inverse-rendering demo: it writes fit_target.png, fit_init.png,
+fit_final.png and fit_losses.txt into the working directory. Both run on
+the CUDA device unless ``--device cpu`` is given; without a card they
+refuse rather than drop to the CPU.
 
 Differences from the JAX command:
   * every closest-hit and shadow query of the tile-cull and leaf-walk
@@ -13,7 +16,13 @@ Differences from the JAX command:
     hits; the run prints how often each query escalated;
   * frames are timed with CUDA events on the card (the first is dropped);
   * PNG is written with zlib and struct (no imaging library);
-  * ``--profile``, ``--checkpoint`` and ``--resume`` are not ported yet.
+  * ``fit`` perturbs the initial centres with a draw from
+    ``torch.Generator().manual_seed(seed + 7)``: the same distribution as
+    the JAX command's ``jax.random`` draw, not the same numbers; it prints
+    the mean step time (CUDA events, the first step dropped) on its loss
+    line;
+  * ``render``'s ``--profile``, ``--checkpoint`` and ``--resume`` are not
+    ported yet.
 """
 
 from __future__ import annotations
@@ -79,8 +88,8 @@ class Session:
 def resolve_device(name: str) -> torch.device:
     dev = torch.device(name)
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("tracer_torch render: no CUDA device; pass "
-                         "--device cpu to render on the CPU")
+        raise SystemExit("tracer_torch: no CUDA device; pass --device cpu "
+                         "to run on the CPU")
     return dev
 
 
@@ -245,40 +254,18 @@ def prepare(args) -> Session:
                    counts=counts, tables=tables)
 
 
-class _Clock:
-    """Frame timer: CUDA events on the card, the host clock on the CPU."""
-
-    def __init__(self, device: torch.device):
-        self.cuda = device.type == "cuda"
-
-    def start(self):
-        if self.cuda:
-            self.t0 = torch.cuda.Event(enable_timing=True)
-            self.t0.record()
-        else:
-            self.t0 = time.perf_counter()
-
-    def stop(self) -> float:
-        """Seconds since start(), after the frame's work has finished."""
-        if self.cuda:
-            t1 = torch.cuda.Event(enable_timing=True)
-            t1.record()
-            t1.synchronize()
-            return self.t0.elapsed_time(t1) / 1e3
-        return time.perf_counter() - self.t0
-
-
 def render_frames(session: Session, noise_for: Callable[[int], object]):
     """Render ``--frames`` frames; ``noise_for(i)`` gives frame i's bounce
     noise. The camera flies ``--fly-speed`` units along its forward axis
     per frame after the first (the scripted analog of WASD,
     src/main.c:288-315); accumulation resets on motion and averages while
     still (src/main.c:241-273). Returns (Accumulator, seconds per frame)."""
+    from tracer_torch.bench.timing import Clock
     from tracer_torch.integrator.wavefront import Accumulator
     args, cfg = session.args, session.config
     acc = Accumulator.zero(cfg.height, cfg.width, session.device)
     cam = session.camera
-    clock = _Clock(session.device)
+    clock = Clock(session.device)
     times = []
     for i in range(args.frames):
         noise = noise_for(i)
@@ -342,24 +329,90 @@ def cmd_render(args) -> int:
     return 0
 
 
+def fit_problem(args, device):
+    """The fit demo's set-up: (config, camera, soft params, target image,
+    initial scene). The target is the soft render of the command's scene;
+    the initial scene moves every centre by 0.1 x N(0, 1) x the mean
+    radius, drawn from ``torch.Generator().manual_seed(seed + 7)``, and
+    lifts the albedo by 0.2 (clipped to [0.05, 0.95])."""
+    from dataclasses import replace
+
+    from tracer_torch.config import TracerConfig
+    from tracer_torch.diff.soft import SoftParams, clip, soft_render
+    cfg = TracerConfig(width=args.width, height=args.height,
+                       max_depth=args.depth)
+    scene, cam = make_scene_camera(args, device)
+    soft = SoftParams(edge_sharpness=args.sharpness, tau_depth=args.tau)
+    with torch.no_grad():
+        target = soft_render(scene, cam, soft, cfg)
+        gen = torch.Generator().manual_seed(args.seed + 7)
+        noise = torch.randn(scene.centers.shape, generator=gen)
+        init = replace(
+            scene,
+            centers=scene.centers + 0.1 * noise.to(device)
+            * torch.mean(scene.radii),
+            albedo=clip(scene.albedo + 0.2, 0.05, 0.95))
+    return cfg, cam, soft, target, init
+
+
+def cmd_fit(args) -> int:
+    """Inverse-rendering demo (the JAX command's ``fit``): render a target
+    with the soft model, perturb the scene, fit it back. Writes
+    fit_target.png, fit_init.png, fit_final.png and fit_losses.txt into the
+    working directory."""
+    from tracer_torch.diff.fit import fit_scene
+    from tracer_torch.diff.soft import soft_render
+    device = resolve_device(args.device)
+    cfg, cam, soft, target, init = fit_problem(args, device)
+
+    def save(img, path):
+        write_png(path, to_uint8(img))
+        print(f"wrote {path}")
+
+    save(target, "fit_target.png")
+    with torch.no_grad():
+        save(soft_render(init, cam, soft, cfg), "fit_init.png")
+    res = fit_scene(target, init, cam, steps=args.steps, lr=args.lr,
+                    soft=soft, config=cfg, checkpoint_path=args.checkpoint,
+                    checkpoint_every=args.checkpoint_every,
+                    resume=args.resume)
+    with torch.no_grad():
+        save(soft_render(res.scene, cam, soft, cfg), "fit_final.png")
+    # The first step's time holds the warm-up; the mean is over the rest.
+    ms = res.step_ms[1:] if res.step_ms.size > 1 else res.step_ms
+    step = (f", {float(np.mean(ms)):.3f} ms/step on {device}" if ms.size
+            else "")
+    print(f"loss: {res.losses[0]:.6f} -> {res.losses[-1]:.6f} "
+          f"({args.steps} steps{step})")
+    np.savetxt("fit_losses.txt", res.losses)
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="tracer_torch",
                                 description="SAH-BVH ray tracer on PyTorch "
                                             "and CUDA")
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    def common(sp):
+        sp.add_argument("--width", type=int, default=800)    # constants.h:7
+        sp.add_argument("--height", type=int, default=600)   # constants.h:8
+        sp.add_argument("--depth", type=int, default=5)      # main.c:19
+        sp.add_argument("--spheres", type=int, default=20)   # main.c:18
+        sp.add_argument("--scene", choices=["interactive", "benchmark"],
+                        default="interactive")
+        sp.add_argument("--world-size", type=float, default=1000.0)
+        sp.add_argument("--seed", type=int, default=0)
+        sp.add_argument("--camera-pos", default=None,
+                        help="x,y,z (default 0,4,50; src/main.c:203-211)")
+        sp.add_argument("--yaw", type=float, default=None)
+        sp.add_argument("--pitch", type=float, default=None)
+        sp.add_argument("--device", default="cuda",
+                        help="torch device (default cuda; cpu runs the plain "
+                             "versions of the kernels)")
+
     sp = sub.add_parser("render", help="render frames to PNG and .npy")
-    sp.add_argument("--width", type=int, default=800)    # constants.h:7
-    sp.add_argument("--height", type=int, default=600)   # constants.h:8
-    sp.add_argument("--depth", type=int, default=5)      # main.c:19
-    sp.add_argument("--spheres", type=int, default=20)   # main.c:18
-    sp.add_argument("--scene", choices=["interactive", "benchmark"],
-                    default="interactive")
-    sp.add_argument("--world-size", type=float, default=1000.0)
-    sp.add_argument("--seed", type=int, default=0)
-    sp.add_argument("--camera-pos", default=None,
-                    help="x,y,z (default 0,4,50; src/main.c:203-211)")
-    sp.add_argument("--yaw", type=float, default=None)
-    sp.add_argument("--pitch", type=float, default=None)
+    common(sp)
     sp.add_argument("--frames", type=int, default=1)
     sp.add_argument("--fly-speed", type=float, default=0.0,
                     help="forward units/frame (scripted fly-through)")
@@ -384,10 +437,20 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--metrics", default=None,
                     help="write frame-time/FPS JSON here")
     sp.add_argument("--out", default="render.png")
-    sp.add_argument("--device", default="cuda",
-                    help="torch device (default cuda; cpu runs the plain "
-                         "versions of the kernels)")
     sp.set_defaults(fn=cmd_render)
+
+    sp = sub.add_parser("fit", help="inverse-rendering demo (writes its "
+                                    "four files into the working directory)")
+    common(sp)
+    sp.add_argument("--steps", type=int, default=100)
+    sp.add_argument("--lr", type=float, default=3e-2)
+    sp.add_argument("--sharpness", type=float, default=12.0)
+    sp.add_argument("--tau", type=float, default=0.3)
+    sp.add_argument("--checkpoint", default=None,
+                    help="optimizer-state checkpoint path (npz)")
+    sp.add_argument("--checkpoint-every", type=int, default=50)
+    sp.add_argument("--resume", action="store_true")
+    sp.set_defaults(fn=cmd_fit)
     return p
 
 

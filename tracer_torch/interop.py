@@ -58,3 +58,53 @@ def camera_from_numpy(position, yaw, pitch, fov, device=None) -> Camera:
     return Camera(position=_t(np.asarray(position, np.float32).reshape(3),
                               torch.float32, device),
                   yaw=scalar(yaw), pitch=scalar(pitch), fov=scalar(fov))
+
+
+def soft_params_from_numpy(edge_sharpness, tau_depth, smooth_eps):
+    """The fields of a JAX ``SoftParams`` -> the port's SoftParams."""
+    from tracer_torch.diff.soft import SoftParams
+    return SoftParams(edge_sharpness=float(np.float32(edge_sharpness)),
+                      tau_depth=float(np.float32(tau_depth)),
+                      smooth_eps=float(np.float32(smooth_eps)))
+
+
+def refit_plan_from_numpy(levels, level_mask, left, right, leaf_ids,
+                          device=None):
+    """The arrays of a JAX ``RefitPlan`` -> the port's RefitPlan, with its
+    index lists on ``device``."""
+    from tracer_torch.bvh.refit import plan_from_arrays
+    return plan_from_arrays(levels, level_mask, left, right, leaf_ids,
+                            default_device(device))
+
+
+FIT_LEAVES = 19   # 6 parameters, Adam's count, 6 first and 6 second moments
+
+
+def fit_state_from_jax_checkpoint(path, lr: float = 3e-2, device=None):
+    """Read a checkpoint written by the JAX fit with numpy alone.
+
+    Its leaves, in flatten order, are the parameters (albedo_raw, centers,
+    radii_raw, pitch, position, yaw), Adam's step count, and the first and
+    second moments in parameter order. Returns (params, adam_state, meta):
+    params = ({"albedo_raw", "centers", "radii_raw"}, {"pitch",
+    "position", "yaw"}) of f32 tensors on ``device``; adam_state a
+    ``torch.optim.Adam`` state dict over those six tensors in that order
+    (step = the count, exp_avg = the first moments, exp_avg_sq = the
+    second) with learning rate ``lr``; meta the checkpoint's metadata.
+    """
+    import json
+    from tracer_torch.diff.fit import adam_state_dict
+    device = default_device(device)
+    with np.load(path) as f:
+        n = sum(k.startswith("leaf_") for k in f.files)
+        if n != FIT_LEAVES:
+            raise ValueError(f"{path} has {n} leaves, a fit checkpoint has "
+                             f"{FIT_LEAVES}")
+        leaves = [f[f"leaf_{i}"] for i in range(n)]
+        meta = json.loads(bytes(f["__meta__"]).decode()) \
+            if "__meta__" in f.files else {}
+    t = [_t(a, torch.float32, device) for a in leaves]
+    scene = dict(zip(("albedo_raw", "centers", "radii_raw"), t[0:3]))
+    cam = dict(zip(("pitch", "position", "yaw"), t[3:6]))
+    state = adam_state_dict(int(leaves[6]), t[7:13], t[13:19], lr)
+    return (scene, cam), state, meta

@@ -76,13 +76,19 @@ def build_cone_tables(scene: Scene, bvh: FlatBVH,
                       max_chunk_bytes: int = 9 << 20) -> ConeTables:
     cull = build_cull_tables(scene, bvh, leaves_per_group=leaves_per_group,
                              max_chunk_bytes=max_chunk_bytes)
+    r_max = float(scene.radii.max()) if scene.radii.numel() else 0.0
+    return ConeTables(cull=cull, leaf_boxes=leaf_box_rows(cull), r_max=r_max)
+
+
+def leaf_box_rows(cull: CullTables) -> Tensor:
+    """Attr-major member-leaf boxes per group, (Gc, lpg*6) f32:
+    [lpg lox | loy | loz | hix | hiy | hiz]."""
     lpg = cull.leaves_per_group
     lo = cull.leaf_min.reshape(-1, lpg, 3)
     hi = cull.leaf_max.reshape(-1, lpg, 3)
     rows = torch.cat([lo[:, :, a] for a in range(3)]
                      + [hi[:, :, a] for a in range(3)], dim=1)
-    r_max = float(scene.radii.max()) if scene.radii.numel() else 0.0
-    return ConeTables(cull=cull, leaf_boxes=rows.contiguous(), r_max=r_max)
+    return rows.contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -200,17 +206,42 @@ def cone_candidates(feats: Tensor, tables: ConeTables, max_groups: int,
     them. No host sync.
     """
     cull = tables.cull
+    k0 = _round_up(min(max_groups, cull.num_groups), 8)
+    k = min(max_candidates, cull.leaves_per_chunk)
+    rows, overflow = candidate_rows(bounds_from_feats(feats), cull,
+                                    tables.leaf_boxes, k0, k,
+                                    _round_up(k + 17, _ROW_ALIGN),
+                                    exact=False)
+    return rows, None, overflow
+
+
+def candidate_rows(bounds, cull: CullTables, leaf_boxes: Tensor, k0: int,
+                   k: int, rowlen: int, exact: bool):
+    """The two levels of phase A, shared by :func:`cone_candidates` and
+    ``leafcull.leaf_candidates``: (rows (C, P, rowlen) i32, overflow).
+
+    bounds: per-subpacket (o_lo, o_hi, d_lo, d_hi), each (P, 3); leaf_boxes:
+    attr-major member-leaf boxes per group (:func:`leaf_box_rows`). The
+    first k0 surviving groups are refined to their member leaves; a row
+    lists at most k leaves, else its groups (at most rowlen - 9). Both
+    levels compact through :func:`compact_ascending_rows`, which keeps a
+    prefix of each row's survivors and counts them all.
+
+    With ``exact`` every count is the survivors' own, as a sort gives
+    (``leaf_candidates``): the prefixes are kept wide enough for the row
+    budgets. Without it (``cone_candidates``) a prefix of 512 ids decides,
+    as the JAX cone phase A does: a row whose leaves overflow it falls back
+    to group mode, and overflow is raised for a truncated group prefix.
+    """
+    o_lo, o_hi, d_lo, d_hi = bounds
     lpg = cull.leaves_per_group
     lpc = cull.leaves_per_chunk
     C = cull.num_chunks
     G = cull.num_groups
-    dev = feats.device
-    k0 = _round_up(min(max_groups, G), 8)
-    k = min(max_candidates, lpc)
-    rowlen = _round_up(k + 17, _ROW_ALIGN)
-
-    o_lo, o_hi, d_lo, d_hi = bounds_from_feats(feats)
+    dev = o_lo.device
     P = o_lo.shape[0]
+    gpc = lpc // lpg
+    kg = min(gpc, rowlen - 9)
 
     # Dense level: slab test against every group box.
     gm, gM = cull.group_min, cull.group_max
@@ -223,12 +254,13 @@ def cone_candidates(feats: Tensor, tables: ConeTables, max_groups: int,
 
     Gpad = _round_up(G, _ROW_ALIGN)
     gm_ids = _pad_cols(torch.where(ghit, gids, G), Gpad, G)
-    K0 = min(Gpad, max(_round_up(k0, _ROW_ALIGN), 4 * _ROW_ALIGN))
+    K0 = min(Gpad, max(_round_up(max(k0, kg) if exact else k0, _ROW_ALIGN),
+                       4 * _ROW_ALIGN))
     gprefix, gtotal = compact_ascending_rows(gm_ids, G, K0)
     gcand = _pad_cols(gprefix[:, :k0], k0, G)
 
     # Refine: slab test against the member leaves of surviving groups.
-    rows_lb = tables.leaf_boxes[torch.clamp(gcand, max=G - 1).long()]
+    rows_lb = leaf_boxes[torch.clamp(gcand, max=G - 1).long()]
     att = [rows_lb[:, :, a * lpg:(a + 1) * lpg].reshape(P, -1)
            for a in range(6)]                            # 6 x (P, k0*lpg)
     member = (gcand[:, :, None] * lpg
@@ -237,20 +269,15 @@ def cone_candidates(feats: Tensor, tables: ConeTables, max_groups: int,
     valid = member < cull.num_real_leaves
     lhit = _slab_hit_cols(o_lo, o_hi, d_lo, d_hi,
                           tuple(att[0:3]), tuple(att[3:6])) & valid
-
-    gpc = lpc // lpg
-    kg = min(gpc, rowlen - 9)
     refine_truncated = gtotal > k0
-
-    K_l = min(member.shape[1], 4 * _ROW_ALIGN)
-    lprefix, ltotal = compact_ascending_rows(
-        torch.where(lhit, member, C * lpc), C * lpc, K_l)
 
     j = torch.arange(max(k, kg), dtype=torch.int32, device=dev)
 
-    def chunk_rows(prefix, per_chunk, budget):
+    def chunk_rows(prefix, total, per_chunk, budget):
         """C == 1: the chunk's row is a plain slice of the global prefix."""
-        cnt = torch.sum(prefix < per_chunk, dim=1, dtype=torch.int32)[:, None]
+        cnt = total if exact else \
+            torch.sum(prefix < per_chunk, dim=1, dtype=torch.int32)
+        cnt = cnt[:, None]
         head = _pad_cols(prefix[:, :budget], budget, per_chunk)
         vals = torch.where(j[:budget] < torch.clamp(cnt, max=budget), head,
                            per_chunk)
@@ -272,20 +299,29 @@ def cone_candidates(feats: Tensor, tables: ConeTables, max_groups: int,
             cnt_list.append(cnt)
         return torch.stack(vals_list, dim=1), torch.stack(cnt_list, dim=1)
 
+    use_g = refine_truncated[:, None]
+    if C == 1 or not exact:
+        K_l = min(member.shape[1],
+                  max(_round_up(k, _ROW_ALIGN), 4 * _ROW_ALIGN) if exact
+                  else 4 * _ROW_ALIGN)
+        lprefix, ltotal = compact_ascending_rows(
+            torch.where(lhit, member, C * lpc), C * lpc, K_l)
     if C == 1:
-        lvals, lcnt = chunk_rows(lprefix, lpc, k)
-        gvals, gcnt = chunk_rows(gprefix, gpc, kg)
+        lvals, lcnt = chunk_rows(lprefix, ltotal, lpc, k)
+        gvals, gcnt = chunk_rows(gprefix, gtotal, gpc, kg)
     else:
         lvals, lcnt = chunk_rows_multi(lhit, member, lpc, k)
         gvals, gcnt = chunk_rows_multi(_pad_cols(ghit, Gpad, False),
                                        _pad_cols(gids, Gpad, G), gpc, kg)
-
-    # A truncated prefix (more survivors than K_l / K0 kept) makes the later
-    # chunks' windows unreliable: those rows fall back to group mode or
-    # raise overflow, conservatively.
-    use_g = lcnt > k
-    use_g = use_g | refine_truncated[:, None] | (ltotal > K_l)[:, None]
-    overflow = torch.any(use_g & ((gcnt > kg) | (gtotal > K0)[:, None]))
+    use_g = use_g | (lcnt > k)
+    if exact:
+        overflow = torch.any(use_g & (gcnt > kg))
+    else:
+        # A truncated prefix (more survivors than K_l / K0 kept) makes the
+        # later chunks' windows unreliable: those rows fall back to group
+        # mode or raise overflow, conservatively.
+        use_g = use_g | (ltotal > K_l)[:, None]
+        overflow = torch.any(use_g & ((gcnt > kg) | (gtotal > K0)[:, None]))
 
     width = max(k, kg)
     cnt_col = torch.where(use_g, -torch.clamp(gcnt, max=kg),
@@ -294,7 +330,7 @@ def cone_candidates(feats: Tensor, tables: ConeTables, max_groups: int,
                        _pad_cols(lvals, width, lpc))
     rows = torch.cat([cnt_col[..., None], body], dim=2)
     rows = _pad_cols(rows, rowlen, lpc)
-    return rows.permute(1, 0, 2).contiguous(), None, overflow
+    return rows.permute(1, 0, 2).contiguous(), overflow
 
 
 # ---------------------------------------------------------------------------

@@ -233,6 +233,40 @@ def prep_feats_bucketed(o: Tensor, d: Tensor, subpackets: int,
 
 
 # ---------------------------------------------------------------------------
+# Phase A over padded rays (the differentiable path's candidates)
+# ---------------------------------------------------------------------------
+
+def subpacket_bounds(o: Tensor, d: Tensor, subpacket: int):
+    """(B, 3) padded rays -> per-subpacket interval bounds (o_lo, o_hi,
+    d_lo, d_hi), each (P, 3)."""
+    ot = o.reshape(-1, subpacket, 3)
+    dt = d.reshape(-1, subpacket, 3)
+    return ot.amin(1), ot.amax(1), dt.amin(1), dt.amax(1)
+
+
+def leaf_candidates(o: Tensor, d: Tensor, tables: CullTables,
+                    max_groups: int, max_candidates: int, subpacket: int):
+    """Hierarchical phase A on padded, direction-sorted rays.
+
+    o/d: (P*subpacket, 3). Returns (rows (C, P, rowlen) i32 per-chunk
+    count-embedded relative leaf ids, overflow 0-d bool tensor), in
+    ``conecull.cone_candidates``' row format: k0 = min(max_groups, G)
+    groups are refined, a row lists at most k = min(max_candidates, lpc)
+    leaves, else its groups, and rowlen is k + 17 rounded up to 128. Every
+    count is exact, so rows and overflow equal the JAX function's. Both
+    levels compact through ``conecull.compact_ascending_rows`` (the CUDA
+    compactor on CUDA tensors) where the JAX function sorts. No host sync.
+    """
+    from tracer_torch.kernels.conecull import (candidate_rows, leaf_box_rows,
+                                               _round_up, _ROW_ALIGN)
+    k = min(max_candidates, tables.leaves_per_chunk)
+    return candidate_rows(subpacket_bounds(o, d, subpacket), tables,
+                          leaf_box_rows(tables),
+                          min(max_groups, tables.num_groups), k,
+                          _round_up(k + 17, _ROW_ALIGN), exact=True)
+
+
+# ---------------------------------------------------------------------------
 # The leaf walk
 # ---------------------------------------------------------------------------
 
