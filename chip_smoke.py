@@ -101,6 +101,24 @@ Phases, each of which raises on failure (the script then exits non-zero):
 8. the headline measurement (``tracer_torch.bench``, with its shadow,
    LBVH and differentiable extras) and the large-scene measurement
    (``tracer_torch.bench.large``), one JSON line each;
+8b. the sweep (``sweep_slice``): ``cli bench`` at 1k, 10k, 100k, 1M and
+   10M spheres x 131,072 origin rays in a temporary directory, every
+   kernel counter set to 0 just before and read just after; per row its
+   path, build, brute and BVH times, Mrays/s, escalations and the kernels
+   its query launches (dense: none; single chunk: ``leafcull_cuda`` and
+   ``compact_cuda``; routed: ``routed_cuda`` and ``compact_cuda``), no
+   escalation of a routed row at the JAX harness's budgets, and its t and
+   ids against brute force on the rays brute force timed (ties and grazes
+   only, t to 1e-5 relative but at a graze); the complexity fit;
+8c. the render flags, debug and viz (``tools_slice``): ``cli render``
+   path/auto at 800x600, 100k spheres, ``--compact``: 4 frames straight
+   with ``--checkpoint`` against 2 frames and ``--frames 4 --resume``,
+   bitwise, still and at ``--fly-speed 1``; ``--profile`` over two frames,
+   the trace naming a kernel of the port; two frames under
+   ``TRACER_DEBUG=1`` equal to two unchecked ones, with both frame times;
+   ``checked_nearest_hit`` on 4,096 headline rays over the 16-prim tree,
+   clean and with a NaN direction (which must raise); ``cli viz`` at
+   800x600;
 9. one JSON line of per-kernel results, then the final status line.
 
 Phase 3 also holds ``traverse_cuda`` and ``tilecull_cuda`` against their
@@ -213,6 +231,17 @@ def log(*a):
     print(*a, flush=True)
 
 
+def grazing(o, d, c, ccr):
+    """Rays (o, d (R, 3)) that graze their prim (c (R, 3), ccr (R,) =
+    |c|^2 - r^2): the quadratic's |disc| <= GRAZE_RTOL * b'^2, in f64."""
+    o64, d64 = o.double(), d.double()
+    cc, q = c.double(), ccr.double()
+    bp = (o64 * d64).sum(-1) - (cc * d64).sum(-1)
+    cq = (o64 * o64).sum(-1) - 2.0 * (o64 * cc).sum(-1) + q
+    disc = bp * bp - (d64 * d64).sum(-1) * cq
+    return disc.abs() <= GRAZE_RTOL * bp * bp
+
+
 def classify(o, d, c, ccr, ta, tb, chosen_a, chosen_b):
     """Count ties, grazes and other disagreements among rays whose
     choices differ. o/d (R, 3); for side x in (a, b): chosen_x (R,) bool,
@@ -222,13 +251,8 @@ def classify(o, d, c, ccr, ta, tb, chosen_a, chosen_b):
     both = chosen_a & chosen_b
     tie = both & ((ta - tb).abs() <= TIE_RTOL * tb.abs())
     graze = torch.zeros_like(tie)
-    o64, d64 = o.double(), d.double()
     for side, chosen in (("a", chosen_a), ("b", chosen_b)):
-        cc, q = c[side].double(), ccr[side].double()
-        bp = (o64 * d64).sum(-1) - (cc * d64).sum(-1)
-        cq = (o64 * o64).sum(-1) - 2.0 * (o64 * cc).sum(-1) + q
-        disc = bp * bp - (d64 * d64).sum(-1) * cq
-        graze |= chosen & (disc.abs() <= GRAZE_RTOL * bp * bp)
+        graze |= chosen & grazing(o, d, c[side], ccr[side])
     return int(tie.sum()), int((graze & ~tie).sum()), int((~(tie | graze)).sum())
 
 
@@ -1861,6 +1885,256 @@ def time_compactor(name, ids, sentinel, keep):
     return ms, pms, lms, bms
 
 
+# The kernels each row path of the sweep launches per query.
+SWEEP_KERNELS = {"dense_brute_fast": set(),
+                 "hybrid_feats": {"leafcull_cuda", "compact_cuda"},
+                 "tlas_routed": {"routed_cuda", "compact_cuda"}}
+TOOLS_RENDER = ["render", "--scene", "benchmark", "--spheres", "100000",
+                "--compact"]   # path/auto, 800x600, depth 5
+DEBUG_RAYS = 4096       # rays of the checked per-ray walk at 100k spheres
+
+
+def kernel_counters():
+    """Every kernel wrapper of the port, by name (each has ``launches``)."""
+    from tracer_torch.kernels.conecull import compact_cuda, conecull_cuda
+    from tracer_torch.kernels.cull import cull_cuda
+    from tracer_torch.kernels.leafcull import anyhit_cuda, leafcull_cuda
+    from tracer_torch.kernels.tilecull import tilecull_cuda
+    from tracer_torch.kernels.tlas import routed_cuda
+    from tracer_torch.kernels.traverse import traverse_cuda
+    return {f.__name__: f for f in (
+        leafcull_cuda, compact_cuda, anyhit_cuda, routed_cuda,
+        traverse_cuda, tilecull_cuda, conecull_cuda, cull_cuda)}
+
+
+def check_sweep_row(name, o, d, scene, ta, ia, tb, ib):
+    """A sweep row's (t, sphere id) against brute force's on the same
+    rays: ids equal on >= MIN_AGREE of rays, every other ray a tie or a
+    graze; where both chose one sphere, t within T_RTOL unless the ray
+    grazes it (brute force's reference quadratic rounds the discriminant
+    another way than the walks' u-form)."""
+    ia, ib = ia.long(), ib.long()
+    sphere_of = sphere_of_in(scene)
+    same = ia == ib
+    hit = same & (ia >= 0)
+    rel = (ta - tb).abs() / tb.abs()
+    loose = hit & (rel > T_RTOL)
+    if loose.any():
+        c, q = sphere_of(ia[loose])
+        loose_grazes = int(grazing(o[loose], d[loose], c, q).sum())
+    else:
+        loose_grazes = 0
+    n_loose = int(loose.sum())
+    bad = ~same
+    ca, qa = sphere_of(ia[bad])
+    cb, qb = sphere_of(ib[bad])
+    ties, grazes, other = classify(
+        o[bad], d[bad], {"a": ca, "b": cb}, {"a": qa, "b": qb}, ta[bad],
+        tb[bad], ia[bad] >= 0, ib[bad] >= 0)
+    agree = same.float().mean().item()
+    inside = rel[hit & ~loose]
+    log(f"{name}: {ia.numel()} rays, {int(hit.sum())} same hits (max t rel "
+        f"err {inside.max().item() if inside.numel() else 0.0:.3g}, "
+        f"{n_loose} beyond {T_RTOL:g}, {loose_grazes} of them grazes), "
+        f"ids agree on {agree:.6f}; mismatches: {ties} tie(s), {grazes} "
+        f"graze(s), {other} other")
+    if agree < MIN_AGREE or other or loose_grazes < n_loose:
+        raise AssertionError(f"{name}: the row and brute force disagree")
+
+
+def sweep_slice():
+    """Phase 8b: ``cli bench`` over the published decades in a temporary
+    directory, every kernel counter set to 0 just before and read just
+    after. Each row's query calls are counted on their own (the kernels
+    they launch, per call) and their last result held against the last
+    brute-force result of the row on the rays brute force timed."""
+    import collections
+    import tempfile
+    from tracer_torch import cli
+    from tracer_torch.bench import harness
+    counters = kernel_counters()
+    rows, brutes = {}, {}
+    real_row_query, real_brute_t = harness.row_query, harness.brute_t
+
+    def row_query(n, scene, tables, o, d, dense_limit):
+        query, path, esc = real_row_query(n, scene, tables, o, d,
+                                          dense_limit)
+        rec = rows[n] = {"path": path, "esc": esc, "calls": 0,
+                         "launches": collections.Counter(), "scene": scene,
+                         "o": o, "d": d}
+
+        def counted():
+            before = {k: f.launches for k, f in counters.items()}
+            out = query()
+            rec["calls"] += 1
+            rec["launches"].update({k: f.launches - before[k]
+                                    for k, f in counters.items()})
+            rec["out"] = out
+            return out
+        return counted, path, esc
+
+    def brute_t(o, d, centers, radii):
+        brutes[centers.shape[0]] = out = real_brute_t(o, d, centers, radii)
+        return out
+
+    t0 = time.perf_counter()
+    for f in counters.values():
+        f.launches = 0
+    harness.row_query, harness.brute_t = row_query, brute_t
+    try:
+        with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+            if cli.main(["bench", "--sizes",
+                         ",".join(map(str, harness.PUBLISHED_SIZES))]) != 0:
+                raise AssertionError("cli bench failed")
+            with open("benchmark_results.json") as f:
+                rec = json.load(f)
+            with open("benchmark_data.txt") as f:
+                data_rows = f.read().splitlines()
+            with open("benchmark_results.png", "rb") as f:
+                png = f.read()
+    finally:
+        harness.row_query, harness.brute_t = real_row_query, real_brute_t
+    launches = {k: f.launches for k, f in counters.items() if f.launches}
+    sweep_s = time.perf_counter() - t0
+    log(f"sweep ({len(rec['sizes'])} sizes x {rec['num_rays']} rays, "
+        f"{sweep_s:.1f} s): launches {launches}; {len(data_rows)} data rows, "
+        f"{len(png)} bytes of PNG; device {rec['device']}")
+    if len(data_rows) != len(harness.PUBLISHED_SIZES) or \
+            not png.startswith(b"\x89PNG"):
+        raise AssertionError("cli bench did not write its files")
+    for i, n in enumerate(rec["sizes"]):
+        r = rows[n]
+        base = r["path"].split("_escalated")[0]
+        per_call = {k: v / r["calls"] for k, v in r["launches"].items() if v}
+        if set(per_call) != SWEEP_KERNELS[base]:
+            raise AssertionError(f"n={n}: the {r['path']} row launched "
+                                 f"{per_call}")
+        if base == "tlas_routed" and r["esc"]:
+            raise AssertionError(f"n={n}: the routed row overflowed at the "
+                                 f"JAX harness's budgets")
+        nb = rec["brute_nb_timed"][i]
+        tb, ib = brutes[n]
+        ta, ia = r["out"]
+        log(f"sweep n={n}: {rec['row_paths'][i]}, build "
+            f"{rec['build_ms'][i]:.1f} ms, brute {rec['brute_s'][i]:.6f} s "
+            f"({nb} rays timed), bvh {rec['bvh_s'][i]:.6f} s "
+            f"({rec['mrays_bvh'][i]:.3f} Mrays/s, speedup "
+            f"{rec['speedup'][i]:.1f}), {r['esc']} escalation(s), "
+            f"launches per query {per_call}")
+        check_sweep_row(f"sweep n={n} vs brute force (first {nb} rays)",
+                        r["o"][:nb], r["d"][:nb], r["scene"], ta[:nb],
+                        ia[:nb], tb, ib)
+    log(f"sweep complexity: {json.dumps(rec['complexity'])}")
+    missing = {"leafcull_cuda", "compact_cuda", "routed_cuda"} - set(launches)
+    if missing:
+        raise AssertionError(f"the sweep launched no {sorted(missing)}")
+    return rec, launches
+
+
+def tools_slice(scene, bvh16, o, d):
+    """Phase 8c: ``cli render`` path/auto at 800x600 and 100k spheres with
+    compaction: 4 frames straight with a checkpoint, 2 frames and a resume
+    to 4 bitwise equal to them, still and flying; ``--profile`` over two
+    frames, its trace naming a kernel of the port; two frames under
+    ``TRACER_DEBUG=1``, equal to two unchecked ones, and their cost; the
+    checked per-ray walk on the headline scene's 16-prim tree, clean and
+    with a NaN ray direction; ``cli viz`` at 800x600."""
+    import io
+    import os
+    import tempfile
+    import numpy as np
+    import torch
+    from tracer_torch import cli
+    from tracer_torch.core.types import Ray
+    from tracer_torch.debug import DebugError, checked_nearest_hit
+    from tracer_torch.intersect.traverse import nearest_hit_bvh
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+        def render(*extra):
+            if cli.main([*TOOLS_RENDER, *extra]) != 0:
+                raise AssertionError(f"cli render {extra} failed")
+
+        for fly in ("0", "1"):
+            render("--fly-speed", fly, "--frames", "4", "--checkpoint",
+                   "s.npz", "--out", "s.png")
+            render("--fly-speed", fly, "--frames", "2", "--checkpoint",
+                   "c.npz", "--out", "c.png")
+            render("--fly-speed", fly, "--frames", "4", "--checkpoint",
+                   "c.npz", "--resume", "--out", "c.png")
+            a, b = np.load("s.npy"), np.load("c.npy")
+            if not np.array_equal(a, b):
+                raise AssertionError(
+                    f"render resumed at frame 2 (fly speed {fly}) differs "
+                    f"from the straight run on {int((a != b).sum())} values")
+            log(f"render resume, fly speed {fly}: 4 frames straight and 2 + "
+                f"a resume to 4 bitwise equal (image mean {a.mean():.6f})")
+            os.remove("s.npz")
+            os.remove("c.npz")
+
+        render("--frames", "2", "--profile", "prof", "--out", "p.png")
+        with open(os.path.join("prof", "trace.json")) as f:
+            trace = json.load(f)
+        kernels = {e["name"] for e in trace["traceEvents"]
+                   if e.get("cat") == "kernel"}
+        ours = sorted(k for k in kernels if "walk_items" in k
+                      or "compact_rows" in k)
+        log(f"render --profile: {len(trace['traceEvents'])} events, "
+            f"{len(kernels)} kernel names, of the port's: {ours}")
+        if not ours:
+            raise AssertionError("the profile trace names no kernel of the "
+                                 "port")
+
+        os.environ["TRACER_DEBUG"] = "1"
+        try:
+            render("--frames", "2", "--metrics", "debug.json", "--out",
+                   "debug.png")
+        finally:
+            del os.environ["TRACER_DEBUG"]
+        render("--frames", "2", "--metrics", "plain.json", "--out",
+               "plain.png")
+        if not np.array_equal(np.load("debug.npy"), np.load("plain.npy")):
+            raise AssertionError("the frames under TRACER_DEBUG=1 differ")
+        with open("debug.json") as f:
+            dbg = json.load(f)["mean_frame_s"]
+        with open("plain.json") as f:
+            plain = json.load(f)["mean_frame_s"]
+        log(f"TRACER_DEBUG=1: a clean path/auto frame passes, equal to the "
+            f"unchecked one; frame {dbg:.4f} s against {plain:.4f} s "
+            f"unchecked")
+
+        n = DEBUG_RAYS
+        rays = Ray(origin=o[:n], direction=d[:n])
+        t1 = time.perf_counter()
+        err, rec = checked_nearest_hit(rays, scene, bvh16)
+        err.throw()
+        checked_s = time.perf_counter() - t1
+        if not torch.equal(rec.t, nearest_hit_bvh(rays, scene, bvh16).t):
+            raise AssertionError("the checked walk differs from the walk")
+        bad = d[:n].clone()
+        bad[5, 0] = float("nan")
+        err, _ = checked_nearest_hit(Ray(origin=o[:n], direction=bad), scene,
+                                     bvh16)
+        try:
+            err.throw()
+        except DebugError as e:
+            log(f"checked_nearest_hit, {n} rays x 100k spheres: clean passes "
+                f"({checked_s:.2f} s); a NaN direction raises: {e}")
+        else:
+            raise AssertionError("a NaN ray direction passed the check")
+
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            status = cli.main(["viz", "--out", "viz.png"])
+        text = out.getvalue()
+        stats = json.loads(text[:text.index("}") + 1])
+        size = os.path.getsize("viz.png")
+        log(f"cli viz 800x600: bvh_stats {json.dumps(stats)}; PNG {size} "
+            f"bytes")
+        if status != 0 or not stats["num_leaves"] or size < 1000:
+            raise AssertionError("cli viz failed")
+    log(f"render flags, debug and viz took {time.perf_counter() - t0:.1f} s")
+
+
 def main(argv=None) -> int:
     import argparse
     import torch
@@ -2177,6 +2451,12 @@ def main(argv=None) -> int:
     # -- 8. the bench lines --------------------------------------------------
     log(json.dumps(headline.measure(scene, tables, o, d, build_ms)))
     log(json.dumps(large.measure(btables, bo, bd, lbvh_ms, tables_ms)))
+    del btables, bcull, bo, bd, bfeats, trows, rargs
+    torch.cuda.empty_cache()
+
+    # -- 8b, 8c. the sweep, the render flags, debug and viz -------------------
+    sweep_slice()
+    tools_slice(scene, bvh16, o, d)
 
     # -- 9. results ----------------------------------------------------------
     meta = {

@@ -22,6 +22,11 @@ The differentiable path: ``soft_render`` (dense soft model),
 tracer_torch.cli fit``), ``refit_bvh`` and ``save_state``/``load_state``
 (checkpoints in the JAX package's file layout).
 
+The tooling: the BVH-against-brute-force sweep (``bench.harness.run_sweep``;
+``python -m tracer_torch.cli bench``), ``bvh.flat.bvh_stats``, the
+wireframe overlay (``viz``; ``python -m tracer_torch.cli viz``) and the
+sanitizers (``debug``; ``TRACER_DEBUG=1``).
+
 The renderer (``render``, ``render_direct``; ``python -m tracer_torch.cli
 render``) takes any closest-hit intersector: the leaf walk
 (``nearest_hit_leafcull_checked``), the packet walk

@@ -8,7 +8,9 @@ never feed back into inputs, so a miss (t = +inf) cannot poison later calls.
 
 A call whose kernels take less time than the host takes to issue them is
 timed by :func:`time_graph`: captured in a CUDA graph and replayed, so the
-host's time drops out of the measurement.
+host's time drops out of the measurement. :func:`time_host` times calls on
+CPU tensors, which finish before they return, on the host clock: the CPU
+tests' counterpart of :func:`time_cuda`, never a device time.
 """
 
 from __future__ import annotations
@@ -39,6 +41,28 @@ def time_cuda(fn, *args, warmup: int = 2, iters: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_host(fn, *args, warmup: int = 1, iters: int = 3) -> float:
+    """Milliseconds per call of ``fn(*args)`` on the host clock, for calls
+    on CPU tensors (their results are computed before the call returns).
+
+    Raises RuntimeError when an output lies on a CUDA device: a host clock
+    around an asynchronous launch measures the enqueue.
+    """
+    if iters < 1:
+        raise ValueError("iters must be >= 1")
+    for _ in range(warmup):
+        fn(*args)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        out = fn(*args)
+    ms = (time.perf_counter() - t0) * 1e3 / iters
+    leaves = out if isinstance(out, (tuple, list)) else (out,)
+    if any(isinstance(x, torch.Tensor) and x.is_cuda for x in leaves):
+        raise RuntimeError("time_host times CPU calls; use time_cuda on the "
+                           "card")
+    return ms
 
 
 def time_graph(fn, *args, calls: int = 10, replays: int = 5) -> float:

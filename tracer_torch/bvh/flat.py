@@ -88,3 +88,51 @@ def validate_bvh(bvh: FlatBVH, centers, radii) -> None:
                     continue
                 assert (node_min[ch] >= node_min[i] - 1e-4).all()
                 assert (node_max[ch] <= node_max[i] + 1e-4).all()
+
+
+def node_depths(escape: np.ndarray) -> np.ndarray:
+    """Depth of each preorder node: the number of still-open ancestor
+    subtrees when it is reached."""
+    depth = np.zeros(len(escape), np.int32)
+    open_subtrees: list[int] = []
+    for i in range(len(escape)):
+        while open_subtrees and i >= open_subtrees[-1]:
+            open_subtrees.pop()
+        depth[i] = len(open_subtrees)
+        open_subtrees.append(int(escape[i]))
+    return depth
+
+
+def bvh_stats(bvh: FlatBVH, num_spheres: int) -> dict:
+    """Introspection dump, as the JAX ``bvh_stats``: node and leaf counts,
+    max depth, mean leaf occupancy, SAH cost (C_trav = C_isect = 1,
+    relative to the root's area) and the leaf-depth histogram. Host numpy
+    over the tree's arrays (src/bvh_visualiser.c, src/bvh.c:111-115)."""
+    M = bvh.num_nodes
+    leaf_start = bvh.leaf_start.cpu().numpy()
+    node_min = bvh.node_min.cpu().numpy()
+    node_max = bvh.node_max.cpu().numpy()
+    prim_idx = bvh.prim_idx.cpu().numpy()
+    depth = node_depths(bvh.escape.cpu().numpy())
+
+    is_leaf = leaf_start >= 0
+    ext = np.maximum(node_max - node_min, 0.0)
+    sa = 2.0 * (ext[:, 0] * ext[:, 1] + ext[:, 1] * ext[:, 2]
+                + ext[:, 2] * ext[:, 0])
+    root_sa = max(float(sa[0]), 1e-12)
+    leaf_counts = np.array([
+        int((prim_idx[s: s + bvh.leaf_size] < num_spheres).sum())
+        for s in leaf_start[is_leaf]
+    ]) if is_leaf.any() else np.zeros(0, np.int32)
+    sah = float((sa[~is_leaf].sum() + (sa[is_leaf] * leaf_counts).sum())
+                / root_sa)
+    return {
+        "num_nodes": int(M),
+        "num_leaves": int(is_leaf.sum()),
+        "max_depth": int(depth.max()) if M else 0,
+        "mean_leaf_occupancy": (float(leaf_counts.mean())
+                                if len(leaf_counts) else 0.0),
+        "sah_cost": sah,
+        "leaf_depth_histogram": (np.bincount(depth[is_leaf]).tolist()
+                                 if M else []),
+    }

@@ -1,13 +1,20 @@
-"""Command line: ``python -m tracer_torch.cli render ...`` and ``fit ...``.
+"""Command line: ``python -m tracer_torch.cli render|bench|fit|viz ...``.
 
-PyTorch counterpart of the ``render`` and ``fit`` commands of
-``tracer/cli.py``. ``render`` renders frames of a sphere scene (path
-tracing, or primary plus shadow rays) and writes the accumulated image as
-``.npy`` and PNG, plus optional frame-time metrics. ``fit`` is the
+PyTorch counterpart of ``tracer/cli.py``. ``render`` renders frames of a
+sphere scene (path tracing, or primary plus shadow rays) and writes the
+accumulated image as ``.npy`` and PNG, plus optional frame-time metrics,
+an accumulation checkpoint after each frame (``--checkpoint``, continued by
+``--resume``) and a ``torch.profiler`` trace (``--profile DIR``). ``bench``
+is the BVH-against-brute-force sweep (``bench/harness.py``): it writes
+benchmark_data.txt, benchmark_results.json and benchmark_results.png into
+the working directory and prints the complexity fits. ``fit`` is the
 inverse-rendering demo: it writes fit_target.png, fit_init.png,
-fit_final.png and fit_losses.txt into the working directory. Both run on
-the CUDA device unless ``--device cpu`` is given; without a card they
-refuse rather than drop to the CPU.
+fit_final.png and fit_losses.txt into the working directory. ``viz``
+prints the tree's statistics and writes a brute-force render with the
+tree's boxes drawn over it. All run on the CUDA device unless ``--device
+cpu`` is given; without a card they refuse rather than drop to the CPU.
+``TRACER_DEBUG=1`` (or 2) runs a command under the sanitizers of
+``tracer_torch.debug``.
 
 Differences from the JAX command:
   * every closest-hit and shadow query of the tile-cull and leaf-walk
@@ -21,14 +28,24 @@ Differences from the JAX command:
     the JAX command's ``jax.random`` draw, not the same numbers; it prints
     the mean step time (CUDA events, the first step dropped) on its loss
     line;
-  * ``render``'s ``--profile``, ``--checkpoint`` and ``--resume`` are not
-    ported yet.
+  * a render checkpoint holds the accumulator and the frame noise
+    generator's ``torch.Generator`` state, so it is the port's own (the
+    JAX command's holds a ``jax.random`` key); on ``--resume`` the camera
+    stands where a straight run has it at that frame (moved once per
+    frame after the first), where the JAX command restarts the fly-through
+    from the initial position;
+  * ``bench`` takes ``--seed`` and ``--device``; its scenes and plot are
+    described in ``bench/harness.py``;
+  * ``viz`` draws its bounce noise from
+    ``torch.Generator(device).manual_seed(1)``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import struct
 import sys
 import time
@@ -254,29 +271,44 @@ def prepare(args) -> Session:
                    counts=counts, tables=tables)
 
 
-def render_frames(session: Session, noise_for: Callable[[int], object]):
-    """Render ``--frames`` frames; ``noise_for(i)`` gives frame i's bounce
-    noise. The camera flies ``--fly-speed`` units along its forward axis
-    per frame after the first (the scripted analog of WASD,
-    src/main.c:288-315); accumulation resets on motion and averages while
-    still (src/main.c:241-273). Returns (Accumulator, seconds per frame)."""
+def _fly(cam, speed: float):
+    """The camera moved ``speed`` units along its forward axis."""
+    f, _, _ = cam.basis()
+    return cam.replace(position=cam.position + speed * f)
+
+
+def render_frames(session: Session, noise_for: Callable[[int], object],
+                  start: int = 0, acc=None, after_frame=None):
+    """Render frames ``start`` to ``--frames`` - 1 into ``acc`` (a zero
+    accumulator when None); ``noise_for(i)`` gives frame i's bounce noise
+    and ``after_frame(i, acc)``, when given, runs after each frame. The
+    camera flies ``--fly-speed`` units along its forward axis per frame
+    after the first (the scripted analog of WASD, src/main.c:288-315), so
+    at frame i it has moved i times, by the same additions whatever the
+    start frame; accumulation resets on motion and averages while still
+    (src/main.c:241-273). Returns (Accumulator, seconds per frame)."""
     from tracer_torch.bench.timing import Clock
     from tracer_torch.integrator.wavefront import Accumulator
     args, cfg = session.args, session.config
-    acc = Accumulator.zero(cfg.height, cfg.width, session.device)
+    if acc is None:
+        acc = Accumulator.zero(cfg.height, cfg.width, session.device)
     cam = session.camera
+    if args.fly_speed != 0.0:
+        for _ in range(1, start):
+            cam = _fly(cam, args.fly_speed)
     clock = Clock(session.device)
     times = []
-    for i in range(args.frames):
+    for i in range(start, args.frames):
         noise = noise_for(i)
         moving = args.fly_speed != 0.0 and i > 0
         if moving:
-            f, _, _ = cam.basis()
-            cam = cam.replace(position=cam.position + args.fly_speed * f)
+            cam = _fly(cam, args.fly_speed)
         clock.start()
         img = session.frame(cam, noise)
         times.append(clock.stop())
         acc = acc.reset_to(img) if (moving or i == 0) else acc.add(img)
+        if after_frame is not None:
+            after_frame(i, acc)
     return acc, times
 
 
@@ -304,18 +336,58 @@ def metrics(session: Session, times) -> dict:
     }
 
 
+@contextlib.contextmanager
+def _profiled(directory: str | None, device: torch.device):
+    """A torch.profiler context (CPU and, on the card, CUDA activity)
+    writing its Chrome trace to ``directory``/trace.json on exit; a
+    no-op without ``directory``."""
+    if directory is None:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    with profile(activities=acts) as prof:
+        yield
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, "trace.json")
+    prof.export_chrome_trace(path)
+    print(f"profiler trace written to {path}")
+
+
 def cmd_render(args) -> int:
-    from tracer_torch.integrator.wavefront import bounce_noise
+    from tracer_torch.checkpoint import load_state, save_state
+    from tracer_torch.integrator.wavefront import Accumulator, bounce_noise
     session = prepare(args)
     cfg = session.config
     gen = torch.Generator(device=session.device).manual_seed(args.seed + 1)
-    acc, times = render_frames(session, lambda i: bounce_noise(
-        gen, (cfg.height, cfg.width), cfg.max_depth, session.device))
+    acc = Accumulator.zero(cfg.height, cfg.width, session.device)
+    start = 0
+    if args.resume and args.checkpoint and os.path.exists(args.checkpoint):
+        (total, frames, state), meta = load_state(
+            args.checkpoint, (acc.total, torch.tensor(0), gen.get_state()))
+        acc = Accumulator(total=total, frames=int(frames))
+        gen.set_state(state)
+        start = int(meta["frame"])
+        print(f"resumed accumulation at frame {start}")
+
+    def checkpoint(i, acc):
+        save_state(args.checkpoint, (acc.total, torch.tensor(acc.frames),
+                                     gen.get_state()), meta={"frame": i + 1})
+
+    with _profiled(args.profile, session.device):
+        acc, times = render_frames(
+            session, lambda i: bounce_noise(
+                gen, (cfg.height, cfg.width), cfg.max_depth, session.device),
+            start, acc, checkpoint if args.checkpoint else None)
     img = to_uint8(acc.mean)
     out = Path(args.out)
     np.save(out.with_suffix(".npy"), acc.mean.cpu().numpy())
     write_png(out, img)
     print(f"wrote {out} and {out.with_suffix('.npy')}")
+    if not times:
+        print(f"no frame to render: the checkpoint is at frame {start}")
+        return 0
     rec = metrics(session, times)
     print(f"frames: {args.frames}, mean frame time {rec['mean_frame_s']:.4f}"
           f" s ({rec['fps']:.2f} FPS)")
@@ -388,6 +460,56 @@ def cmd_fit(args) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    """The BVH-against-brute-force sweep (``bench/harness.py``); writes
+    benchmark_data.txt, benchmark_results.json and benchmark_results.png
+    into the working directory and prints the complexity fits."""
+    from tracer_torch.bench.harness import (DEFAULT_SIZES, plot_sweep,
+                                            run_sweep)
+    sizes = (tuple(int(s) for s in args.sizes.split(",")) if args.sizes
+             else DEFAULT_SIZES)
+    res = run_sweep(sizes=sizes, num_rays=args.rays,
+                    world_size=args.world_size, seed=args.seed,
+                    device=resolve_device(args.device))
+    res.save_data_txt("benchmark_data.txt")      # src/benchmark.c:160-170
+    rec = res.to_json()
+    with open("benchmark_results.json", "w") as f:
+        json.dump(rec, f, indent=2)
+    plot_sweep(res, "benchmark_results.png")     # replaces gnuplot's PNG
+    print(json.dumps(rec["complexity"], indent=2))
+    print("wrote benchmark_data.txt benchmark_results.json "
+          "benchmark_results.png")
+    return 0
+
+
+def cmd_viz(args) -> int:
+    """Build the tree, print ``bvh_stats``, render the scene by brute force
+    and write it with the tree's boxes down to ``--viz-depth`` drawn
+    over it."""
+    from tracer_torch.bvh.builder import build_bvh
+    from tracer_torch.bvh.flat import bvh_stats
+    from tracer_torch.config import TracerConfig
+    from tracer_torch.integrator.wavefront import bounce_noise, render
+    from tracer_torch.intersect.brute import nearest_hit_brute
+    from tracer_torch.viz.wireframe import draw_bvh_wireframe
+    device = resolve_device(args.device)
+    cfg = TracerConfig(width=args.width, height=args.height,
+                       max_depth=args.depth)
+    scene, cam = make_scene_camera(args, device)
+    bvh = build_bvh(scene.centers, scene.radii, device=device)
+    print(json.dumps(bvh_stats(bvh, scene.centers.shape[0]), indent=2))
+    noise = bounce_noise(torch.Generator(device).manual_seed(1),
+                         (cfg.height, cfg.width), cfg.max_depth)
+    img = render(scene, cam, None,
+                 lambda s: (lambda r: nearest_hit_brute(r, s)), cfg,
+                 noise=noise)
+    overlay = draw_bvh_wireframe(img.cpu().numpy(), bvh, cam, cfg,
+                                 max_draw_depth=args.viz_depth)
+    write_png(args.out, to_uint8(overlay))
+    print(f"wrote {args.out}")
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="tracer_torch",
                                 description="SAH-BVH ray tracer on PyTorch "
@@ -434,10 +556,32 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--light", default="0,200,0",
                     help="point light position x,y,z (direct mode)")
     sp.add_argument("--light-intensity", type=float, default=1.0)
+    sp.add_argument("--profile", default=None, metavar="DIR",
+                    help="write a torch.profiler trace of the frames into "
+                         "DIR/trace.json")
+    sp.add_argument("--checkpoint", default=None,
+                    help="accumulation checkpoint path (npz), written after "
+                         "each frame")
+    sp.add_argument("--resume", action="store_true",
+                    help="resume accumulation from --checkpoint")
     sp.add_argument("--metrics", default=None,
                     help="write frame-time/FPS JSON here")
     sp.add_argument("--out", default="render.png")
     sp.set_defaults(fn=cmd_render)
+
+    sp = sub.add_parser("bench", help="BVH vs brute-force sweep (writes its "
+                                      "three files into the working "
+                                      "directory)")
+    sp.add_argument("--sizes", default=None,
+                    help="comma-separated sphere counts (default: the "
+                         "reference's 5k-50k sweep)")
+    sp.add_argument("--rays", type=int, default=131072)
+    sp.add_argument("--world-size", type=float, default=1000.0)
+    sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; cpu times the plain "
+                         "versions on the host clock)")
+    sp.set_defaults(fn=cmd_bench)
 
     sp = sub.add_parser("fit", help="inverse-rendering demo (writes its "
                                     "four files into the working directory)")
@@ -451,12 +595,25 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--checkpoint-every", type=int, default=50)
     sp.add_argument("--resume", action="store_true")
     sp.set_defaults(fn=cmd_fit)
+
+    sp = sub.add_parser("viz", help="BVH wireframe overlay and statistics")
+    common(sp)
+    sp.add_argument("--viz-depth", type=int, default=8)
+    sp.add_argument("--out", default="bvh_viz.png")
+    sp.set_defaults(fn=cmd_viz)
     return p
 
 
 def main(argv=None) -> int:
+    """Run one command; ``TRACER_DEBUG`` sanitizes it (``debug.py``)."""
+    from tracer_torch.debug import enable_debug, maybe_enable_debug
     args = build_parser().parse_args(argv)
-    return args.fn(args)
+    level = maybe_enable_debug()
+    try:
+        return args.fn(args)
+    finally:
+        if level:
+            enable_debug(0)
 
 
 if __name__ == "__main__":
