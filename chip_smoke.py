@@ -119,6 +119,25 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ``checked_nearest_hit`` on 4,096 headline rays over the 16-prim tree,
    clean and with a NaN direction (which must raise); ``cli viz`` at
    800x600;
+8d. the distribution (``dist_slice``) at world size 1 over NCCL, each
+   query timed beside its unsharded twin, the group's start timed:
+   ``nearest_hit_sharded`` on the headline query bitwise the unsharded
+   query, launching ``leafcull_cuda`` once and ``compact_cuda`` twice
+   (counters set to 0 just before, read just after); ``measure_scaling``
+   with one rank; ``render_sharded`` path frames at 800x600, 100k spheres,
+   ``--impl auto`` (leaf walk and compactor launched) and ``pallas``
+   (packet walk launched), bitwise ``render`` on the same noise; the ring
+   at 100,352 spheres x 1,024 rays, brute force and through a one-shard
+   ``build_sharded_bvh`` tree, against ``nearest_hit_brute`` (ties and
+   grazes only); ``make_train_step`` on a (1, 1) mesh at 800x600 and 20
+   spheres (its loss soft_render's to 1e-5 relative, two steps moving
+   the centres); ``fit_scene(mesh=ray_mesh(1))`` for 5 steps, bitwise the
+   unsharded fit with one all-reduce, and with 4 gradient microbatches
+   its losses to 1e-5 relative and its centres to 3e-5 (1e-3 of Adam's
+   step); the group destroyed; then ``nearest_hit_leafcull_t`` on the
+   sorted headline rays (budgets doubled until no overflow; the leaf walk
+   once, the compactor twice), its ids ``nearest_hit_leafcull``'s and its
+   t within 1e-4 relative;
 9. one JSON line of per-kernel results, then the final status line.
 
 Phase 3 also holds ``traverse_cuda`` and ``tilecull_cuda`` against their
@@ -2135,6 +2154,277 @@ def tools_slice(scene, bvh16, o, d):
     log(f"render flags, debug and viz took {time.perf_counter() - t0:.1f} s")
 
 
+RING_SPHERES = 100_352  # the ring check's scene (tests/test_dist.py's)
+RING_RAYS = 1024
+FIT_STEPS_DIST = 5      # sharded fit steps at 800x600
+FIT_TILES = 4           # its gradient microbatches
+FIT_LOSS_RTOL = 1e-5    # T = FIT_TILES against T = 1: losses, and centres
+FIT_CENTRE_ATOL = 1e-3 * 3e-2   # (1e-3 of Adam's step at the fit's lr)
+LITE_RTOL = 1e-4        # nearest_hit_leafcull_t's t against the epilogue's
+
+
+def dist_slice(dev, scene, tables, o, d):
+    """Phase 8d: the distribution at world size 1 over NCCL. The ray-sharded
+    headline query, ``measure_scaling``, the sharded path frames (auto and
+    pallas), the ring (brute and one-shard BVH), the sharded training step
+    and the sharded fit (T = 1 and T = 4), each against its unsharded twin
+    and timed beside it; then ``nearest_hit_leafcull_t`` on the headline.
+    Counters are set to 0 just before each query and read just after."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from tracer_torch import cli
+    from tracer_torch.bench import headline
+    from tracer_torch.bench import render as brender
+    from tracer_torch.bench.scaling import measure_scaling
+    from tracer_torch.bench.timing import time_cuda
+    from tracer_torch.core.sort import sort_rays_octahedral
+    from tracer_torch.core.types import Ray
+    from tracer_torch.diff.fit import BETAS, EPS, fit_scene, params_to_scene
+    from tracer_torch.diff.soft import soft_render
+    from tracer_torch.dist import (RAY_AXIS, build_sharded_bvh,
+                                   make_train_step, nearest_hit_ring,
+                                   nearest_hit_sharded, ray_mesh,
+                                   render_sharded, scene_mesh)
+    from tracer_torch.integrator.wavefront import bounce_noise, render
+    from tracer_torch.intersect.brute import nearest_hit_brute
+    from tracer_torch.kernels.leafcull import (nearest_hit_leafcull,
+                                               nearest_hit_leafcull_t)
+    from tracer_torch.scene.camera import camera_rays
+    from tracer_torch.scene.scene import benchmark_scene
+    counters = kernel_counters()
+    t_phase = time.perf_counter()
+
+    def run_counted(fn, *a):
+        for c in counters.values():
+            c.launches = 0
+        out = fn(*a)
+        torch.cuda.synchronize()
+        return out, {k: c.launches for k, c in counters.items()
+                     if c.launches}
+
+    def timed(name, sharded, twin, iters=5, labels=("sharded", "unsharded")):
+        ms = time_cuda(sharded, warmup=1, iters=iters)
+        ms_twin = time_cuda(twin, warmup=1, iters=iters)
+        log(f"dist {name}: {labels[0]} {ms:.3f} ms, {labels[1]} "
+            f"{ms_twin:.3f} ms")
+
+    t0 = time.perf_counter()
+    mesh = ray_mesh(device=dev)
+    probe = torch.ones(1, device=dev)
+    dist.all_reduce(probe, group=mesh.get_group(RAY_AXIS))
+    torch.cuda.synchronize()
+    log(f"dist: process group of world size {dist.get_world_size()} "
+        f"(backend {dist.get_backend()}) and its first all-reduce in "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+
+    # -- the ray-sharded headline query -------------------------------------
+    cull = tables.cull
+
+    def head(r, s):
+        t, slot, dest, overflow = headline.query(r.origin, r.direction,
+                                                 tables)
+        t, slot = t[dest], slot[dest]
+        sid = torch.where(slot >= 0, cull.slot_to_sphere[
+            slot.clamp(min=0).long()], torch.full_like(slot, -1))
+        return t, sid, overflow.expand(t.shape[0])
+
+    rays = Ray(origin=o, direction=d)
+    (ts, ids, ovf), n = run_counted(nearest_hit_sharded, rays, scene, mesh,
+                                    head)
+    log(f"dist sharded headline query launches: {n}")
+    if n != {"leafcull_cuda": 1, "compact_cuda": 2}:
+        raise AssertionError("the sharded query did not launch the leaf walk "
+                             "once and the compactor twice")
+    tu, idu, ovu = head(rays, scene)
+    if bool(ovf.any()) or bool(ovu.any()):
+        raise AssertionError("the headline query overflowed")
+    if not (torch.equal(ts, tu) and torch.equal(ids, idu)):
+        raise AssertionError("the sharded headline query differs from the "
+                             "unsharded one")
+    log(f"dist sharded headline query: t and ids bitwise the unsharded "
+        f"query's on {ts.numel()} rays")
+    timed(f"headline query ({o.shape[0]} rays)",
+          lambda: nearest_hit_sharded(rays, scene, mesh, head),
+          lambda: head(rays, scene))
+    rows = measure_scaling(scene, rays, head, device_counts=[1], reps=3)
+    log(f"dist measure_scaling: {json.dumps(rows)}")
+
+    # -- the sharded path frames ----------------------------------------------
+    for impl, kernels in (("auto", ("leafcull_cuda", "compact_cuda")),
+                          ("pallas", ("traverse_cuda",))):
+        args = [a for a in brender.argv("path", impl) if a != "--compact"]
+        sess = cli.prepare(cli.build_parser().parse_args(args))
+        cfg = sess.config
+
+        def nearest(r, s, sess=sess):
+            return sess.nearest(s)(r)
+        img, n = run_counted(render_sharded, sess.scene, sess.camera,
+                             torch.Generator(device=dev).manual_seed(1),
+                             mesh, nearest, cfg)
+        log(f"dist sharded render path/{impl} launches: {n}")
+        if min(n.get(k, 0) for k in kernels) < 1:
+            raise AssertionError(f"the sharded path/{impl} frame did not "
+                                 f"launch {kernels}")
+        noise = bounce_noise(torch.Generator(device=dev).manual_seed(1),
+                             (cfg.height, cfg.width), cfg.max_depth, dev)
+        ref = render(sess.scene, sess.camera, None, sess.nearest, cfg,
+                     noise=noise)
+        if not (img.shape == (cfg.height, cfg.width, 3)
+                and torch.equal(img, ref)):
+            raise AssertionError(f"the sharded path/{impl} frame differs "
+                                 "from the unsharded one")
+        log(f"dist sharded render path/{impl}: bitwise the unsharded frame "
+            f"({cfg.width}x{cfg.height}, depth {cfg.max_depth})")
+        timed(f"path/{impl} frame",
+              lambda: render_sharded(sess.scene, sess.camera,
+                                     torch.Generator(device=dev)
+                                     .manual_seed(1), mesh, nearest, cfg),
+              lambda: render(sess.scene, sess.camera, None, sess.nearest,
+                             cfg, noise=noise), iters=2)
+        del sess, img, ref, noise
+
+    # -- the ring ---------------------------------------------------------------
+    ring_scene = benchmark_scene(torch.Generator().manual_seed(2),
+                                 RING_SPHERES, world_size=1000.0, device=dev)
+    rng = np.random.default_rng(0)
+    rd = rng.uniform(-1, 1, (RING_RAYS, 3)).astype(np.float32)
+    rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+    ro = rng.uniform(-200, 200, (RING_RAYS, 3)).astype(np.float32)
+    ring_rays = Ray(origin=torch.as_tensor(ro, device=dev),
+                    direction=torch.as_tensor(rd, device=dev))
+    ref = nearest_hit_brute(ring_rays, ring_scene)
+    t0 = time.perf_counter()
+    sbvh = build_sharded_bvh(ring_scene.centers, ring_scene.radii,
+                             num_shards=1, leaf_size=8, device=dev)
+    log(f"dist build_sharded_bvh (1 shard, leaf 8): "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms, "
+        f"{sbvh.node_min.shape[1]} nodes")
+    for name, kw in (("brute", {}), ("one-shard BVH", {"sbvh": sbvh})):
+        got = nearest_hit_ring(ring_rays, ring_scene, mesh, axis=RAY_AXIS,
+                               **kw)
+        check_choices(f"dist ring {name} vs nearest_hit_brute "
+                      f"({RING_SPHERES} spheres x {RING_RAYS} rays)",
+                      ring_rays.origin, ring_rays.direction,
+                      sphere_of_in(ring_scene), got.t, got.index, ref.t,
+                      ref.index, -1)
+        timed(f"ring {name}",
+              lambda kw=kw: nearest_hit_ring(ring_rays, ring_scene, mesh,
+                                             axis=RAY_AXIS, **kw),
+              lambda: nearest_hit_brute(ring_rays, ring_scene), iters=3)
+    del ring_scene, ref, sbvh
+
+    # -- the sharded training step and fit --------------------------------------
+    cfg, cam, soft, target, init = cli.fit_problem(
+        cli.build_parser().parse_args(["fit"]), dev)
+    crays = camera_rays(cam, cfg)
+    fo, fd = crays.origin.reshape(-1, 3), crays.direction.reshape(-1, 3)
+    ftarget = target.reshape(-1, 3)
+    k_top = init.num_spheres
+    init_fn, factory = make_train_step(scene_mesh(1, 1, device=dev),
+                                       soft=soft, k_top=k_top)
+    params, state = init_fn(init)
+    step = factory(state)
+    with torch.no_grad():
+        img = soft_render(params_to_scene(params), None, soft,
+                          rays=Ray(origin=fo, direction=fd))
+        ref_loss = float(torch.mean((img - ftarget) ** 2))
+    p0 = params["centers"].clone()
+    params1, state1, l1 = step(params, state, fo, fd, ftarget)
+    params2, _, l2 = step(params1, state1, fo, fd, ftarget)
+    log(f"dist train step ({cfg.width}x{cfg.height}, {k_top} spheres, "
+        f"k_top {k_top}): loss {float(l1):.8g} (unsharded soft_render "
+        f"{ref_loss:.8g}), then {float(l2):.8g}")
+    if abs(float(l1) - ref_loss) > 1e-5 * abs(ref_loss):
+        raise AssertionError("the sharded step's loss is not soft_render's")
+    if not (torch.isfinite(l2) and float(l2) <= float(l1)
+            and not torch.equal(params2["centers"], p0)):
+        raise AssertionError("two sharded steps did not move the centres")
+
+    def twin_step():
+        p = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+        loss = torch.mean((soft_render(params_to_scene(p), None, soft,
+                                       rays=Ray(origin=fo, direction=fd))
+                           - ftarget) ** 2)
+        loss.backward()
+        torch.optim.Adam(list(p.values()), lr=1e-2, betas=BETAS,
+                         eps=EPS).step()
+    timed("train step", lambda: step(params, state, fo, fd, ftarget),
+          twin_step, iters=3)
+
+    def fit(**kw):
+        return fit_scene(target, init, cam, steps=FIT_STEPS_DIST, soft=soft,
+                         config=cfg, **kw)
+    plain = fit()
+    one = fit(mesh=ray_mesh(1, device=dev))
+    tiles = fit(mesh=ray_mesh(1, device=dev), grad_microbatch=FIT_TILES)
+    if not (np.array_equal(one.losses, plain.losses)
+            and torch.equal(one.scene.centers, plain.scene.centers)):
+        raise AssertionError("the sharded fit (T = 1) is not bitwise the "
+                             "unsharded fit")
+    dl = float(np.max(np.abs(tiles.losses - plain.losses)
+                      / np.abs(plain.losses)))
+    dc = (tiles.scene.centers - plain.scene.centers).abs()
+    c = plain.scene.centers.abs()
+    ulps = (dc / (torch.finfo(torch.float32).eps
+                  * torch.exp2(torch.floor(torch.log2(c))))).max().item()
+    log(f"dist fit ({FIT_STEPS_DIST} steps): T = 1 bitwise the unsharded "
+        f"fit; T = {FIT_TILES}: losses within {dl:.3g} relative, centres "
+        f"within {dc.max().item():.3g} ({ulps:.0f} ulps at most); ms per "
+        f"step after the first: unsharded {np.mean(plain.step_ms[1:]):.3f}"
+        f", T = 1 {np.mean(one.step_ms[1:]):.3f}, T = {FIT_TILES} "
+        f"{np.mean(tiles.step_ms[1:]):.3f}")
+    # Each tile's backward sums its rays in another order than the whole
+    # batch's: a gradient that cancels over 480,000 rays keeps up to ~1e-3
+    # of relative rounding, and Adam's normalised step (lr 3e-2) passes it
+    # on as ~1e-3 of a step, whatever the coordinate's magnitude.
+    if dl > FIT_LOSS_RTOL or dc.max().item() > FIT_CENTRE_ATOL:
+        raise AssertionError(f"the microbatched fit (T = {FIT_TILES}) "
+                             "drifted from the single all-reduce")
+    dist.destroy_process_group()
+    del params, state, params1, state1, params2, plain, one, tiles
+
+    # -- nearest_hit_leafcull_t on the headline ---------------------------------
+    srays, _ = sort_rays_octahedral(rays)
+    mg, mc = headline.MG, headline.MC
+    while True:
+        (t_l, id_l, ovf), n = run_counted(
+            nearest_hit_leafcull_t, srays, cull, mg, mc, headline.S,
+            headline.SP)
+        if not bool(ovf):
+            break
+        if mg >= cull.num_groups and mc >= cull.leaves_per_chunk:
+            raise AssertionError("nearest_hit_leafcull_t overflows at every "
+                                 "budget")
+        mg, mc = 2 * mg, 2 * mc
+    log(f"dist nearest_hit_leafcull_t (sorted headline rays, budgets {mg}, "
+        f"{mc}) launches: {n}")
+    if n != {"leafcull_cuda": 1, "compact_cuda": 2}:
+        raise AssertionError("nearest_hit_leafcull_t did not launch the leaf "
+                             "walk once and the compactor twice")
+    rec, ovf = nearest_hit_leafcull(srays, scene, tables, headline.MG,
+                                    headline.MC, headline.S, headline.SP,
+                                    headline.CELL_BITS)
+    if bool(ovf) or not torch.equal(id_l, rec.index):
+        raise AssertionError("nearest_hit_leafcull_t's ids differ from "
+                             "nearest_hit_leafcull's")
+    hit = id_l >= 0
+    rel = ((t_l[hit] - rec.t[hit]).abs() / rec.t[hit].abs()).max().item()
+    log(f"dist nearest_hit_leafcull_t: ids equal nearest_hit_leafcull's on "
+        f"{id_l.numel()} rays ({int(hit.sum())} hits), t within {rel:.3g} "
+        f"relative")
+    if rel > LITE_RTOL:
+        raise AssertionError("nearest_hit_leafcull_t's t is off")
+    timed("closest hit of the sorted headline rays",
+          lambda: nearest_hit_leafcull_t(srays, cull, mg, mc, headline.S,
+                                         headline.SP),
+          lambda: nearest_hit_leafcull(srays, scene, tables, headline.MG,
+                                       headline.MC, headline.S, headline.SP,
+                                       headline.CELL_BITS),
+          labels=("nearest_hit_leafcull_t", "nearest_hit_leafcull"))
+    log(f"dist slice took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv=None) -> int:
     import argparse
     import torch
@@ -2457,6 +2747,9 @@ def main(argv=None) -> int:
     # -- 8b, 8c. the sweep, the render flags, debug and viz -------------------
     sweep_slice()
     tools_slice(scene, bvh16, o, d)
+
+    # -- 8d. the distribution at world size 1 -------------------------------
+    dist_slice(dev, scene, tables, o, d)
 
     # -- 9. results ----------------------------------------------------------
     meta = {

@@ -365,9 +365,11 @@ def test_port_never_imports_jax():
 
 
 def _port_sources():
-    """Every source file of the port, and chip_smoke.py."""
+    """Every source file of the port, chip_smoke.py, and the rank module
+    that the distributed tests spawn (it must import no JAX either)."""
     root = os.path.join(REPO, "tracer_torch")
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "tests", "torch_dist_ranks.py")]
     for dirpath, _, names in os.walk(root):
         files += [os.path.join(dirpath, n) for n in names
                   if n.endswith((".py", ".cu", ".cuh", ".cpp", ".h"))]

@@ -27,6 +27,14 @@ The tooling: the BVH-against-brute-force sweep (``bench.harness.run_sweep``;
 wireframe overlay (``viz``; ``python -m tracer_torch.cli viz``) and the
 sanitizers (``debug``; ``TRACER_DEBUG=1``).
 
+The distribution (``tracer_torch.dist``, on ``torch.distributed``):
+``ray_mesh``/``scene_mesh``, the ray-sharded ``nearest_hit_sharded`` and
+``render_sharded``, the ring over scene shards (``nearest_hit_ring``,
+``build_sharded_bvh``), the sharded training step (``make_train_step``),
+``fit_scene(mesh=..., grad_microbatch=...)`` and the scaling harness
+(``measure_scaling``). ``nearest_hit_leafcull_t`` is the closest hit
+straight from the leaf walk, without the HitRecord epilogue.
+
 The renderer (``render``, ``render_direct``; ``python -m tracer_torch.cli
 render``) takes any closest-hit intersector: the leaf walk
 (``nearest_hit_leafcull_checked``), the packet walk
@@ -76,6 +84,7 @@ from tracer_torch.kernels.tlas import (route_pairs, tlas_candidates,
                                        routed_call, nearest_hit_tlas_feats)
 from tracer_torch.kernels.leafcull import (nearest_hit_leafcull,
                                            nearest_hit_leafcull_checked,
+                                           nearest_hit_leafcull_t,
                                            occluded_leafcull,
                                            occluded_leafcull_checked)
 from tracer_torch.intersect.traverse import nearest_hit_bvh
@@ -100,6 +109,12 @@ from tracer_torch.diff.sparse import (soft_radius_scale, soft_render_sparse,
 from tracer_torch.diff.fit import FitResult, fit_scene
 from tracer_torch.bvh.refit import RefitPlan, build_refit_plan, refit_bvh
 from tracer_torch.checkpoint import load_state, save_state
+from tracer_torch.dist import (RAY_AXIS, SCENE_AXIS, AdamState, ShardedBVH,
+                               build_sharded_bvh, init_distributed,
+                               make_train_step, nearest_hit_ring,
+                               nearest_hit_sharded, ray_mesh, render_sharded,
+                               scene_mesh)
+from tracer_torch.bench.scaling import measure_scaling
 
 __all__ = [
     "Ray", "HitRecord", "Scene", "fixed_scene", "random_scene",
@@ -128,4 +143,8 @@ __all__ = [
     "SoftParams", "soft_render", "soft_radius_scale", "soft_render_sparse",
     "soft_render_sparse_leaforder", "FitResult", "fit_scene", "RefitPlan",
     "build_refit_plan", "refit_bvh", "load_state", "save_state",
+    "nearest_hit_leafcull_t", "RAY_AXIS", "SCENE_AXIS", "init_distributed",
+    "ray_mesh", "scene_mesh", "nearest_hit_sharded", "render_sharded",
+    "nearest_hit_ring", "ShardedBVH", "build_sharded_bvh", "AdamState",
+    "make_train_step", "measure_scaling",
 ]

@@ -16,8 +16,18 @@ optimiser state therefore has the JAX state's leaves, and a checkpoint
 parameters (albedo_raw, centers, radii_raw, pitch, position, yaw), Adam's
 step count (int32), then its first and second moments in parameter order;
 19 leaves, the layout of a checkpoint the JAX fit writes, which this fit
-resumes from. The JAX fit's mesh and gradient-microbatch options (rays
-sharded across devices) are not ported.
+resumes from.
+
+On a mesh (``mesh=``, a :mod:`tracer_torch.dist` mesh) every rank takes its
+block of the rays and the parameters stay replicated: the loss and the
+gradients are all-reduced over the ray group, the data-parallel gradient
+all-reduce. With ``grad_microbatch`` T > 1 the block is cut into T tiles,
+and each tile's gradients go out in an asynchronous all-reduce as soon as
+its backward ends, while the next tile computes; every handle is waited on
+before the Adam step. The gradient is the reference's: the sum over the R
+ray blocks of each block's gradient of its own mean loss, R times the
+unsharded gradient (shard_map adds a psum over the ray axis where the
+replicated parameters meet the ray-sharded loss); the loss is the mean.
 """
 
 from __future__ import annotations
@@ -114,6 +124,8 @@ def fit_scene(target: Tensor, init_scene: Scene, camera: Camera,
               soft: SoftParams | None = None,
               config: TracerConfig = DEFAULT_CONFIG,
               optimize_camera: bool = False,
+              mesh=None,
+              grad_microbatch: int = 1,
               checkpoint_path: str | None = None,
               checkpoint_every: int = 50,
               resume: bool = False) -> FitResult:
@@ -125,6 +137,11 @@ def fit_scene(target: Tensor, init_scene: Scene, camera: Camera,
     steps and at the end (:func:`tracer_torch.checkpoint.save_state`); with
     ``resume=True`` a killed run continues from the last checkpoint, and
     the remaining steps are bitwise those of an uninterrupted run.
+
+    With ``mesh`` every rank of it calls the fit with the same arguments;
+    the rays shard over its ray axis (their count must divide by the axis
+    size times ``grad_microbatch``), every rank returns the same result,
+    and only global rank 0 writes checkpoints.
     """
     if soft is None:
         soft = SoftParams()
@@ -155,18 +172,57 @@ def fit_scene(target: Tensor, init_scene: Scene, camera: Camera,
     ray_o = rays.origin.reshape(-1, 3)
     ray_d = rays.direction.reshape(-1, 3)
     target_flat = target.reshape(-1, 3)
+    writer = True
+    if mesh is not None:
+        # Imported here: tracer_torch.dist imports this module.
+        import torch.distributed as dist
+        from tracer_torch.dist.mesh import RAY_AXIS, axis_group, shard_rows
+        group, rank, n = axis_group(mesh, RAY_AXIS)
+        tiles = max(1, grad_microbatch)
+        ray_o, ray_d, target_flat = (
+            shard_rows(x, rank, n).reshape(tiles, -1, 3)
+            for x in (ray_o, ray_d, target_flat))
+        writer = dist.get_rank() == 0
+        scene_leaves = tree_leaves(scene_p)
+
+    def sharded_loss():
+        """The loss over every rank's tiles, with the summed gradients
+        of the tiles (see the module docstring) set on the parameters."""
+        bufs, handles = [], []
+        for k in range(tiles):
+            val = loss_fn(all_params, ray_o[k], ray_d[k], target_flat[k])
+            grads = torch.autograd.grad(val, scene_leaves)
+            buf = torch.cat([(val.detach() * (1.0 / (n * tiles))).reshape(1)]
+                            + [(g * (1.0 / tiles)).reshape(-1)
+                               for g in grads])
+            handles.append(dist.all_reduce(buf, group=group, async_op=True))
+            bufs.append(buf)
+        for h in handles:
+            h.wait()
+        total = bufs[0]
+        for buf in bufs[1:]:
+            total = total + buf
+        at = 1
+        for p in scene_leaves:
+            p.grad = total[at:at + p.numel()].reshape(p.shape)
+            at += p.numel()
+        return total[0]
 
     def save(step):
-        save_state(checkpoint_path, _state_tree(all_params, opt),
-                   meta={"step": step, "losses": losses})
+        if writer:
+            save_state(checkpoint_path, _state_tree(all_params, opt),
+                       meta={"step": step, "losses": losses})
 
     clock = Clock(target.device)
     step_ms = []
     for step in range(start_step, steps):
         clock.start()
         opt.zero_grad()
-        val = loss_fn(all_params, ray_o, ray_d, target_flat)
-        val.backward()
+        if mesh is None:
+            val = loss_fn(all_params, ray_o, ray_d, target_flat)
+            val.backward()
+        else:
+            val = sharded_loss()
         # The pose stays in the optimiser with zero gradients, as in the
         # JAX fit (its loss never reaches the pose: the rays are fixed).
         for p in cam_p.values():

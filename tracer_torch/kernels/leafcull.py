@@ -709,6 +709,42 @@ def nearest_hit_leafcull_checked(rays, scene: Scene, tables,
         max_candidates)
 
 
+@torch.no_grad()
+def nearest_hit_leafcull_t(rays, tables: CullTables, max_groups: int = 48,
+                           max_candidates: int = 119, subpackets: int = 8,
+                           subpacket: int = 64):
+    """Lite closest hit: (t, sphere id, overflow) straight from the leaf
+    walk, without the HitRecord epilogue (no point, normal or t recomputed
+    from the winning sphere); t is the walk's own (the u-form quadratic),
+    +inf on a miss, the id -1. Batch shape kept.
+
+    The rays go in the caller's order, packed into subpackets as they come
+    (``pack_ray_features``), so sort them first (``core.sort``); phase A is
+    :func:`leaf_candidates` over ``tables`` (CullTables) and the walk
+    :func:`leafcull_call`. On overflow re-dispatch with larger budgets.
+    """
+    batch_shape = rays.batch_shape
+    o = rays.origin.reshape(-1, 3).detach()
+    d = rays.direction.reshape(-1, 3).detach()
+    b = o.shape[0]
+    feats, g, pad = pack_ray_features(o, d, subpackets, subpacket)
+    rows, overflow = leaf_candidates(_pad_edge(o, pad), _pad_edge(d, pad),
+                                     tables, max_groups, max_candidates,
+                                     subpacket)
+    rows = rows.reshape(tables.num_chunks, g, subpackets, rows.shape[-1])
+    t_k, slot = leafcull_call(feats, rows, tables.prims, tables.leaf_size,
+                              tables.leaves_per_chunk,
+                              tables.leaves_per_group)
+    # (G, SP, S): ray g*S*SP + s*SP + r sits at [g, r, s].
+    slot = slot.permute(0, 2, 1).reshape(-1)[:b]
+    t_k = t_k.permute(0, 2, 1).reshape(-1)[:b]
+    hit = slot < _NOSLOT
+    sid = torch.where(hit, tables.slot_to_sphere[torch.where(
+        hit, slot, 0).long()], torch.full_like(slot, -1))
+    t = torch.where(hit, t_k, torch.full_like(t_k, float("inf")))
+    return t.reshape(batch_shape), sid.reshape(batch_shape), overflow
+
+
 def occluded_leafcull(rays, tables, t_max, max_groups: int = 48,
                       max_candidates: int = 119, subpackets: int = 8,
                       subpacket: int = 64, cell_bits: int = 8):
