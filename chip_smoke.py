@@ -101,15 +101,24 @@ Phases, each of which raises on failure (the script then exits non-zero):
 8. the headline measurement (``tracer_torch.bench``, with its shadow,
    LBVH and differentiable extras) and the large-scene measurement
    (``tracer_torch.bench.large``), one JSON line each;
-8b. the sweep (``sweep_slice``): ``cli bench`` at 1k, 10k, 100k, 1M and
-   10M spheres x 131,072 origin rays in a temporary directory, every
+8b. the sweep (``sweep_slice``): ``cli bench`` at 1k, 10k, 100k, 1M, 10M
+   and 100M spheres x 131,072 origin rays in a temporary directory, every
    kernel counter set to 0 just before and read just after; per row its
-   path, build, brute and BVH times, Mrays/s, escalations and the kernels
-   its query launches (dense: none; single chunk: ``leafcull_cuda`` and
-   ``compact_cuda``; routed: ``routed_cuda`` and ``compact_cuda``), no
-   escalation of a routed row at the JAX harness's budgets, and its t and
-   ids against brute force on the rays brute force timed (ties and grazes
-   only, t to 1e-5 relative but at a graze); the complexity fit;
+   path, build, brute and BVH times, Mrays/s, table chunks, settled
+   budgets, escalations, scene and table times, peak memory, seconds of
+   run and the kernels its query launches (dense: none; single chunk:
+   ``leafcull_cuda`` and ``compact_cuda``; routed: ``routed_cuda`` and
+   ``compact_cuda``), no escalation of a routed row of at most 256 chunks
+   at the JAX harness's budgets, and its t and ids against brute force on
+   the rays brute force timed (ties and grazes only, t to 1e-5 relative
+   but at a graze); the complexity fit. The 100M row (more than 256
+   chunks, brute force skipped, its scene freed by the sweep) is held
+   against brute force on its first 1,024 rays over the scene drawn again
+   from its seed; its routed rows' first 2,048 pairs through
+   ``routed_cuda`` against ``routed_plain`` bit for bit; its stage times,
+   launches, walk bound and compactor planes (``routed_row``); then the
+   same tables at the published sweep's 524,288 rays: the query settled
+   and timed, and ``routed_row`` again;
 8c. the render flags, debug and viz (``tools_slice``): ``cli render``
    path/auto at 800x600, 100k spheres, ``--compact``: 4 frames straight
    with ``--checkpoint`` against 2 frames and ``--frames 4 --resume``,
@@ -214,6 +223,9 @@ MIN_AGREE = 0.9999      # share of rays whose choice must be equal
 MIN_AGREE_REFERENCE = 0.995
 BRUTE_RAYS = 16384
 BRUTE_RAYS_10M = 4096
+BRUTE_RAYS_100M = 1024  # the 100M sweep row's rays held to brute force
+PAIR_SLICE = 2048       # its routed pairs held to the plain walk
+PUBLISHED_RAYS = 524288  # the rays of the JAX package's published sweep
 SMALL_T_MAX = 150.0     # shadow t_max in the 20k settings (world 500)
 DENSE_MG = 2048         # dense 10M comparison: group budget (no overflow)
 HBM_BYTES_PER_S = 3.35e12
@@ -1961,26 +1973,95 @@ def check_sweep_row(name, o, d, scene, ta, ia, tb, ib):
         raise AssertionError(f"{name}: the row and brute force disagree")
 
 
-def sweep_slice():
+def routed_row(n, tables, o, d, budgets, comp):
+    """A 100M sweep row's routed query on its own arguments at its settled
+    ``budgets``: stage times (prep, routing + phase A, walk, merge), the
+    kernels' launches in one query, the compactor's planes (held to its
+    plain version, timed), ``routed_cuda`` against ``routed_plain`` bit for
+    bit on the first ``PAIR_SLICE`` pairs, its time on every pair and its
+    bound. Returns the walk's numbers for the log."""
+    import torch
+    from tracer_torch.bench import harness, large
+    from tracer_torch.bench.timing import time_cuda
+    from tracer_torch.kernels.conecull import compact_cuda
+    from tracer_torch.kernels.tlas import (routed_call, routed_cuda,
+                                           routed_plain, tlas_candidates,
+                                           tlas_merge)
+    cull = tables.cull
+    mg, mc, npairs, kc = budgets
+    name = f"routed n={n} x {o.shape[0]} rays"
+    pblk = large.budgets(n, cull.num_chunks, o.shape[0])[3]
+    feats, _ = large.prep(o, d)
+    ph = (feats, tables, mg, mc, npairs, kc, pblk)
+    prep_ms = time_cuda(large.prep, o, d)
+    phase_a_ms = time_cuda(tlas_candidates, *ph, warmup=1, iters=3)
+    rows, pc, pg, merge_pos, ovf = tlas_candidates(*ph)
+    if bool(ovf):
+        raise AssertionError(f"n={n}: routed phase A overflowed at its "
+                             f"settled budgets")
+    args = (pc, pg, rows, feats, cull.prims, cull.leaf_size,
+            cull.leaves_per_chunk, cull.leaves_per_group)
+    walk_ms = time_cuda(routed_call, *args, warmup=1, iters=3)
+    t_p, s_p = routed_call(*args)
+    merge_ms = time_cuda(tlas_merge, t_p, s_p, merge_pos)
+    before = (routed_cuda.launches, compact_cuda.launches)
+    with comp.record():
+        harness._prep_query(harness.nearest_hit_tlas_feats, o, d, tables,
+                            mg, mc, npairs, kc, pblk)
+    torch.cuda.synchronize()
+    launches = {"routed_cuda": routed_cuda.launches - before[0],
+                "compact_cuda": compact_cuda.launches - before[1]}
+    comp.check(name, timed=3)
+    k = min(PAIR_SLICE, pc.shape[0])
+    sl = (pc[:k], pg[:k], rows[:k], *args[3:])
+    compare_routed(f"{name}, first {k} pairs", sl)
+    plain_ms = time_cuda(lambda *a: routed_plain(*a, pair_elems=PLAIN_ELEMS),
+                         *sl, warmup=1, iters=1)
+    leaf_rows(f"{name}, rows", rows, cull.leaves_per_group)
+    bms, bby = walk_bound(name, feats, rows, cull,
+                          walked_leaves(rows, cull.leaves_per_group),
+                          rows.shape[0] * feats.shape[2] * feats.shape[1]
+                          * 8, extra=(pc, pg))
+    del rows, t_p, s_p
+    log(f"{name}: {pc.shape[0]} pairs, budgets {budgets}, launches "
+        f"{launches}; prep {prep_ms:.3f} ms, routing + phase A "
+        f"{phase_a_ms:.3f} ms, walk {walk_ms:.3f} ms (routed_cuda; plain "
+        f"{plain_ms:.3f} ms on the first {k} pairs), merge {merge_ms:.3f} "
+        f"ms; walk bound {bms:.4f} ms ({bby})")
+    return {"ms": walk_ms, "plain_ms_slice": plain_ms, "slice": k,
+            "bound_ms": bms, "bound_by": bby, "launches": launches}
+
+
+def sweep_slice(comp):
     """Phase 8b: ``cli bench`` over the published decades in a temporary
     directory, every kernel counter set to 0 just before and read just
     after. Each row's query calls are counted on their own (the kernels
     they launch, per call) and their last result held against the last
-    brute-force result of the row on the rays brute force timed."""
+    brute-force result of the row on the rays brute force timed, or, where
+    the sweep skipped brute force, against ``harness.brute_t`` on the
+    first ``BRUTE_RAYS_100M`` rays over the row's scene drawn again from
+    its seed (``routed_row`` then checks the row's routed query)."""
     import collections
     import tempfile
+    import torch
     from tracer_torch import cli
     from tracer_torch.bench import harness
+    from tracer_torch.bench.timing import time_cuda
     counters = kernel_counters()
-    rows, brutes = {}, {}
+    rows, brutes, starts = {}, {}, {}
     real_row_query, real_brute_t = harness.row_query, harness.brute_t
+    real_scene = harness.sweep_scene
 
-    def row_query(n, scene, tables, o, d, dense_limit):
-        query, path, esc = real_row_query(n, scene, tables, o, d,
-                                          dense_limit)
-        rec = rows[n] = {"path": path, "esc": esc, "calls": 0,
-                         "launches": collections.Counter(), "scene": scene,
-                         "o": o, "d": d}
+    def sweep_scene(n, *a):
+        starts[n] = time.perf_counter()
+        return real_scene(n, *a)
+
+    def row_query(n, scene, tables, o, d, dense_limit, log):
+        query, path, esc, budgets = real_row_query(n, scene, tables, o, d,
+                                                   dense_limit, log)
+        rec = rows[n] = {"path": path, "esc": esc, "budgets": budgets,
+                         "calls": 0, "launches": collections.Counter(),
+                         "scene": scene, "tables": tables, "o": o, "d": d}
 
         def counted():
             before = {k: f.launches for k, f in counters.items()}
@@ -1990,7 +2071,7 @@ def sweep_slice():
                                     for k, f in counters.items()})
             rec["out"] = out
             return out
-        return counted, path, esc
+        return counted, path, esc, budgets
 
     def brute_t(o, d, centers, radii):
         brutes[centers.shape[0]] = out = real_brute_t(o, d, centers, radii)
@@ -2000,6 +2081,7 @@ def sweep_slice():
     for f in counters.values():
         f.launches = 0
     harness.row_query, harness.brute_t = row_query, brute_t
+    harness.sweep_scene = sweep_scene
     try:
         with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
             if cli.main(["bench", "--sizes",
@@ -2013,36 +2095,70 @@ def sweep_slice():
                 png = f.read()
     finally:
         harness.row_query, harness.brute_t = real_row_query, real_brute_t
+        harness.sweep_scene = real_scene
     launches = {k: f.launches for k, f in counters.items() if f.launches}
-    sweep_s = time.perf_counter() - t0
+    t_end = time.perf_counter()
+    sweep_s = t_end - t0
     log(f"sweep ({len(rec['sizes'])} sizes x {rec['num_rays']} rays, "
         f"{sweep_s:.1f} s): launches {launches}; {len(data_rows)} data rows, "
         f"{len(png)} bytes of PNG; device {rec['device']}")
     if len(data_rows) != len(harness.PUBLISHED_SIZES) or \
             not png.startswith(b"\x89PNG"):
         raise AssertionError("cli bench did not write its files")
+    ends = [starts[n] for n in rec["sizes"][1:]] + [t_end]
     for i, n in enumerate(rec["sizes"]):
-        r = rows[n]
+        r, stats = rows[n], rec["row_stats"][i]
         base = r["path"].split("_escalated")[0]
         per_call = {k: v / r["calls"] for k, v in r["launches"].items() if v}
         if set(per_call) != SWEEP_KERNELS[base]:
             raise AssertionError(f"n={n}: the {r['path']} row launched "
                                  f"{per_call}")
-        if base == "tlas_routed" and r["esc"]:
+        if base == "tlas_routed" and r["esc"] and stats["chunks"] <= 256:
             raise AssertionError(f"n={n}: the routed row overflowed at the "
                                  f"JAX harness's budgets")
         nb = rec["brute_nb_timed"][i]
-        tb, ib = brutes[n]
+        log(f"sweep n={n}: {rec['row_paths'][i]}, {stats['chunks']} "
+            f"chunk(s), budgets {stats['budgets']}, {r['esc']} "
+            f"escalation(s); scene {stats['scene_ms']:.1f} ms, build "
+            f"{rec['build_ms'][i]:.1f} ms, tables {stats['tables_ms']:.1f} "
+            f"ms; brute {rec['brute_s'][i]:.6f} s ({nb} rays timed), bvh "
+            f"{rec['bvh_s'][i]:.6f} s ({rec['mrays_bvh'][i]:.3f} Mrays/s, "
+            f"speedup {rec['speedup'][i]:.1f}); peak "
+            f"{stats['peak_mib']:.1f} MiB; {ends[i] - starts[n]:.1f} s of "
+            f"sweep; launches per query {per_call}")
         ta, ia = r["out"]
-        log(f"sweep n={n}: {rec['row_paths'][i]}, build "
-            f"{rec['build_ms'][i]:.1f} ms, brute {rec['brute_s'][i]:.6f} s "
-            f"({nb} rays timed), bvh {rec['bvh_s'][i]:.6f} s "
-            f"({rec['mrays_bvh'][i]:.3f} Mrays/s, speedup "
-            f"{rec['speedup'][i]:.1f}), {r['esc']} escalation(s), "
-            f"launches per query {per_call}")
-        check_sweep_row(f"sweep n={n} vs brute force (first {nb} rays)",
-                        r["o"][:nb], r["d"][:nb], r["scene"], ta[:nb],
-                        ia[:nb], tb, ib)
+        if nb:
+            tb, ib = brutes[n]
+            check_sweep_row(f"sweep n={n} vs brute force (first {nb} rays)",
+                            r["o"][:nb], r["d"][:nb], r["scene"], ta[:nb],
+                            ia[:nb], tb, ib)
+            continue
+        t1 = time.perf_counter()
+        m = BRUTE_RAYS_100M
+        scene = harness.sweep_scene(n, 0, 1000.0, r["o"].device)
+        tb, ib = harness.brute_t(r["o"][:m], r["d"][:m], scene.centers,
+                                 scene.radii)
+        check_sweep_row(f"sweep n={n} vs brute force (first {m} rays, the "
+                        f"scene drawn again)", r["o"][:m], r["d"][:m], scene,
+                        ta[:m], ia[:m], tb, ib)
+        del scene, tb, ib
+        walk = routed_row(n, r["tables"], r["o"], r["d"], r["budgets"], comp)
+        # The same tables at the published sweep's rays.
+        o5, d5 = harness.origin_rays(PUBLISHED_RAYS, 0, r["o"].device)
+        query, path, esc, b5 = harness.row_query(n, None, r["tables"], o5,
+                                                 d5, 0, log)
+        q_ms = time_cuda(query)
+        walk5 = routed_row(n, r["tables"], o5, d5, b5, comp)
+        log(f"sweep n={n} at {PUBLISHED_RAYS} rays: {path}, query "
+            f"{q_ms:.3f} ms ({PUBLISHED_RAYS / q_ms / 1e3:.3f} Mrays/s); "
+            f"routed_cuda {walk5}")
+        del query, o5, d5
+        log(f"sweep n={n}: the smoke's checks {time.perf_counter() - t1:.1f} "
+            f"s; the row adds "
+            f"{ends[i] - starts[n] + time.perf_counter() - t1:.1f} s in all; "
+            f"routed_cuda {walk}")
+    rows.clear()
+    torch.cuda.empty_cache()
     log(f"sweep complexity: {json.dumps(rec['complexity'])}")
     missing = {"leafcull_cuda", "compact_cuda", "routed_cuda"} - set(launches)
     if missing:
@@ -2745,7 +2861,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # -- 8b, 8c. the sweep, the render flags, debug and viz -------------------
-    sweep_slice()
+    sweep_slice(comp)
     tools_slice(scene, bvh16, o, d)
 
     # -- 8d. the distribution at world size 1 -------------------------------

@@ -18,6 +18,7 @@ the slope gates of ``tests/test_bench.py::test_committed_sweep_slopes``.
 
 import json
 import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -34,9 +35,15 @@ from tracer.intersect.brute import nearest_hit_brute as j_nearest_brute
 from tracer.intersect.traverse import nearest_hit_bvh as j_nearest_bvh
 from tracer_torch import cli
 from tracer_torch.bench import harness
+from tracer_torch.bench import large as tt_large
+from tracer_torch.kernels import leafcull
+from tracer_torch.kernels import tlas as tt_tlas
+from tracer_torch.kernels.leafcull import check_slot_space
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CARD_SWEEP = os.path.join(ROOT, "results", "h100", "sweep.json")
+CARD_PUBLISHED = os.path.join(ROOT, "results", "h100",
+                              "sweep_published.json")
 N = [1e3, 1e4, 1e5, 1e6]
 RNG = np.random.default_rng(11)
 
@@ -67,7 +74,7 @@ def test_sweep_record_and_data_file_match_jax(tmp_path):
                  row_paths=["a", "b", "c"])
     got = harness.SweepResult(**lists, device="NVIDIA H100, 700 W").to_json()
     want = jharness.SweepResult(**lists).to_json()
-    assert set(got) == set(want) | {"device"}
+    assert set(got) == set(want) | {"device", "row_stats"}
     assert json.dumps({k: got[k] for k in want}) == json.dumps(want)
     harness.SweepResult(**lists).save_data_txt(tmp_path / "port.txt")
     jharness.SweepResult(**lists).save_data_txt(tmp_path / "jax.txt")
@@ -111,9 +118,10 @@ def test_row_query_matches_jax(row_scene, case, expect):
             tscene, bvh, max_chunk_bytes=(1 << 15) if "routed" in case
             else 9 << 20)
         assert (tables.cull.num_chunks > 1) == ("routed" in case)
-    query, path, esc = harness.row_query(len(r), tscene, tables, o, d,
-                                         dense_limit)
+    query, path, esc, budgets = harness.row_query(len(r), tscene, tables,
+                                                  o, d, dense_limit)
     assert (path, esc) == (expect, 0)
+    assert len(budgets or ()) == {"dense": 0, "single_chunk": 2}.get(case, 4)
     t, sid = query()
     np.testing.assert_array_equal(tp.np_(sid), tp.np_(ref.index))
     assert (tp.np_(sid) >= 0).sum() > 100
@@ -121,13 +129,22 @@ def test_row_query_matches_jax(row_scene, case, expect):
 
 
 def test_settle_doubles_every_budget_until_no_overflow():
-    calls = []
+    """Each doubling is logged; a query that still overflows at the caps
+    raises rather than being timed at budgets that drop hits."""
+    calls, logged = [], []
 
     def run(mg, mc):
         calls.append((mg, mc))
         return (None, torch.tensor(mg < 40 or mc < 500))
-    assert harness._settle(run, (8, 119), (64, 400)) == ((64, 400), 3)
+    with pytest.raises(RuntimeError, match="overflows at its caps"):
+        harness._settle(run, (8, 119), (64, 400))
     assert calls == [(8, 119), (16, 238), (32, 400), (64, 400)]
+    calls.clear()
+    assert harness._settle(run, (8, 119), (64, 512), logged.append) == \
+        ((64, 512), 3)
+    assert calls == [(8, 119), (16, 238), (32, 476), (64, 512)]
+    assert logged[-1] == "overflow at budgets (32, 476): doubled to (64, 512)"
+    assert len(logged) == 3
     assert harness._settle(run, (64, 600), (64, 512)) == ((64, 512), 0)
 
 
@@ -147,6 +164,100 @@ def test_run_sweep_on_the_cpu(dense_limit, lbvh_from, paths):
     j = res.to_json()
     assert "complexity" in j and len(j["speedup"]) == 2
     assert j["device"] == "cpu" and j["path"] == "plain"
+    stats = j["row_stats"]
+    assert [r["chunks"] for r in stats] == [0, int(dense_limit < 1024)]
+    assert stats[0]["budgets"] is None and stats[0]["tables_ms"] == 0.0
+    assert all(r["escalations"] == 0 and r["scene_ms"] > 0
+               and np.isnan(r["peak_mib"]) for r in stats)
+
+
+def test_run_sweep_keeps_the_timed_lbvh_and_frees_the_scene(monkeypatch):
+    """Above ``brute_limit`` brute force is skipped (NaN) and the query is
+    handed no scene, as in the JAX harness; the device LBVH is built twice
+    (a warm-up, then the timed build) and the timed build's tree is the one
+    the tables are built from."""
+    builds, tables_from, scenes = [], [], {}
+    real_build, real_tables = harness.build_bvh_device, \
+        harness.build_cone_tables
+    real_row_query = harness.row_query
+
+    def build(*a):
+        builds.append(real_build(*a))
+        return builds[-1]
+
+    def tables(scene, bvh):
+        tables_from.append(bvh)
+        return real_tables(scene, bvh)
+
+    def row_query(n, scene, *a):
+        scenes[n] = scene
+        return real_row_query(n, scene, *a)
+    monkeypatch.setattr(harness, "build_bvh_device", build)
+    monkeypatch.setattr(harness, "build_cone_tables", tables)
+    monkeypatch.setattr(harness, "row_query", row_query)
+    res = harness.run_sweep(sizes=(512, 2048), num_rays=2048,
+                            world_size=60.0, brute_limit=1024,
+                            dense_limit=256, device_build_min_n=2048,
+                            device="cpu", log=lambda *a: None)
+    assert res.row_paths == ["hybrid_feats", "hybrid_feats_lbvh"]
+    assert res.brute_nb == [2048, 0] and np.isnan(res.brute_s[1])
+    assert scenes[512] is not None and scenes[2048] is None
+    assert len(builds) == 2 and tables_from[1] is builds[1]
+    assert all(v > 0 for v in res.bvh_s + res.build_ms)
+    assert res.to_json()["complexity"].keys() == {"bvh_loglog_slope",
+                                                  "bvh_logfit"}
+
+
+def test_published_sizes_are_the_jax_sweeps():
+    with open(os.path.join(ROOT, "results", "sweep.json")) as f:
+        assert list(harness.PUBLISHED_SIZES) == json.load(f)["sizes"]
+    assert harness.PUBLISHED_SIZES[-1] == 100_000_000
+
+
+@pytest.mark.parametrize("chunks", [257, 1018, 1421])
+@pytest.mark.parametrize("rays", [131072, 524288])
+def test_budgets_above_256_chunks_are_the_jax_harness_tier(chunks, rays):
+    """tracer/bench/harness.py:255-275 at C > 256 chunks: a per-chunk group
+    budget of 32, npairs = min(C g, max(4096, 144 g)), kc = min(C, 512),
+    pair blocks of 4096, g estimated from the ray count."""
+    g = (rays + 256 * 128) // (8 * 128) + 1
+    want = (32, min(chunks * g, max(4096, 144 * g)), min(chunks, 512), 4096)
+    assert tt_large.budgets(100_000_000, chunks, rays) == want
+
+
+@pytest.mark.parametrize("chunks,leaves,leaf_size,ok", [
+    (1018, 3072, 32, True),             # the 100M tables
+    (1023, 32768, 32, True),            # the last chunk count below 2^30
+    (1024, 32768, 32, False),           # 2^30 slots exactly
+    (1, 1 << 31, 1, False)])
+def test_slot_space_guard(chunks, leaves, leaf_size, ok):
+    """Padded slot counts at or above the no-slot sentinel 2^30 are refused
+    before any walk, without allocating the table."""
+    if ok:
+        check_slot_space(chunks, leaves, leaf_size)
+    else:
+        with pytest.raises(ValueError, match="2\\^30"):
+            check_slot_space(chunks, leaves, leaf_size)
+
+
+def test_walk_wrappers_refuse_a_slot_space_of_2_30():
+    """The leaf, any-hit and routed walks check the slot space of the
+    table they are given: here 2^30 chunks of one one-prim leaf, a
+    stride-0 view that allocates nothing."""
+    C = 1 << 30
+    feats = torch.zeros((1, 1, 64, 16))
+    prims = torch.zeros((1, 1, 4)).expand(C, 1, 4)
+    rows = torch.zeros((1, 1, 1, 8), dtype=torch.int32)
+    pair = torch.zeros((1,), dtype=torch.int32)
+    calls = [lambda: leafcull.leafcull_call(feats, rows.expand(C, 1, 1, 8),
+                                            prims, 1, 1, 16),
+             lambda: leafcull.anyhit_call(feats, rows.expand(C, 1, 1, 8),
+                                          prims, 1, 1, 16),
+             lambda: tt_tlas.routed_call(pair, pair, rows[0], feats, prims,
+                                         1, 1, 16)]
+    for call in calls:
+        with pytest.raises(ValueError, match="2\\^30"):
+            call()
 
 
 def test_brute_force_matches_jax_and_caps_its_rays():
@@ -190,6 +301,36 @@ def test_committed_card_sweep_slopes():
         data = json.load(f)
     assert data["device"].startswith("NVIDIA H100")
     assert data["sizes"] == [1000, 10000, 100000, 1000000, 10000000]
+    comp = data["complexity"]
+    assert comp["brute_loglog_slope"] > 0.55, comp
+    assert comp["bvh_loglog_slope"] < 0.62 * comp["brute_loglog_slope"], comp
+    sizes = np.asarray(data["sizes"], np.float64)
+    sub = sizes <= 10_000_000
+    vv = np.asarray(data["bvh_s"], np.float64)[sub]
+    slope_sub = np.polyfit(np.log(sizes[sub]), np.log(vv), 1)[0]
+    assert slope_sub < 0.5 * comp["brute_loglog_slope"], slope_sub
+    for n, b, v in zip(data["sizes"], data["brute_s"], data["bvh_s"]):
+        if np.isfinite(b) and np.isfinite(v) and n >= 10_000:
+            assert v < b, f"BVH slower than brute at n={n}"
+
+
+def test_committed_card_published_sweep_gates():
+    """The card's run of the JAX package's published sweep (``cli bench
+    --sizes 1000,...,100000000 --rays 524288``) holds the gates of
+    tests/test_bench.py::test_committed_sweep_slopes: brute slope above
+    0.55, the BVH's below 0.62 of it over 1k-100M and below 0.5 of it over
+    1k-10M, the BVH faster than brute force from 10k where both ran; its
+    100M row is routed on the device LBVH past 256 chunks, with brute force
+    skipped, as in results/sweep.json."""
+    with open(CARD_PUBLISHED) as f:
+        data = json.load(f)
+    assert data["device"].startswith("NVIDIA H100")
+    assert data["sizes"] == list(harness.PUBLISHED_SIZES)
+    assert data["num_rays"] == 524288
+    assert re.fullmatch(r"tlas_routed(_escalated\d+)?_lbvh",
+                        data["row_paths"][-1])
+    assert np.isnan(data["brute_s"][-1]) and data["brute_nb_timed"][-1] == 0
+    assert data["row_stats"][-1]["chunks"] > 256
     comp = data["complexity"]
     assert comp["brute_loglog_slope"] > 0.55, comp
     assert comp["bvh_loglog_slope"] < 0.62 * comp["brute_loglog_slope"], comp

@@ -11,13 +11,20 @@ force, a log fit and a log-log slope for the BVH). The data file matches
 Each row runs the query the port would run at that size (:func:`row_query`):
 the dense sweep up to ``dense_limit`` spheres, the single-chunk leaf walk
 (prep, phase A with two compactions, ``leafcull_cuda``) while the tables
-fit one chunk, and the TLAS-routed walk (routing and phase A with three
-compactions, ``routed_cuda``) beyond; from ``device_build_min_n`` spheres
-the tree is the device LBVH. A query that overflows its candidate budgets
-is re-run with both doubled until it does not, and then timed at the
-budgets it settled on; the row's path names the doublings. Brute force is
-the plain min-t over 65,536-sphere chunks, on fewer rays where the pair
-block would pass 2^28 elements, scaled to ``num_rays``.
+fit one chunk, and the TLAS-routed walk (routing, and phase A with two
+compactions per block of pairs, ``routed_cuda``) beyond, at the JAX
+harness's budgets for the table's chunk count (``bench.large.budgets``);
+from ``device_build_min_n`` spheres the tree is the device LBVH, timed on
+one build after a warm-up and kept. A query that overflows its budgets is
+re-run with every budget doubled until it does not, and then timed at the
+budgets it settled on; the row's path names the doublings, and a query
+that still overflows at the budgets' caps raises. Brute force is the plain
+min-t over 65,536-sphere chunks, on fewer rays where the pair block would
+pass 2^28 elements, scaled to ``num_rays``; above ``brute_limit`` spheres
+it is skipped (NaN) and the scene is freed once the tables hold it, as the
+JAX harness does at 100M. Each row also records its table chunks, settled
+budgets, escalations, the host's scene and table times and the card's
+peak memory (``row_stats``).
 
 Times are CUDA events on the card (``timing.time_cuda``: the whole query,
 no carry between calls, so neither a NaN carry nor a negative slope can
@@ -28,8 +35,9 @@ raises where there is none.
 Deviations from the JAX harness: scenes come from
 ``torch.Generator().manual_seed(seed + n)``, the JAX scene's distribution
 but not its numbers (the rays are the same: numpy, ``seed``); an
-overflowing query is escalated where JAX records a degraded row; the JSON
-names the card and its power limit (``device``).
+overflowing query is escalated where JAX records a degraded row; the tree
+is freed once the tables hold it; the JSON names the card and its power
+limit (``device``) and adds ``row_stats``.
 """
 
 from __future__ import annotations
@@ -43,7 +51,7 @@ import numpy as np
 import torch
 
 from tracer_torch.bench.large import budgets as routed_budgets
-from tracer_torch.bench.timing import time_cuda, time_host
+from tracer_torch.bench.timing import Clock, time_cuda, time_host
 from tracer_torch.bvh.builder import build_bvh
 from tracer_torch.bvh.device import build_bvh_device
 from tracer_torch.cli import DENSE_MAX_SPHERES
@@ -59,7 +67,7 @@ from tracer_torch.scene.scene import benchmark_scene
 
 DEFAULT_SIZES = (5000, 10000, 15000, 20000, 25000, 30000, 35000, 40000,
                  45000, 50000)          # src/benchmark.c:289-295
-PUBLISHED_SIZES = (1000, 10000, 100000, 1000000, 10000000)
+PUBLISHED_SIZES = (1000, 10000, 100000, 1000000, 10000000, 100000000)
 CHUNK = 65536           # spheres per brute-force chunk
 PAIR_CAP = 1 << 28      # (rays x chunk) elements of one brute-force block
 LEAF_SIZE = 32
@@ -77,6 +85,7 @@ class SweepResult:
     path: str              # the walks' implementation: cuda or plain
     brute_nb: list = dataclasses.field(default_factory=list)
     row_paths: list = dataclasses.field(default_factory=list)  # per size
+    row_stats: list = dataclasses.field(default_factory=list)  # per size
     device: str = ""       # the card's name and power limit, or "cpu"
 
     def speedups(self):
@@ -103,6 +112,7 @@ class SweepResult:
             "row_paths": self.row_paths,
             "complexity": complexity_fit(self.sizes, self.brute_s, self.bvh_s),
             "device": self.device,
+            "row_stats": self.row_stats,
         }
 
     def save_data_txt(self, path: str) -> None:
@@ -176,32 +186,39 @@ def _prep_query(walk, o, d, tables, *budgets):
     return t, slot, kernel_order_dest(dest, S, SP), overflow
 
 
-def _settle(run, start, cap):
+def _settle(run, start, cap, log: Callable = lambda *a: None):
     """Budgets ``run(*b)`` settles on: from ``start``, every budget doubled
     (up to ``cap``) while the query overflows, as the checked drivers
-    escalate. Returns (budgets, doublings)."""
+    escalate, each doubling logged. Returns (budgets, doublings); raises
+    RuntimeError if the query overflows at ``cap``."""
     b = tuple(min(x, c) for x, c in zip(start, cap))
     esc = 0
-    while bool(run(*b)[-1]) and b != tuple(cap):
-        b = tuple(min(2 * x, c) for x, c in zip(b, cap))
-        esc += 1
+    while bool(run(*b)[-1]):
+        if b == tuple(cap):
+            raise RuntimeError(f"the query overflows at its caps {b}")
+        nb = tuple(min(2 * x, c) for x, c in zip(b, cap))
+        log(f"overflow at budgets {b}: doubled to {nb}")
+        b, esc = nb, esc + 1
     return b, esc
 
 
-def row_query(n: int, scene, tables, o, d, dense_limit: int = 4000):
+def row_query(n: int, scene, tables, o, d, dense_limit: int = 4000,
+              log: Callable = lambda *a: None):
     """The closest-hit query of one sweep row, without timing.
 
-    Returns (query, path, escalations): ``query()`` runs the whole query
-    and gives (t (B,), +inf on miss; sphere id (B,), -1 on miss) in the
-    rays' order. Up to ``dense_limit`` spheres it is the dense sweep
-    (``brute_t_fast``; ``tables`` unused); else prep, phase A and the
-    single-chunk leaf walk when ``tables`` hold one chunk, or the
-    TLAS-routed walk at the JAX harness's budgets
-    (``bench.large.budgets``); either re-run with doubled budgets while it
-    overflows, ``escalations`` the doublings it took."""
+    Returns (query, path, escalations, budgets): ``query()`` runs the
+    whole query and gives (t (B,), +inf on miss; sphere id (B,), -1 on
+    miss) in the rays' order. Up to ``dense_limit`` spheres it is the dense
+    sweep (``brute_t_fast``; ``tables`` unused, budgets None); else prep,
+    phase A and the single-chunk leaf walk when ``tables`` hold one chunk
+    (budgets (max_groups, max_candidates)), or the TLAS-routed walk at the
+    JAX harness's budgets (``bench.large.budgets``; budgets (max_groups,
+    max_candidates, npairs, kc)); either re-run with doubled budgets while
+    it overflows (``_settle``, each doubling logged), ``escalations`` the
+    doublings it took. ``scene`` is read only by the dense sweep."""
     if n <= dense_limit:
         return (lambda: brute_t_fast(o, d, scene.centers, scene.radii),
-                "dense_brute_fast", 0)
+                "dense_brute_fast", 0, None)
     cull = tables.cull
     C = cull.num_chunks
     if C == 1:
@@ -217,7 +234,8 @@ def row_query(n: int, scene, tables, o, d, dense_limit: int = 4000):
         cap = (cull.leaves_per_chunk // cull.leaves_per_group,
                cull.leaves_per_chunk, C * g, C)
     budgets, esc = _settle(
-        lambda *b: _prep_query(walk, o, d, tables, *b, *extra), start, cap)
+        lambda *b: _prep_query(walk, o, d, tables, *b, *extra), start, cap,
+        log)
 
     def query():
         t, slot, dest, _ = _prep_query(walk, o, d, tables, *budgets, *extra)
@@ -226,7 +244,24 @@ def row_query(n: int, scene, tables, o, d, dense_limit: int = 4000):
         sid = torch.where(hit, cull.slot_to_sphere[slot.clamp(min=0).long()],
                           -1)
         return t, sid
-    return query, path + (f"_escalated{esc}" if esc else ""), esc
+    return query, path + (f"_escalated{esc}" if esc else ""), esc, budgets
+
+
+def sweep_scene(n: int, seed: int, world_size: float, device):
+    """The sweep's scene of ``n`` spheres: ``benchmark_scene`` drawn from
+    ``torch.Generator().manual_seed(seed + n)``."""
+    return benchmark_scene(torch.Generator().manual_seed(seed + n), n,
+                           world_size=world_size, device=device)
+
+
+def _host_timed(dev, fn, *args):
+    """(fn(*args), milliseconds on the host clock until the card, if
+    ``dev`` is one, has finished the work it queued)."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return out, (time.perf_counter() - t0) * 1e3
 
 
 def card_name(device) -> str:
@@ -249,26 +284,32 @@ def run_sweep(sizes=DEFAULT_SIZES, num_rays: int = 131072,
               log: Callable = print) -> SweepResult:
     """Run the sweep. The default sizes are the reference's in-repo sweep
     (src/benchmark.c:289-295); ``PUBLISHED_SIZES`` are the decades of its
-    published data (src/benchmark.c:296). Brute force is skipped above
-    ``brute_limit`` spheres. ``device`` defaults to the card; the CPU must
-    be asked for."""
+    published data (src/benchmark.c:296) and the JAX package's 100M row.
+    Brute force is skipped above ``brute_limit`` spheres. ``device``
+    defaults to the card; the CPU must be asked for."""
     dev = default_device(device)
-    timer = time_cuda if dev.type == "cuda" else time_host
+    cuda = dev.type == "cuda"
+    timer = time_cuda if cuda else time_host
     o, d = origin_rays(num_rays, seed, dev)
     res = SweepResult(sizes=list(sizes), brute_s=[], bvh_s=[], build_ms=[],
                       num_rays=num_rays,
-                      path="cuda" if dev.type == "cuda" else "plain",
+                      path="cuda" if cuda else "plain",
                       device=card_name(dev))
     for n in sizes:
         n = int(n)
-        scene = benchmark_scene(torch.Generator().manual_seed(seed + n), n,
-                                world_size=world_size, device=dev)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        scene, scene_ms = _host_timed(dev, sweep_scene, n, seed, world_size,
+                                      dev)
         lbvh = n >= device_build_min_n
         if lbvh:
-            res.build_ms.append(timer(build_bvh_device, scene.centers,
-                                      scene.radii, LEAF_SIZE, warmup=1,
-                                      iters=1))
+            # One build to warm the allocator, then one timed build kept:
+            # two trees' temporaries are never live together.
+            build_bvh_device(scene.centers, scene.radii, LEAF_SIZE)
+            clock = Clock(dev)
+            clock.start()
             bvh = build_bvh_device(scene.centers, scene.radii, LEAF_SIZE)
+            res.build_ms.append(clock.stop() * 1e3)
         else:
             t0 = time.perf_counter()
             bvh = build_bvh(scene.centers, scene.radii, leaf_size=LEAF_SIZE,
@@ -285,15 +326,29 @@ def run_sweep(sizes=DEFAULT_SIZES, num_rays: int = 131072,
             res.brute_s.append(float("nan"))
             res.brute_nb.append(0)
 
-        tables = None if n <= dense_limit else build_cone_tables(scene, bvh)
-        query, path, esc = row_query(n, scene, tables, o, d, dense_limit)
+        tables, tables_ms = ((None, 0.0) if n <= dense_limit else
+                             _host_timed(dev, build_cone_tables, scene, bvh))
+        bvh = None
+        if tables is not None and n > brute_limit:
+            scene = None        # the query reads only the tables
+        query, path, esc, budgets = row_query(n, scene, tables, o, d,
+                                              dense_limit, log)
         res.row_paths.append(path + ("_lbvh" if lbvh else ""))
         res.bvh_s.append(timer(query) * 1e-3)
         chunks = tables.cull.num_chunks if tables is not None else 0
-        log(f"n={n}: {res.row_paths[-1]} ({chunks} table chunk(s)), build "
-            f"{res.build_ms[-1]:.0f} ms, brute {res.brute_s[-1]:.4f} s, bvh "
-            f"{res.bvh_s[-1]:.4f} s ({res.mrays_bvh()[-1]:.1f} Mrays/s), "
-            f"{esc} escalation(s)")
+        peak = (torch.cuda.max_memory_allocated(dev) / 2 ** 20 if cuda
+                else float("nan"))
+        res.row_stats.append({
+            "chunks": chunks, "budgets": budgets and list(budgets),
+            "escalations": esc, "scene_ms": scene_ms,
+            "tables_ms": tables_ms, "peak_mib": peak})
+        log(f"n={n}: {res.row_paths[-1]} ({chunks} table chunk(s), budgets "
+            f"{budgets}), scene {scene_ms:.0f} ms, build "
+            f"{res.build_ms[-1]:.0f} ms, tables {tables_ms:.0f} ms, brute "
+            f"{res.brute_s[-1]:.4f} s, bvh {res.bvh_s[-1]:.4f} s "
+            f"({res.mrays_bvh()[-1]:.1f} Mrays/s), {esc} escalation(s), "
+            f"peak {peak:.1f} MiB")
+        scene = tables = query = None
     return res
 
 

@@ -270,10 +270,24 @@ def leaf_candidates(o: Tensor, d: Tensor, tables: CullTables,
 # The leaf walk
 # ---------------------------------------------------------------------------
 
+def check_slot_space(num_chunks: int, leaves_per_chunk: int,
+                     leaf_size: int) -> None:
+    """Raise ValueError unless every padded prim slot of a table of
+    ``num_chunks`` chunks of ``leaves_per_chunk`` leaves lies below
+    ``_NOSLOT``: the walks compute slots in int32, keep them in the low 32
+    bits of their merge keys and read 2^30 as "no slot"."""
+    slots = num_chunks * leaves_per_chunk * leaf_size
+    if slots >= _NOSLOT:
+        raise ValueError(f"{num_chunks} chunks x {leaves_per_chunk} leaves "
+                         f"x {leaf_size} prims = {slots} slots reach the "
+                         f"no-slot sentinel 2^30")
+
+
 def _check_walk_args(feats: Tensor, cand: Tensor, prims: Tensor,
                      leaf_size: int, leaves_per_chunk: int) -> None:
     G, S, SP, F = feats.shape
     C, Gc, Sc, _ = cand.shape
+    check_slot_space(prims.shape[0], leaves_per_chunk, leaf_size)
     if F != FEAT or (Gc, Sc) != (G, S):
         raise ValueError(f"feats {tuple(feats.shape)} and rows "
                          f"{tuple(cand.shape)} disagree")

@@ -30,6 +30,18 @@ default chunk size), so a subpacket that meets 129-192 groups of one
 chunk gets a row padded with the sentinel group id, unflagged (58 such
 rows at 10M spheres). The port keeps max(K0, kg) ids: those rows list
 every group, and every other row is unchanged.
+
+At 100M spheres (about 1,000 chunks) the JAX package needed four fixes.
+Here: the tables are assembled on the host (``build_cull_tables``), as
+JAX's fix does; phase A runs ``pair_block`` pairs at a time
+(:func:`tlas_candidates`); the merge runs ``_MERGE_ROWS`` g-rows at a
+time (JAX's ``row_block``). JAX's fourth fix, the routed kernel called
+over ranges of ``KSPLIT`` pairs (``nearest_hit_tlas_split``), is not
+carried: it keeps the scalar-prefetched pair tables within TPU SMEM and
+each program within the TPU compiler's limits, while ``routed.cu`` reads
+the pair tables from global memory and one launch takes every pair.
+Every walk's slots stay below the ``_NOSLOT`` sentinel, 2^30
+(``leafcull.check_slot_space``, checked before each walk).
 """
 
 from __future__ import annotations
@@ -43,6 +55,7 @@ from tracer_torch.kernels.conecull import (ConeTables, bounds_from_feats,
                                            _pad_cols, _round_up,
                                            _slab_hit_cols, _ROW_ALIGN)
 from tracer_torch.kernels.leafcull import (FEAT, MISS_KEY, _BIG, _NOSLOT,
+                                           check_slot_space,
                                            closest_rows_plain, item_leaves,
                                            walked_leaves)
 
@@ -239,6 +252,7 @@ def _check_routed_args(pair_c, pair_gb, cand, feats, prims, leaf_size,
             leaves_per_chunk * leaf_size, 4):
         raise ValueError(f"prims {tuple(prims.shape)} does not hold chunks "
                          f"of {leaves_per_chunk} leaves")
+    check_slot_space(prims.shape[0], leaves_per_chunk, leaf_size)
     if feats.dtype != torch.float32 or prims.dtype != torch.float32 or any(
             x.dtype != torch.int32 for x in (pair_c, pair_gb, cand)):
         raise ValueError("feats/prims must be float32, rows and pairs int32")
