@@ -207,10 +207,14 @@ def scaling(inp):
                            device_counts=[1, 2, 8], reps=2)
 
 
-def _train_problem(inp, key):
+def _train_problem(inp, key, shape=None, k_top=None):
+    """(params, state, step_fn, o, d, zero target) of a training step on
+    ``shape`` (default: the input's own) with per-shard budget ``k_top``
+    (default: the input's own; None there: the step's default)."""
     from tracer_torch.dist import make_train_step, scene_mesh
-    c, r, a, o, d, shape, k_top = inp[key]
-    mesh = scene_mesh(*shape, device=CPU)
+    c, r, a, o, d, shape0, k0 = inp[key]
+    mesh = scene_mesh(*(shape or shape0), device=CPU)
+    k_top = k0 if k_top is None else k_top
     kw = {} if k_top is None else {"k_top": k_top}
     init_fn, factory = make_train_step(mesh, lr=1e-2, **kw)
     params, state = init_fn(_scene(c, r, a))
@@ -228,45 +232,89 @@ def train_direct(inp):
             "l2": float(l2), "count": state.count}
 
 
-def train_loss(inp):
-    """One sharded step on a (2, 4) mesh with every sphere a candidate:
-    its loss and Adam moments, the unsharded soft_render loss and
-    gradient on the same parameters."""
+def _unsharded_loss(params, o, d, target, grad=True):
+    """The unsharded soft_render loss of the parameters, and its gradient
+    ({name: array}) with ``grad``."""
     from tracer_torch.core.types import Ray
     from tracer_torch.diff.fit import params_to_scene
     from tracer_torch.diff.soft import soft_render
-    params, state, step, o, d, target = _train_problem(inp, "train_loss")
-    ref_p = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+    ref_p = {k: v.clone().requires_grad_(grad) for k, v in params.items()}
     img = soft_render(params_to_scene(ref_p), None,
                       rays=Ray(origin=o, direction=d))
-    ref_loss = torch.mean((img - target) ** 2)
-    grads = torch.autograd.grad(ref_loss, [ref_p[k] for k in sorted(ref_p)])
-    _, state, loss = step(params, state, o, d, target)
-    return {"loss": float(loss), "ref_loss": float(ref_loss.detach()),
-            "ref_grad": {k: np_(g) for k, g in zip(sorted(ref_p), grads)},
-            "mu": {k: np_(v) for k, v in state.mu.items()},
-            "nu": {k: np_(v) for k, v in state.nu.items()}}
+    loss = torch.mean((img - target) ** 2)
+    if not grad:
+        return float(loss)
+    grads = torch.autograd.grad(loss, [ref_p[k] for k in sorted(ref_p)])
+    return float(loss.detach()), {k: np_(g) for k, g in zip(sorted(ref_p),
+                                                            grads)}
 
 
-def _fit(inp, **kw):
+def train_loss(inp):
+    """One sharded step on each mesh shape of the input, every sphere a
+    candidate (k_top the shard size): its loss and Adam moments by shape,
+    and the unsharded soft_render loss and gradient on the same
+    parameters."""
+    c = inp["train_loss"][0]
+    out = {}
+    for shape in inp["train_loss"][5]:
+        k_top = len(c) // shape[1]
+        params, state, step, o, d, target = _train_problem(
+            inp, "train_loss", shape, k_top)
+        if not out:
+            out["ref_loss"], out["ref_grad"] = _unsharded_loss(params, o, d,
+                                                               target)
+        _, state, loss = step(params, state, o, d, target)
+        out[shape] = {"loss": float(loss),
+                      "mu": {k: np_(v) for k, v in state.mu.items()},
+                      "nu": {k: np_(v) for k, v in state.nu.items()}}
+    return out
+
+
+def train_topk(inp):
+    """One sharded step whose k_top is below the shard size: its loss, the
+    unsharded loss, and the mean over rays of the sum of the sigmas that
+    the per-shard truncation drops."""
+    from tracer_torch.diff.fit import params_to_scene
+    from tracer_torch.diff.soft import SoftParams, _shade_sigma_t
+    params, state, step, o, d, target = _train_problem(inp, "train_topk")
+    _, _, _, _, _, (_, S), k_top = inp["train_topk"]
+    with torch.no_grad():
+        sigma = _shade_sigma_t(params_to_scene(params), o, d, SoftParams())[0]
+        shards = sigma.reshape(sigma.shape[0], S, -1)
+        tail = torch.sort(shards, dim=2, descending=True).values[..., k_top:]
+        dropped = tail.sum((1, 2))
+    _, _, loss = step(params, state, o, d, target)
+    return {"loss": float(loss),
+            "ref_loss": _unsharded_loss(params, o, d, target, grad=False),
+            "dropped": float(dropped.mean())}
+
+
+def _fit(inp, key="fit", **kw):
     from tracer_torch.config import TracerConfig
     from tracer_torch.diff.fit import fit_scene
     from tracer_torch.scene.camera import Camera
-    c, r, a, target, (w, h), steps = inp["fit"]
+    c, r, a, target, (w, h), steps = inp[key][:6]
+    camera = Camera.default(CPU)
+    if key == "camera_fit":
+        (yaw, position), lr = inp[key][6:]
+        camera = camera.replace(yaw=torch.tensor(yaw),
+                                position=torch.as_tensor(position))
+        kw.update(optimize_camera=True, lr=lr)
     kw.setdefault("steps", steps)
-    res = fit_scene(torch.as_tensor(target), _scene(c, r, a),
-                    Camera.default(CPU),
+    res = fit_scene(torch.as_tensor(target), _scene(c, r, a), camera,
                     config=TracerConfig(width=w, height=h, max_depth=1),
                     **kw)
     return {"losses": res.losses, "centers": np_(res.scene.centers),
-            "radii": np_(res.scene.radii), "albedo": np_(res.scene.albedo)}
+            "radii": np_(res.scene.radii), "albedo": np_(res.scene.albedo),
+            **{k: np_(getattr(res.camera, k)) for k in ("position", "yaw",
+                                                        "pitch")}}
 
 
 def fit(inp):
     """fit_scene on a ray mesh of every rank with one all-reduce (T = 1)
     and with four overlapped tiles (T = 4), and one step of T = 1, each
     writing its final checkpoint; fit_scene on a mesh of rank 0 alone
-    against the unsharded fit."""
+    and the unsharded fit on rank 0."""
     from tracer_torch.dist import ray_mesh
     mesh = ray_mesh(device=CPU)
     ck = inp["fit_checkpoints"]
@@ -282,6 +330,19 @@ def fit(inp):
     return out
 
 
+def camera_fit(inp):
+    """fit_scene(optimize_camera=True) from a perturbed pose on a ray mesh
+    of every rank (T = 1 and T = 4), and unsharded on rank 0."""
+    from tracer_torch.dist import ray_mesh
+    mesh = ray_mesh(device=CPU)
+    out = {f"t{t}": _fit(inp, "camera_fit", mesh=mesh, grad_microbatch=t)
+           for t in (1, 4)}
+    if dist.get_rank() == 0:
+        out["plain"] = _fit(inp, "camera_fit")
+    return out
+
+
 SCENARIOS = {f.__name__: f for f in (
     sharded_brute, sharded_leafwalk, sharded_render, ring_brute, ring_bvh,
-    ring_one_shard, mesh_shapes, scaling, train_direct, train_loss, fit)}
+    ring_one_shard, mesh_shapes, scaling, train_direct, train_loss,
+    train_topk, fit, camera_fit)}

@@ -5,8 +5,16 @@ draw from ``jax.random``, which torch cannot reproduce, so scenes, BVHs and
 rays are made once here and handed to each side. The JAX side runs on the
 CPU as its own tests do (Pallas kernels in interpret mode); the port runs
 its plain PyTorch versions on CPU tensors.
+
+Where the JAX function copies a fault of f32 arithmetic that the port
+repairs (the soft model's perp2 cancels), the reference is the JAX function
+run in float64 (:func:`x64`, :func:`f64`, :func:`scene64`,
+:func:`camera64`) on the same f32-valued inputs.
 """
 
+import contextlib
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,6 +22,7 @@ import torch
 
 import tracer_torch as tt
 from tracer.bvh.builder import build_bvh as jax_build_bvh
+from tracer.scene.scene import Scene as JScene
 from tracer.scene.scene import fixed_scene
 
 S, SP, CELL_BITS = 4, 64, 4      # small packets for CPU-sized tests
@@ -240,6 +249,31 @@ def np_items(walked, chunk: int) -> np.ndarray:
 def scenes(c, r, a):
     """The same scene for both packages: (JAX Scene, port Scene)."""
     return fixed_scene(c, r, a), tt.scene_from_numpy(c, r, a, device="cpu")
+
+
+@contextlib.contextmanager
+def x64():
+    """JAX in float64 for the block: an array made by :func:`f64` in it
+    is float64, and so is every result computed from one (the f32
+    constants of ``SoftParams`` and the camera promote)."""
+    with jax.enable_x64(True):
+        yield
+
+
+def f64(x):
+    """A float64 JAX array of x's values (inside :func:`x64`)."""
+    return jnp.asarray(np.asarray(np_(x), np.float64))
+
+
+def scene64(c, r, a):
+    """The JAX scene of (c, r, a) in float64 (inside :func:`x64`)."""
+    return JScene(centers=f64(c), radii=f64(r), albedo=f64(a))
+
+
+def camera64(camera):
+    """A JAX camera's pose and fov in float64 (inside :func:`x64`)."""
+    return camera.replace(**{k: f64(getattr(camera, k)) for k in (
+        "position", "yaw", "pitch", "fov")})
 
 
 def bvhs(c, r, leaf_size: int):

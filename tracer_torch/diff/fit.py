@@ -1,33 +1,44 @@
 """Inverse rendering: fit scene geometry, material and camera to a target
 image (BASELINE config 4).
 
-PyTorch counterpart of ``tracer/diff/fit.py`` on one device. Gradient
-descent on the smoothed forward model (:mod:`tracer_torch.diff.soft`):
-pixels -> MSE loss -> autograd -> Adam updates of sphere centres, radii and
-albedo. Radii are parameterised through softplus to stay positive, albedo
-through a sigmoid to stay in [0, 1].
+PyTorch counterpart of ``tracer/diff/fit.py``. Gradient descent on the
+smoothed forward model (:mod:`tracer_torch.diff.soft`): pixels -> MSE loss
+-> autograd -> Adam updates of sphere centres, radii and albedo, and with
+``optimize_camera`` of the camera's position, yaw and pitch. Radii are
+parameterised through softplus to stay positive, albedo through a sigmoid
+to stay in [0, 1].
 
 The optimiser is ``torch.optim.Adam`` (betas 0.9 / 0.999, eps 1e-8), the
-update of ``optax.adam``. The camera's position, yaw and pitch are in it
-too, with zero gradients: the rays are generated once from the initial
-camera, as in the JAX fit, so the loss does not reach the pose. The
-optimiser state therefore has the JAX state's leaves, and a checkpoint
+update of ``optax.adam``. The pose is in it whether or not it is fitted,
+so the optimiser state has the JAX state's leaves, and a checkpoint
 (:mod:`tracer_torch.checkpoint`) holds, in flatten order: the six
 parameters (albedo_raw, centers, radii_raw, pitch, position, yaw), Adam's
 step count (int32), then its first and second moments in parameter order;
 19 leaves, the layout of a checkpoint the JAX fit writes, which this fit
-resumes from.
+resumes from. Without ``optimize_camera`` the rays are generated once and
+the pose's gradients are zero, so the camera comes back as it was passed.
+
+Deviations from the JAX fit, both repairs of its faults:
+
+  * ``optimize_camera=True`` fits the pose. The JAX fit generates the rays
+    once from the initial camera, so its loss never reaches the pose and
+    the pose never moves. Here the loss makes the rays from the pose
+    parameters on every step (:func:`make_loss_fn`), at pixel coordinates
+    computed once.
+  * On a mesh the gradient is the gradient of the mean loss over all rays,
+    equal to the unsharded fit's. The JAX fit's is R times that for R ray
+    shards: shard_map adds a psum over the ray axis where the replicated
+    parameters meet the ray-sharded loss, and its explicit psum of g / R
+    then averages R equal values.
 
 On a mesh (``mesh=``, a :mod:`tracer_torch.dist` mesh) every rank takes its
 block of the rays and the parameters stay replicated: the loss and the
 gradients are all-reduced over the ray group, the data-parallel gradient
-all-reduce. With ``grad_microbatch`` T > 1 the block is cut into T tiles,
-and each tile's gradients go out in an asynchronous all-reduce as soon as
-its backward ends, while the next tile computes; every handle is waited on
-before the Adam step. The gradient is the reference's: the sum over the R
-ray blocks of each block's gradient of its own mean loss, R times the
-unsharded gradient (shard_map adds a psum over the ray axis where the
-replicated parameters meet the ray-sharded loss); the loss is the mean.
+all-reduce, each rank's part scaled by 1 / (R * T). With
+``grad_microbatch`` T > 1 the block is cut into T tiles, and each tile's
+gradients go out in an asynchronous all-reduce as soon as its backward
+ends, while the next tile computes; every handle is waited on before the
+Adam step.
 """
 
 from __future__ import annotations
@@ -45,7 +56,7 @@ from tracer_torch.checkpoint import (load_state, save_state, tree_leaves,
 from tracer_torch.config import DEFAULT_CONFIG, TracerConfig
 from tracer_torch.core.types import Ray
 from tracer_torch.diff.soft import SoftParams, clip, maximum, soft_render
-from tracer_torch.scene.camera import Camera, camera_rays
+from tracer_torch.scene.camera import Camera, camera_rays, pixel_uv
 from tracer_torch.scene.scene import Scene
 
 BETAS = (0.9, 0.999)
@@ -79,16 +90,37 @@ def params_to_scene(params: dict) -> Scene:
 
 def make_loss_fn(camera: Camera, soft: SoftParams, config: TracerConfig,
                  optimize_camera: bool):
-    """loss_fn((scene_params, cam_params), ray_o, ray_d, target) -> the
-    mean squared error of the soft image of the given rays."""
-    def loss_fn(all_params, ray_o, ray_d, target):
+    """loss_fn((scene_params, cam_params), ray_o, ray_d, target, uv=None)
+    -> the mean squared error of the soft image of the rays against target.
+
+    Without ``optimize_camera`` the rays are (ray_o, ray_d). With it they
+    are made from the pose parameters on every call, at the pixels' screen
+    coordinates ``uv`` = (u, v) (:func:`tracer_torch.scene.camera.pixel_uv`,
+    cut as the target is), so that autograd reaches the pose; ray_o and
+    ray_d are then not read."""
+    def loss_fn(all_params, ray_o, ray_d, target, uv=None):
         scene_params, cam_params = all_params
-        cam = camera.replace(**cam_params) if optimize_camera else camera
-        rays = Ray(origin=ray_o, direction=ray_d)
-        img = soft_render(params_to_scene(scene_params), cam, soft, config,
+        if optimize_camera:
+            rays = camera_rays(camera.replace(**cam_params), config, uv=uv)
+        else:
+            rays = Ray(origin=ray_o, direction=ray_d)
+        img = soft_render(params_to_scene(scene_params), None, soft, config,
                           rays=rays)
         return torch.mean((img - target) ** 2)
     return loss_fn
+
+
+def view_error(camera: Camera, reference: Camera, depth: float) -> float:
+    """A camera pose's distance from a reference pose as one angle: the
+    norm of the yaw and pitch errors plus the position error over
+    ``depth``, the distance of the scene. A sideways shift of the camera by
+    x moves the view of a scene at that depth as a turn by x / depth does,
+    and the fit can trade one for the other (a shift of the pose is also
+    nearly a shift of every centre, which the fit moves too)."""
+    turn = torch.hypot(camera.yaw - reference.yaw,
+                       camera.pitch - reference.pitch)
+    shift = torch.linalg.vector_norm(camera.position - reference.position)
+    return float(turn + shift / depth)
 
 
 def adam_state_dict(count: int, mu, nu, lr: float) -> dict:
@@ -129,8 +161,8 @@ def fit_scene(target: Tensor, init_scene: Scene, camera: Camera,
               checkpoint_path: str | None = None,
               checkpoint_every: int = 50,
               resume: bool = False) -> FitResult:
-    """Fit the scene (and, nominally, the camera pose) to ``target`` (H, W,
-    3) on the device the inputs live on.
+    """Fit the scene (and with ``optimize_camera`` the camera pose) to
+    ``target`` (H, W, 3) on the device the inputs live on.
 
     With ``checkpoint_path`` the whole optimisation state (parameters, Adam
     moments, step count, loss history) is saved every ``checkpoint_every``
@@ -168,10 +200,20 @@ def fit_scene(target: Tensor, init_scene: Scene, camera: Camera,
         start_step = int(meta["step"])
         losses = list(meta["losses"])
 
-    rays = camera_rays(camera, config)
-    ray_o = rays.origin.reshape(-1, 3)
-    ray_d = rays.direction.reshape(-1, 3)
-    target_flat = target.reshape(-1, 3)
+    # Per-pixel inputs: the rays, or the screen coordinates that the loss
+    # makes the rays from when the pose is fitted; then the target.
+    if optimize_camera:
+        pixels = [x.reshape(-1) for x in pixel_uv(config, target.device)]
+    else:
+        rays = camera_rays(camera, config)
+        pixels = [rays.origin.reshape(-1, 3), rays.direction.reshape(-1, 3)]
+    pixels.append(target.reshape(-1, 3))
+
+    def loss_of(a, b, tg):
+        if optimize_camera:
+            return loss_fn(all_params, None, None, tg, uv=(a, b))
+        return loss_fn(all_params, a, b, tg)
+
     writer = True
     if mesh is not None:
         # Imported here: tracer_torch.dist imports this module.
@@ -179,22 +221,23 @@ def fit_scene(target: Tensor, init_scene: Scene, camera: Camera,
         from tracer_torch.dist.mesh import RAY_AXIS, axis_group, shard_rows
         group, rank, n = axis_group(mesh, RAY_AXIS)
         tiles = max(1, grad_microbatch)
-        ray_o, ray_d, target_flat = (
-            shard_rows(x, rank, n).reshape(tiles, -1, 3)
-            for x in (ray_o, ray_d, target_flat))
+        pixels = [shard_rows(x, rank, n).reshape(tiles, -1, *x.shape[1:])
+                  for x in pixels]
         writer = dist.get_rank() == 0
-        scene_leaves = tree_leaves(scene_p)
+        grad_leaves = params if optimize_camera else tree_leaves(scene_p)
 
     def sharded_loss():
-        """The loss over every rank's tiles, with the summed gradients
-        of the tiles (see the module docstring) set on the parameters."""
+        """The mean loss over every rank's tiles, with its gradient set on
+        the parameters: each tile's loss and gradient, scaled by
+        1 / (R * T), summed over the tiles and all-reduced over the ray
+        group."""
+        scale = 1.0 / (n * tiles)
         bufs, handles = [], []
         for k in range(tiles):
-            val = loss_fn(all_params, ray_o[k], ray_d[k], target_flat[k])
-            grads = torch.autograd.grad(val, scene_leaves)
-            buf = torch.cat([(val.detach() * (1.0 / (n * tiles))).reshape(1)]
-                            + [(g * (1.0 / tiles)).reshape(-1)
-                               for g in grads])
+            val = loss_of(*(x[k] for x in pixels))
+            grads = torch.autograd.grad(val, grad_leaves)
+            buf = torch.cat([(val.detach() * scale).reshape(1)]
+                            + [(g * scale).reshape(-1) for g in grads])
             handles.append(dist.all_reduce(buf, group=group, async_op=True))
             bufs.append(buf)
         for h in handles:
@@ -203,7 +246,7 @@ def fit_scene(target: Tensor, init_scene: Scene, camera: Camera,
         for buf in bufs[1:]:
             total = total + buf
         at = 1
-        for p in scene_leaves:
+        for p in grad_leaves:
             p.grad = total[at:at + p.numel()].reshape(p.shape)
             at += p.numel()
         return total[0]
@@ -219,14 +262,14 @@ def fit_scene(target: Tensor, init_scene: Scene, camera: Camera,
         clock.start()
         opt.zero_grad()
         if mesh is None:
-            val = loss_fn(all_params, ray_o, ray_d, target_flat)
+            val = loss_of(*pixels)
             val.backward()
         else:
             val = sharded_loss()
-        # The pose stays in the optimiser with zero gradients, as in the
-        # JAX fit (its loss never reaches the pose: the rays are fixed).
+        # Without optimize_camera the pose stays in the optimiser with zero
+        # gradients (the rays do not depend on it).
         for p in cam_p.values():
-            if p.grad is None or not optimize_camera:
+            if p.grad is None:
                 p.grad = torch.zeros_like(p)
         opt.step()
         losses.append(float(val.detach()))

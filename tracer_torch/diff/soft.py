@@ -7,7 +7,10 @@ model replaces both discontinuities:
 
   1. **Silhouette**: the hit test ``disc > 0`` becomes a sigmoid of the
      signed silhouette distance (perpendicular ray-centre distance minus
-     radius), so silhouettes get finite-width differentiable edges.
+     radius), so silhouettes get finite-width differentiable edges. The
+     distance is the length of the perpendicular vector ``oc - t_ca d``,
+     where the JAX package takes ``|oc|^2 - t_ca^2 |d|^2``, which cancels
+     in f32 for small spheres far from the origin (see :func:`soft_terms`).
   2. **Occlusion**: the argmin over t becomes depth-ordered alpha
      compositing ``img = sum_i sigma_i T_i shade_i + T sky`` with
      ``T_i = prod_{t_j < t_i} (1 - sigma_j)`` (:func:`composite_sorted`).
@@ -86,7 +89,12 @@ def soft_terms(o: Tensor, d: Tensor, c: Tensor, r: Tensor, albedo: Tensor,
     oc = c - o
     a = vecmath.dot(d, d)
     t_ca = vecmath.dot(oc, d) / maximum(a, 1e-30)
-    perp2 = maximum(vecmath.dot(oc, oc) - t_ca * t_ca * a, 0.0)
+    # The squared distance of the centre from the ray, taken from the
+    # perpendicular vector itself: |oc|^2 - t_ca^2 |d|^2 cancels two terms
+    # of size |oc|^2, and hundreds of units out an ulp of them is a large
+    # part of a small sphere's r^2.
+    p_perp = oc - t_ca[..., None] * d
+    perp2 = maximum(vecmath.dot(p_perp, p_perp), 0.0)
     eps2 = (params.smooth_eps * r) ** 2
     # sqrt smoothed at the radius scale: a bounded gradient even for rays
     # through a sphere's centre (perp2 -> 0).

@@ -170,22 +170,22 @@ def soft_render_sparse(scene: Scene, rays: Ray, tables: CullTables,
 #
 # These keep every hot array 2-D (rays x candidates): candidate leaves are
 # gathered as whole leaf_size-wide attribute rows from slot-order tables,
-# sigma and t_soft come from ~14 scalar broadcast ops, and the composite
-# runs along K (leaf order) or over each ray's top M (top-M path).
+# sigma and t_soft come from scalar broadcast ops, and the composite runs
+# along K (leaf order) or over each ray's top M (top-M path).
 #
-# perp2 = |oc|^2 - t_ca^2 |d|^2 cancels two terms of size |oc|^2: hundreds
-# of units from the origin an ulp of them is a few per cent of a small
-# sphere's r^2, which the edge sharpness turns into large changes of sigma.
-# Every 3-term sum is therefore spelled (x + y) + z (``vecmath.dot``), so
-# the card and the CPU round these steps alike.
+# perp2 is the squared length of the perpendicular vector oc - t_ca d, as
+# in ``soft.soft_terms``: the JAX package's |oc|^2 - t_ca^2 |d|^2 cancels
+# two terms of size |oc|^2, and hundreds of units from the origin an ulp of
+# them is a large part of a small sphere's r^2. Every 3-term sum is spelled
+# (x + y) + z, so the card and the CPU round these steps alike.
 
 def slot_attr_tables(scene: Scene, tables: CullTables):
-    """Slot-order per-attribute tables (L, leaf_size): cx cy cz c2 r alb0
+    """Slot-order per-attribute tables (L, leaf_size): cx cy cz r alb0
     alb1 alb2.
 
     Parked (padding) slots sit at 1e15 with unit radius: sigma underflows
     through the logit clip and t_soft is huge, so they never matter to
-    values or gradients. |c|^2 = 3e30 is finite in f32.
+    values or gradients.
     """
     ls = tables.leaf_size
     s2s = tables.slot_to_sphere
@@ -198,21 +198,21 @@ def slot_attr_tables(scene: Scene, tables: CullTables):
                     scene.radii[safe])
     alb = torch.where(far[:, None], torch.zeros_like(scene.albedo[safe]),
                       scene.albedo[safe])
-    cols = [c[:, 0], c[:, 1], c[:, 2], vecmath.dot(c, c), r,
-            alb[:, 0], alb[:, 1], alb[:, 2]]
+    cols = [c[:, 0], c[:, 1], c[:, 2], r, alb[:, 0], alb[:, 1], alb[:, 2]]
     return [x.reshape(-1, ls) for x in cols]
 
 
-def _sigma_t_scalar(cx, cy, cz, c2, r, ox, oy, oz, dx, dy, dz, od, oo, a,
+def _sigma_t_scalar(cx, cy, cz, r, ox, oy, oz, dx, dy, dz, a,
                     params: SoftParams):
     """sigma, t_soft and mirror.y for broadcastable scalar operands: the
     math of ``soft.soft_terms`` in products of scalars. mirror.y is the
     one component of the mirror direction the channel-wise shade needs."""
     inva = 1.0 / maximum(a, 1e-30)
-    ocd = cx * dx + cy * dy + cz * dz - od               # oc . d
-    oc2 = c2 - 2.0 * (cx * ox + cy * oy + cz * oz) + oo  # |oc|^2
-    t_ca = ocd * inva
-    perp2 = maximum(oc2 - t_ca * t_ca * a, 0.0)
+    ocx, ocy, ocz = cx - ox, cy - oy, cz - oz
+    t_ca = (ocx * dx + ocy * dy + ocz * dz) * inva
+    # The perpendicular vector, without cancellation (see above).
+    qx, qy, qz = ocx - t_ca * dx, ocy - t_ca * dy, ocz - t_ca * dz
+    perp2 = maximum(qx * qx + qy * qy + qz * qz, 0.0)
     eps2 = (params.smooth_eps * r) ** 2
     perp = torch.sqrt(perp2 + eps2)
     sdf = (perp - r) / maximum(r, 1e-6)
@@ -233,14 +233,11 @@ def _sigma_t_scalar(cx, cy, cz, c2, r, ox, oy, oz, dx, dy, dz, od, oo, a,
 
 
 def _ray_scalars(op: Tensor, dp: Tensor):
-    """(P, SP, 3) rays -> ox, oy, oz, dx, dy, dz, o.d, |o|^2, |d|^2, each
-    (P, SP, 1)."""
+    """(P, SP, 3) rays -> ox, oy, oz, dx, dy, dz, |d|^2, each (P, SP, 1)."""
     ox, oy, oz = (op[:, :, i:i + 1] for i in range(3))
     dx, dy, dz = (dp[:, :, i:i + 1] for i in range(3))
-    od = vecmath.dot(op, dp)[..., None]
-    oo = vecmath.dot(op, op)[..., None]
     a = vecmath.dot(dp, dp)[..., None]
-    return ox, oy, oz, dx, dy, dz, od, oo, a
+    return ox, oy, oz, dx, dy, dz, a
 
 
 def _sky_channels(y: Tensor):
@@ -299,10 +296,10 @@ def soft_render_sparse_leaforder(scene: Scene, o: Tensor, d: Tensor,
 
     attrs = slot_attr_tables(scene, tables)
     lid = leaf_ids.long()
-    cx, cy, cz, c2, r, a0, a1, a2 = (t[lid].reshape(P, 1, K) for t in attrs)
+    cx, cy, cz, r, a0, a1, a2 = (t[lid].reshape(P, 1, K) for t in attrs)
     kvalid = lvalid[:, :, None].expand(P, max_leaves, ls).reshape(P, 1, K)
 
-    sigma, t_soft, my = _sigma_t_scalar(cx, cy, cz, c2, r,
+    sigma, t_soft, my = _sigma_t_scalar(cx, cy, cz, r,
                                         *_ray_scalars(op, dp), params)
     sigma = torch.where(kvalid, sigma, torch.zeros_like(sigma))
 
@@ -342,12 +339,12 @@ def soft_render_sparse_fast(scene: Scene, o: Tensor, d: Tensor,
     P = leaf_ids.shape[0]
     attrs = slot_attr_tables(scene, tables)
     lid = leaf_ids.long()
-    cx, cy, cz, c2, r, a0, a1, a2 = (t[lid].reshape(P, 1, K) for t in attrs)
+    cx, cy, cz, r, a0, a1, a2 = (t[lid].reshape(P, 1, K) for t in attrs)
     kvalid = lvalid[:, :, None].expand(P, max_leaves, ls).reshape(P, 1, K)
 
     op = o.reshape(P, subpacket, 3)
     dp = d.reshape(P, subpacket, 3)
-    sigma, t_soft, my_k = _sigma_t_scalar(cx, cy, cz, c2, r,
+    sigma, t_soft, my_k = _sigma_t_scalar(cx, cy, cz, r,
                                           *_ray_scalars(op, dp), params)
     sigma = torch.where(kvalid, sigma, torch.zeros_like(sigma))
 

@@ -11,19 +11,26 @@ sharded model update:
     candidates as (sigma, t, shade), all-gathers the candidate sets over
     the scene group (an all-gather recorded for autograd, whose backward
     sums over the group), and runs the depth-ordered composite the renderer
-    ships (``diff.soft.composite_sorted``) on the merged set. With
-    ``k_top`` at least the shard size the loss equals the unsharded
-    ``soft_render`` loss; a smaller budget drops the candidates whose sigma
-    is below every shard's k-th. Each rank updates only its sphere shard
-    with ``torch.optim.Adam``.
+    ships (``diff.soft.composite_sorted``) on the merged set. Each rank
+    updates only its sphere shard with ``torch.optim.Adam``.
 
-The gradient is the reference's: ``(R * S)`` times the gradient of the mean
-loss over all rays, for R ray and S scene shards. Every scene rank of a
-ray row computes the same loss, and the all-gather's transpose sums their
-gradients (S); the reference's gradient is the sum, not the mean, of the R
-ray blocks' gradients of their own mean losses (R), because shard_map adds
-a psum over the ray axis where the replicated parameters meet the
-ray-sharded loss. Adam's update is nearly blind to that scale.
+The loss is the mean over all rays. With ``k_top`` at least the shard size
+every sphere is a candidate and it equals the unsharded ``soft_render``
+loss. A smaller budget drops each shard's candidates below its k-th largest
+sigma, and then the loss equals the unsharded one only up to the dropped
+tail: each dropped candidate moves a ray's colour by at most 1.5 times its
+sigma (a shade lies in [0, 1.5]), so with a target in [0, 1] the loss moves
+by at most 3 times the mean over rays of the sum of their dropped sigmas.
+(The JAX package's docstring claims equality whatever the budget.)
+
+The gradient is the gradient of that mean loss with respect to each rank's
+sphere shard. Two sums are undone by dividing the all-reduced gradient by
+R * S, for R ray and S scene shards: every scene rank of a ray row computes
+the same loss from the same gathered candidates, so the all-gather's
+backward gives S times each shard's gradient; and the all-reduce over the
+ray group sums the R ray blocks' gradients of their own mean losses, R
+times the gradient of the mean over all rays. The JAX package's step keeps
+both sums, so its gradient is R * S times this one.
 
 SPMD like the rest of :mod:`tracer_torch.dist`: every rank passes the full
 parameters, Adam state, rays and targets, takes its shards, and gets the
@@ -120,10 +127,11 @@ def make_train_step(mesh: DeviceMesh, soft: SoftParams | None = None,
         o, d, tg = (shard_rows(x, ri, R) for x in (ray_o, ray_d, target))
         loss = loss_of(local, o, d, tg)
         grads = torch.autograd.grad(loss, [local[k] for k in keys])
-        # The gradient all-reduce over the ray group: the sum of the ray
-        # blocks' gradients (see the module docstring).
+        # The gradient all-reduce over the ray group, divided by R * S into
+        # the gradient of the mean loss (see the module docstring).
         flat = torch.cat([g.reshape(-1) for g in grads])
         dist.all_reduce(flat, group=rgroup)
+        flat = flat / (R * S)
         at = 0
         for k in keys:
             n = local[k].numel()
