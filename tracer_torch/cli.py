@@ -57,6 +57,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from tracer_torch import trace
+
 DENSE_MAX_SPHERES = 4000   # the dense sweep beats the hierarchy up to here
 
 
@@ -87,8 +89,9 @@ class Session:
     """Everything one render run needs: scene, camera, config, the frame
     function ``frame(camera, noise) -> (H, W, 3)``, the closest-hit
     factory ``nearest(scene) -> (rays -> HitRecord)``, the intersector info
-    for the metrics, the query counters (calls and escalations), and the
-    tables the intersector built (by name)."""
+    for the metrics, the query counters (calls and escalations, tallied
+    by ``trace.checked``), and the tables the intersector built (by
+    name)."""
 
     args: argparse.Namespace
     device: torch.device
@@ -134,21 +137,6 @@ def make_scene_camera(args, device):
     return scene, cam
 
 
-def _counted(counts: dict, name: str, query):
-    """Wrap a checked query returning (result, escalations) so each call
-    adds to ``counts[name + "_calls"]`` and ``counts[name +
-    "_escalations"]``."""
-    counts.setdefault(f"{name}_calls", 0)
-    counts.setdefault(f"{name}_escalations", 0)
-
-    def run(*a):
-        out, esc = query(*a)
-        counts[f"{name}_calls"] += 1
-        counts[f"{name}_escalations"] += esc
-        return out
-    return run
-
-
 def _build(scene, cam, leaf_size: int):
     from tracer_torch.bvh.builder import build_bvh
     t0 = time.perf_counter()
@@ -165,7 +153,9 @@ def make_nearest(args, scene, cam, device, counts: dict,
     per-ray traversal on the CPU; ``brute`` is the reference's bvh == NULL
     path (src/renderer.c:29-44). What the intersector builds (tree,
     packed tables, leaf table, prim tiles, cone tables) lands in
-    ``tables`` when given (bvh, packed, leaf_table, cone)."""
+    ``tables`` when given (bvh, packed, leaf_table, cone). A checked query
+    (tile cull, leaf walk) tallies its calls and escalations into
+    ``counts`` (``trace.tallied``)."""
     from tracer_torch.intersect.brute import (nearest_hit_brute,
                                               nearest_hit_brute_fast)
     tables = {} if tables is None else tables
@@ -206,7 +196,7 @@ def make_nearest(args, scene, cam, device, counts: dict,
         packed = tables["packed"] = pack_bvh(scene, bvh)
         table = tables["leaf_table"] = build_leaf_table(bvh)
         k = min(args.max_candidates, table.num_tiles)
-        query = _counted(counts, "closest", lambda r, s: (
+        query = trace.tallied(counts, lambda r, s: (
             nearest_hit_tilecull_checked(r, s, packed, table,
                                          max_candidates=k)))
         return (lambda s: (lambda r: query(r, s))), info
@@ -217,7 +207,7 @@ def make_nearest(args, scene, cam, device, counts: dict,
         if ls % 2 or 128 % ls or ls > 32:      # the JAX command's rebuild
             bvh, _ = _build(scene, cam, 32)
         cone = tables["cone"] = build_cone_tables(scene, bvh)
-        query = _counted(counts, "closest", lambda r, s: (
+        query = trace.tallied(counts, lambda r, s: (
             nearest_hit_leafcull_checked(r, s, cone)))
         return (lambda s: (lambda r: query(r, s))), info
     raise SystemExit(f"unknown --impl {impl}")
@@ -226,7 +216,8 @@ def make_nearest(args, scene, cam, device, counts: dict,
 def make_occluded(args, scene, device, counts: dict):
     """Shadow query for --mode direct: the any-hit leaf walk on the card
     above 4000 spheres (over a leaf-size-32 tree, as the JAX command
-    builds), else the dense oracle."""
+    builds), checked, its calls and escalations tallied into ``counts``;
+    else the dense oracle."""
     from tracer_torch.intersect.brute import any_hit_brute
     n = int(scene.centers.shape[0])
     if device.type == "cuda" and args.bvh and n > DENSE_MAX_SPHERES:
@@ -236,7 +227,7 @@ def make_occluded(args, scene, device, counts: dict):
         bvh = build_bvh(scene.centers, scene.radii, leaf_size=32,
                         device=device)
         tables = build_cone_tables(scene, bvh)
-        query = _counted(counts, "shadow", lambda r, tmax: (
+        query = trace.tallied(counts, lambda r, tmax: (
             occluded_leafcull_checked(r, tables, tmax)))
         return lambda s: query
     return lambda s: (lambda r, tmax: any_hit_brute(r, s, tmax))
@@ -340,13 +331,16 @@ def metrics(session: Session, times) -> dict:
 def _profiled(directory: str | None, device: torch.device):
     """A torch.profiler context (CPU and, on the card, CUDA activity)
     writing its Chrome trace to ``directory``/trace.json on exit; a
-    no-op without ``directory``."""
+    no-op without ``directory``. The profiler turns ``tracer_torch.trace``
+    on, so the trace holds the program's spans beside the kernels; the
+    trace's store is emptied on entry, so it then holds this run's."""
     if directory is None:
         yield
         return
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU] + (
         [ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    trace.reset()
     with profile(activities=acts) as prof:
         yield
     os.makedirs(directory, exist_ok=True)
@@ -389,6 +383,8 @@ def cmd_render(args) -> int:
         print(f"no frame to render: the checkpoint is at frame {start}")
         return 0
     rec = metrics(session, times)
+    if args.profile:
+        rec["trace"] = trace.summary(trace.records())
     print(f"frames: {args.frames}, mean frame time {rec['mean_frame_s']:.4f}"
           f" s ({rec['fps']:.2f} FPS)")
     print("escalations: " + (", ".join(
@@ -557,15 +553,17 @@ def build_parser() -> argparse.ArgumentParser:
                     help="point light position x,y,z (direct mode)")
     sp.add_argument("--light-intensity", type=float, default=1.0)
     sp.add_argument("--profile", default=None, metavar="DIR",
-                    help="write a torch.profiler trace of the frames into "
-                         "DIR/trace.json")
+                    help="write a torch.profiler trace of the frames, the "
+                         "program's tracer_torch.* spans beside the kernels, "
+                         "into DIR/trace.json")
     sp.add_argument("--checkpoint", default=None,
                     help="accumulation checkpoint path (npz), written after "
                          "each frame")
     sp.add_argument("--resume", action="store_true",
                     help="resume accumulation from --checkpoint")
     sp.add_argument("--metrics", default=None,
-                    help="write frame-time/FPS JSON here")
+                    help="write frame-time/FPS JSON here (with --profile "
+                         "also the trace's counters)")
     sp.add_argument("--out", default="render.png")
     sp.set_defaults(fn=cmd_render)
 

@@ -22,6 +22,7 @@ from typing import Callable
 import torch
 from torch import Tensor
 
+from tracer_torch import trace
 from tracer_torch.config import DEFAULT_CONFIG, TracerConfig
 from tracer_torch.core import sampling
 from tracer_torch.core.sort import direction_morton_codes
@@ -62,6 +63,7 @@ def bounce_noise(generator: torch.Generator, batch_shape, max_depth: int,
     return n.to(device)
 
 
+@trace.spanned("compaction")
 def _compact_rays(rays: Ray, active: Tensor):
     """Wavefront compaction for one bounce: the flat wavefront sorted so
     live rays cluster by direction (cube-Morton code) and dead rays pack
@@ -99,6 +101,10 @@ def trace_radiance(nearest_hit: NearestHitFn, scene: Scene, rays: Ray,
     Bounce directions come from ``noise`` when given, else from
     ``generator``. ``compact=True`` re-sorts the wavefront before every
     bounce after the first (:func:`_compact_rays`); results are the same.
+    Each bounce is the span ``tracer_torch.bounce``, its argument the
+    bounce's index; where the trace is on it counts ``live_rays``, the
+    live paths entering the bounce (one reduction), and ``slots``, the
+    wavefront's.
     """
     batch_shape = rays.batch_shape
     dev = rays.origin.device
@@ -109,41 +115,47 @@ def trace_radiance(nearest_hit: NearestHitFn, scene: Scene, rays: Ray,
     zero = torch.zeros((), dtype=torch.float32, device=dev)
 
     for bounce in range(max_depth):
-        if compact and bounce > 0:
-            crays, inv = _compact_rays(rays, active)
-            rec = _unpermute(nearest_hit(crays), inv, batch_shape)
-            rec.hit = rec.hit & active
-            rec.index = torch.where(active, rec.index,
-                                    torch.full_like(rec.index, -1))
-        else:
-            rec = nearest_hit(rays)
-        hit_now = active & rec.hit
-        miss_now = active & ~rec.hit
-
-        albedo = scene.albedo[torch.clamp(rec.index, min=0).long()]
-        radiance = radiance + torch.where(
-            hit_now[..., None], throughput[..., None] * albedo, zero)
-        radiance = radiance + torch.where(
-            miss_now[..., None],
-            throughput[..., None] * sky_color(rays.direction), zero)
-
-        active = hit_now
-        throughput = throughput * 0.5
-
-        if bounce + 1 < max_depth:
-            if noise is not None:
-                new_dir = sampling.hemisphere_from_noise(noise[bounce],
-                                                         rec.normal)
+        with trace.span("bounce", bounce):
+            if trace.on():
+                with trace.counting():
+                    trace.count(live_rays=active.sum(), slots=active.numel())
+            if compact and bounce > 0:
+                crays, inv = _compact_rays(rays, active)
+                rec = _unpermute(nearest_hit(crays), inv, batch_shape)
+                rec.hit = rec.hit & active
+                rec.index = torch.where(active, rec.index,
+                                        torch.full_like(rec.index, -1))
             else:
-                new_dir = sampling.uniform_on_hemisphere(generator,
-                                                         rec.normal)
-            # The bounce ray starts exactly at the hit point
-            # (renderer.c:54); t > EPSILON stands in for a self-hit offset.
-            rays = Ray(origin=rec.point, direction=new_dir)
+                rec = nearest_hit(rays)
+            hit_now = active & rec.hit
+            miss_now = active & ~rec.hit
+
+            albedo = scene.albedo[torch.clamp(rec.index, min=0).long()]
+            radiance = radiance + torch.where(
+                hit_now[..., None], throughput[..., None] * albedo, zero)
+            radiance = radiance + torch.where(
+                miss_now[..., None],
+                throughput[..., None] * sky_color(rays.direction), zero)
+
+            active = hit_now
+            throughput = throughput * 0.5
+
+            if bounce + 1 < max_depth:
+                if noise is not None:
+                    new_dir = sampling.hemisphere_from_noise(noise[bounce],
+                                                             rec.normal)
+                else:
+                    new_dir = sampling.uniform_on_hemisphere(generator,
+                                                             rec.normal)
+                # The bounce ray starts exactly at the hit point
+                # (renderer.c:54); t > EPSILON stands in for a self-hit
+                # offset.
+                rays = Ray(origin=rec.point, direction=new_dir)
     # Paths alive after max_depth bounces add black (renderer.c:23-24).
     return radiance
 
 
+@trace.spanned("render")
 def render(scene: Scene, camera: Camera,
            generator: torch.Generator | None,
            nearest_hit_for: Callable[[Scene], NearestHitFn],
@@ -194,6 +206,7 @@ def trace_direct(nearest_hit: NearestHitFn, occluded: OccludedFn,
     return torch.where(rec.hit[..., None], lit, sky_color(rays.direction))
 
 
+@trace.spanned("render")
 def render_direct(scene: Scene, camera: Camera, light_pos,
                   nearest_hit_for: Callable[[Scene], NearestHitFn],
                   occluded_for: Callable[[Scene], OccludedFn],

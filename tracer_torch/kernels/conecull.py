@@ -33,6 +33,7 @@ from dataclasses import dataclass
 import torch
 from torch import Tensor
 
+from tracer_torch import trace
 from tracer_torch.bvh.flat import FlatBVH
 from tracer_torch.core.types import Ray
 from tracer_torch.intersect.brute import record_from_ids
@@ -191,6 +192,7 @@ def _pad_cols(x: Tensor, width: int, value: int) -> Tensor:
                                     dtype=x.dtype, device=x.device)], dim=-1)
 
 
+@trace.spanned("phase_a")
 def cone_candidates(feats: Tensor, tables: ConeTables, max_groups: int,
                     max_candidates: int):
     """Phase A: feature planes -> per-(subpacket, chunk) candidate rows.
@@ -212,7 +214,22 @@ def cone_candidates(feats: Tensor, tables: ConeTables, max_groups: int,
                                     tables.leaf_boxes, k0, k,
                                     _round_up(k + 17, _ROW_ALIGN),
                                     exact=False)
+    count_rows(rows)
     return rows, None, overflow
+
+
+def count_rows(rows: Tensor, active: Tensor | None = None) -> None:
+    """Phase A's counters of count-embedded rows (..., S, rowlen), where
+    the trace is on: ``rows``, the rows produced (those of ``active``
+    pairs only, for routed rows (npairs, S, rowlen)), and ``group_rows``,
+    those in group mode (count < 0). A few small launches."""
+    if not trace.on():
+        return
+    cnt = rows[..., 0]
+    with trace.counting():
+        trace.count(rows=cnt.numel() if active is None
+                    else active.sum() * rows.shape[1],
+                    group_rows=(cnt < 0).sum())
 
 
 def candidate_rows(bounds, cull: CullTables, leaf_boxes: Tensor, k0: int,
@@ -392,6 +409,7 @@ def compact_cuda(masked_ids: Tensor, sentinel: int, keep: int):
 compact_cuda.launches = 0
 
 
+@trace.spanned("compact")
 def compact_ascending_rows(masked_ids: Tensor, sentinel: int, keep: int):
     """Compact (P, M) rows of masked ascending ids; see
     :func:`compact_ascending_rows_plain`. CPU tensors run the plain version,
@@ -544,6 +562,7 @@ def _conecull_launch(feats: Tensor, cand: Tensor, cones: Tensor,
 conecull_cuda.launches = 0
 
 
+@trace.spanned("walk")
 def conecull_call(feats: Tensor, cand: Tensor, cones: Tensor, prims: Tensor,
                   leaf_size: int, leaves_per_chunk: int,
                   leaves_per_group: int):
@@ -573,6 +592,7 @@ def kernel_order_dest(dest: Tensor, subpackets: int, subpacket: int) -> Tensor:
     return g * (SP * S) + r * S + s
 
 
+@trace.spanned("nearest")
 def nearest_hit_hybrid_feats(feats: Tensor, tables: ConeTables,
                              max_groups: int = 64,
                              max_candidates: int = 119):
@@ -587,6 +607,7 @@ def nearest_hit_hybrid_feats(feats: Tensor, tables: ConeTables,
     g, S, SP, _ = feats.shape
     rows, _, overflow = cone_candidates(feats, tables, max_groups,
                                         max_candidates)
+    trace.count_outermost(rays=g * S * SP)
     rows = rows.reshape(cull.num_chunks, g, S, rows.shape[-1])
     t_k, slot = leafcull_call(feats, rows, cull.prims, cull.leaf_size,
                               cull.leaves_per_chunk, cull.leaves_per_group)

@@ -27,6 +27,7 @@ from __future__ import annotations
 import torch
 from torch import Tensor
 
+from tracer_torch import trace
 from tracer_torch.core.types import Ray
 from tracer_torch.intersect.brute import record_from_ids
 from tracer_torch.intersect.cull import (LANES, LeafTable, prim_tiles,
@@ -194,6 +195,7 @@ def slots_from_keys(keys: Tensor, cand: Tensor):
 cull_cuda.launches = 0
 
 
+@trace.spanned("walk")
 def cull_call(rays: Tensor, tiles: Tensor, cand: Tensor, counts: Tensor):
     """(t, slot) of the packet cull. CPU tensors run :func:`cull_plain`;
     anything else goes to :func:`cull_cuda`, which launches the kernel or
@@ -243,6 +245,7 @@ def nearest_hit_cull_checked(rays: Ray, scene: Scene, packed: PackedBVH,
     while True:
         rec, overflow = nearest_hit_cull(rays, scene, packed, table, k)
         if not bool(overflow) or k >= table.num_tiles:
+            trace.checked("closest", escalations)
             return rec, escalations
         k = min(2 * k, table.num_tiles)
         escalations += 1

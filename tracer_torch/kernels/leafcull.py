@@ -31,6 +31,7 @@ import numpy as np
 import torch
 from torch import Tensor
 
+from tracer_torch import trace
 from tracer_torch.bvh.flat import FlatBVH
 from tracer_torch.core.sort import octahedral_codes, plan_bucket_pad
 from tracer_torch.intersect.sphere import EPSILON
@@ -211,6 +212,7 @@ def pack_ray_features(o: Tensor, d: Tensor, subpackets: int, subpacket: int,
     return feats.reshape(g, subpackets, subpacket, FEAT), g, pad
 
 
+@trace.spanned("prep")
 def prep_feats_bucketed(o: Tensor, d: Tensor, subpackets: int,
                         subpacket: int, cell_bits: int = 8,
                         t_max: Tensor | None = None):
@@ -244,6 +246,7 @@ def subpacket_bounds(o: Tensor, d: Tensor, subpacket: int):
     return ot.amin(1), ot.amax(1), dt.amin(1), dt.amax(1)
 
 
+@trace.spanned("phase_a")
 def leaf_candidates(o: Tensor, d: Tensor, tables: CullTables,
                     max_groups: int, max_candidates: int, subpacket: int):
     """Hierarchical phase A on padded, direction-sorted rays.
@@ -257,13 +260,16 @@ def leaf_candidates(o: Tensor, d: Tensor, tables: CullTables,
     levels compact through ``conecull.compact_ascending_rows`` (the CUDA
     compactor on CUDA tensors) where the JAX function sorts. No host sync.
     """
-    from tracer_torch.kernels.conecull import (candidate_rows, leaf_box_rows,
-                                               _round_up, _ROW_ALIGN)
+    from tracer_torch.kernels.conecull import (candidate_rows, count_rows,
+                                               leaf_box_rows, _round_up,
+                                               _ROW_ALIGN)
     k = min(max_candidates, tables.leaves_per_chunk)
-    return candidate_rows(subpacket_bounds(o, d, subpacket), tables,
-                          leaf_box_rows(tables),
-                          min(max_groups, tables.num_groups), k,
-                          _round_up(k + 17, _ROW_ALIGN), exact=True)
+    rows, overflow = candidate_rows(subpacket_bounds(o, d, subpacket), tables,
+                                    leaf_box_rows(tables),
+                                    min(max_groups, tables.num_groups), k,
+                                    _round_up(k + 17, _ROW_ALIGN), exact=True)
+    count_rows(rows)
+    return rows, overflow
 
 
 # ---------------------------------------------------------------------------
@@ -533,6 +539,7 @@ def leaf_grid(walk: str, subpacket: int, leaf_size: int, chunk: int,
                                                     chunk)
 
 
+@trace.spanned("walk")
 def leafcull_call(feats: Tensor, cand: Tensor, prims: Tensor,
                   leaf_size: int, leaves_per_chunk: int,
                   leaves_per_group: int):
@@ -649,6 +656,7 @@ def _anyhit_launch(feats: Tensor, cand: Tensor, prims: Tensor,
 anyhit_cuda.launches = 0
 
 
+@trace.spanned("walk")
 def anyhit_call(feats: Tensor, cand: Tensor, prims: Tensor, leaf_size: int,
                 leaves_per_chunk: int, leaves_per_group: int) -> Tensor:
     """Occlusion per ray over its subpacket's candidate rows, ORed over
@@ -664,21 +672,27 @@ def anyhit_call(feats: Tensor, cand: Tensor, prims: Tensor, leaf_size: int,
 # HitRecord and occlusion queries over rays in caller order
 # ---------------------------------------------------------------------------
 
-def _escalate(query, tables, max_groups: int, max_candidates: int):
+def _escalate(query, tables, max_groups: int, max_candidates: int,
+              kind: str = "closest"):
     """Run ``query(mg, mc) -> (result, overflow)``, doubling both budgets
-    until nothing overflows or both cover the whole table. Returns
+    until nothing overflows or both cover the whole table; each retry is
+    the span ``tracer_torch.escalate``, its argument the escalation's
+    number. Counts the call in ``trace.checked(kind, ...)``. Returns
     (result, escalations)."""
     cull = tables.cull
     k0, k = max_groups, max_candidates
     escalations = 0
+    out, overflow = query(k0, k)
     while True:
-        out, overflow = query(k0, k)
         done = k0 >= cull.num_groups and k >= cull.leaves_per_chunk
         if not bool(overflow) or done:
+            trace.checked(kind, escalations)
             return out, escalations
         k0 = min(2 * k0, cull.num_groups)
         k = min(2 * k, cull.leaves_per_chunk)
         escalations += 1
+        with trace.span("escalate", escalations):
+            out, overflow = query(k0, k)
 
 
 def nearest_hit_leafcull(rays, scene: Scene, tables, max_groups: int = 48,
@@ -712,12 +726,14 @@ def nearest_hit_leafcull(rays, scene: Scene, tables, max_groups: int = 48,
     return rec, overflow
 
 
+@trace.spanned("nearest")
 def nearest_hit_leafcull_checked(rays, scene: Scene, tables,
                                  max_groups: int = 48,
                                  max_candidates: int = 119, **kw):
     """Escalating driver over :func:`nearest_hit_leafcull`: doubles both
     candidate budgets until no subpacket overflows. Returns (HitRecord,
     escalations)."""
+    trace.count_outermost(rays=rays.origin.numel() // 3)
     return _escalate(lambda k0, k: nearest_hit_leafcull(
         rays, scene, tables, k0, k, **kw), tables, max_groups,
         max_candidates)
@@ -783,10 +799,12 @@ def occluded_leafcull(rays, tables, t_max, max_groups: int = 48,
     return occ.reshape(batch_shape), overflow
 
 
+@trace.spanned("occluded")
 def occluded_leafcull_checked(rays, tables, t_max, max_groups: int = 48,
                               max_candidates: int = 119, **kw):
     """Escalating driver over :func:`occluded_leafcull`. Returns
     (occluded, escalations)."""
+    trace.count_outermost(rays=rays.origin.numel() // 3)
     return _escalate(lambda k0, k: occluded_leafcull(
         rays, tables, t_max, k0, k, **kw), tables, max_groups,
-        max_candidates)
+        max_candidates, kind="shadow")

@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 from torch import Tensor
 
+from tracer_torch import trace
 from tracer_torch.core.types import Ray
 from tracer_torch.intersect.brute import record_from_ids
 from tracer_torch.intersect.cull import (LANES, LeafTable, prim_tiles,
@@ -198,6 +199,7 @@ def results_from_keys(keys: Tensor, G: int, S: int):
 tilecull_cuda.launches = 0
 
 
+@trace.spanned("walk")
 def tilecull_call(feats: Tensor, cand: Tensor, prims: Tensor):
     """Nearest hit per ray over its subpacket's candidate tiles: (t, slot),
     each (G, 128, S). CPU tensors run :func:`tilecull_plain`; anything else
@@ -237,12 +239,14 @@ def nearest_hit_tilecull(rays: Ray, scene: Scene, packed: PackedBVH,
     return rec, overflow
 
 
+@trace.spanned("nearest")
 def nearest_hit_tilecull_checked(rays: Ray, scene: Scene, packed: PackedBVH,
                                  table: LeafTable, max_candidates: int = 64,
                                  subpackets: int = 8):
     """Escalating driver: doubles the candidate budget until no subpacket
     overflows, as the JAX driver does. Returns (HitRecord, escalations):
     how many times the budget was doubled (one host sync per try)."""
+    trace.count_outermost(rays=rays.origin.numel() // 3)
     k = max_candidates
     T = table.num_tiles
     escalations = 0
@@ -251,6 +255,7 @@ def nearest_hit_tilecull_checked(rays: Ray, scene: Scene, packed: PackedBVH,
             rays, scene, packed, table, max_candidates=k,
             subpackets=subpackets)
         if not bool(overflow) or k >= T:
+            trace.checked("closest", escalations)
             return rec, escalations
         k = min(2 * k, -(-T // LANES) * LANES)
         escalations += 1

@@ -49,9 +49,10 @@ from __future__ import annotations
 import torch
 from torch import Tensor
 
+from tracer_torch import trace
 from tracer_torch.kernels import _lib, tilewalk
 from tracer_torch.kernels.conecull import (ConeTables, bounds_from_feats,
-                                           compact_ascending_rows,
+                                           compact_ascending_rows, count_rows,
                                            _pad_cols, _round_up,
                                            _slab_hit_cols, _ROW_ALIGN)
 from tracer_torch.kernels.leafcull import (FEAT, MISS_KEY, _BIG, _NOSLOT,
@@ -67,6 +68,7 @@ _MERGE_ROWS = 64
 ROUTED_ITEM_PRIMS = 256
 
 
+@trace.spanned("route")
 def route_pairs(o_lo, o_hi, d_lo, d_hi, tables: ConeTables, subpackets: int,
                 npairs: int, kc: int):
     """Chunk-level routing. Bounds (P, 3) with P = g * subpackets.
@@ -100,6 +102,7 @@ def route_pairs(o_lo, o_hi, d_lo, d_hi, tables: ConeTables, subpackets: int,
                                          device=dev), C * g)
     take = _pad_cols(torch.sort(key).values[:npairs], npairs, C * g)
     total = flat.sum(dtype=torch.int32)
+    trace.count(pairs=total, pair_budget=npairs)
     active = take < C * g
     pair_c = torch.where(active, take // g, C - 1)
     pair_gb = torch.where(active, take % g, 0)
@@ -191,6 +194,7 @@ def _pair_block_rows(packed, gmin, gmax, tables, pair_c, pair_gb,
     return rows.reshape(np_, S, rowlen), ovf
 
 
+@trace.spanned("phase_a")
 def tlas_candidates(feats: Tensor, tables: ConeTables, max_groups: int,
                     max_candidates: int, npairs: int, kc: int,
                     pair_block: int = 8192):
@@ -232,7 +236,9 @@ def tlas_candidates(feats: Tensor, tables: ConeTables, max_groups: int,
                                      k, kg, rowlen)
         blocks.append(rows)
         overflow = overflow | ovf
-    return torch.cat(blocks), pair_c, pair_gb, merge_pos, overflow
+    rows = torch.cat(blocks)
+    count_rows(rows, active)
+    return rows, pair_c, pair_gb, merge_pos, overflow
 
 
 # ---------------------------------------------------------------------------
@@ -336,6 +342,7 @@ def _routed_launch(pair_c: Tensor, pair_gb: Tensor, cand: Tensor,
 routed_cuda.launches = 0
 
 
+@trace.spanned("walk")
 def routed_call(pair_c: Tensor, pair_gb: Tensor, cand: Tensor,
                 feats: Tensor, prims: Tensor, leaf_size: int,
                 leaves_per_chunk: int, leaves_per_group: int):
@@ -372,6 +379,7 @@ def tlas_merge(t_p: Tensor, slot_p: Tensor, merge_pos: Tensor):
             torch.where(hit, slot, -1))
 
 
+@trace.spanned("nearest")
 def nearest_hit_tlas_feats(feats: Tensor, tables: ConeTables,
                            max_groups: int = 64, max_candidates: int = 119,
                            npairs: int = 8192, kc: int = 32,
@@ -389,6 +397,8 @@ def nearest_hit_tlas_feats(feats: Tensor, tables: ConeTables,
     kc = min(kc, cull.num_chunks)
     rows, pair_c, pair_gb, merge_pos, overflow = tlas_candidates(
         feats, tables, max_groups, max_candidates, npairs, kc, pair_block)
+    trace.count_outermost(
+        rays=feats.shape[0] * feats.shape[1] * feats.shape[2])
     t_p, slot_p = routed_call(pair_c, pair_gb, rows, feats, cull.prims,
                               cull.leaf_size, cull.leaves_per_chunk,
                               cull.leaves_per_group)

@@ -35,6 +35,7 @@ from dataclasses import dataclass
 import torch
 from torch import Tensor
 
+from tracer_torch import trace
 from tracer_torch.bvh.flat import FlatBVH, padded_scene_arrays
 from tracer_torch.core.types import Ray
 from tracer_torch.intersect.brute import record_from_ids
@@ -311,15 +312,29 @@ def resume_clusters(cluster: int, leaf_size: int,
     return n
 
 
+@trace.spanned("walk")
 def traverse_call(rays: Tensor, packed: PackedBVH):
     """(t, slot, steps) of the packet walk. CPU tensors run
     :func:`traverse_plain`; anything else goes to :func:`traverse_cuda`,
-    which launches the kernel or raises."""
-    if rays.device.type == "cpu":
-        return traverse_plain(rays, packed)
-    return traverse_cuda(rays, packed)
+    which launches the kernel or raises.
+
+    Where the trace is on it counts ``packets``, ``packet_steps`` (the sum
+    of ``steps``) and ``resumed_packets``, those past ``STEP_CAP`` steps:
+    the packets ``traverse_cuda``'s resume launch walks (its first launch
+    lists a packet still inside the tree at the cap, so one that walked
+    more than ``STEP_CAP`` steps). A few small launches.
+    """
+    out = (traverse_plain(rays, packed) if rays.device.type == "cpu"
+           else traverse_cuda(rays, packed))
+    if trace.on():
+        steps = out[2]
+        with trace.counting():
+            trace.count(packets=steps.numel(), packet_steps=steps.sum(),
+                        resumed_packets=(steps > STEP_CAP).sum())
+    return out
 
 
+@trace.spanned("nearest")
 def nearest_hit_bvh_packets(rays: Ray, scene: Scene, packed: PackedBVH,
                             with_steps: bool = False):
     """Closest hit via the packet walk; batch shape preserved. The
@@ -334,6 +349,7 @@ def nearest_hit_bvh_packets(rays: Ray, scene: Scene, packed: PackedBVH,
     o = rays.origin.reshape(-1, 3)
     d = rays.direction.reshape(-1, 3)
     b = o.shape[0]
+    trace.count_outermost(rays=b)
     with torch.no_grad():
         packed_rays, g, _ = pack_rays(o.detach(), d.detach())
         if g:
