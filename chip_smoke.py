@@ -28,12 +28,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
 4. the closest-hit slice at full size: 100k spheres x 512k origin rays
    through prep, phase A and the leaf walk, with launch counters reset
    just before and read just after; overflow, hit fraction, and agreement
-   with the brute-force oracle on the first 16k rays; kernel vs plain on
-   its rows, their walked-leaf distribution and the split walk's sweep;
+   with the brute-force oracle on the first 16k rays; ``phase_a_cuda``
+   against the torch operations it replaces on the slice's subpacket
+   bounds, bit for bit, timed beside them and its bound; kernel vs plain
+   on its rows, their walked-leaf distribution and the split walk's
+   sweep;
 5. the shadow slice at full size: the same rays with t_max = 500 through
    prep, phase A and the any-hit walk, counters reset and read the same
    way; overflow, agreement with "closest-hit t < 500" from phase 4 on
-   every ray and with ``any_hit_brute`` on the first 16k rays; kernel vs
+   every ray and with ``any_hit_brute`` on the first 16k rays;
+   ``phase_a_cuda`` against the torch operations on its bounds; kernel vs
    plain on its rows, their walked-leaf distribution and the sweep;
 5b. the packet cull at full size: 100k spheres in 16-prim leaves, the
    512k rays sorted by direction, through ``nearest_hit_cull_checked`` from
@@ -53,8 +57,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
    rays through prep, routing, routed phase A, the routed walk and the
    merge, counters reset and read the same way; overflow, slots equal to
    the dense multi-chunk query on every ray, agreement with brute force on
-   the first 4096 rays; kernel vs plain on its rows, their walked-leaf
-   distribution, the item sweep and the keys' bytes;
+   the first 4096 rays; ``phase_a_cuda`` against the torch operations on
+   every routed pair, timed beside them and its bound, then on skewed
+   rows (``skewed_phase_a``: one-chunk rows on the 100k tables from
+   hair-thin direction boxes to ones that meet every group, at the bench
+   budget and at 16 leaves, in group mode and overflowing; routed rows on
+   the 10M tables over random chunks, the last included, every fifth pair
+   inactive, at 119 and 7 leaves); kernel vs plain on its rows, their
+   walked-leaf distribution, the item sweep and the keys' bytes;
 7. the render slice at full size: 100k spheres in the 1000-unit world,
    the default camera, 800x600, through ``tracer_torch.cli``'s own code
    path, in path mode (depth 5) and direct mode, both with compaction,
@@ -114,14 +124,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
    path, build, brute and BVH times, Mrays/s, table chunks, settled
    budgets, escalations, scene and table times, peak memory, seconds of
    run and the kernels its query launches (dense: none; single chunk:
-   ``leafcull_cuda`` and ``compact_cuda``; routed: ``routed_cuda`` and
-   ``compact_cuda``), no escalation of a routed row of at most 256 chunks
+   ``leafcull_cuda`` and ``phase_a_cuda``; routed: ``routed_cuda``,
+   ``compact_cuda`` and ``phase_a_cuda``), no escalation of a routed row of at most 256 chunks
    at the JAX harness's budgets, and its t and ids against brute force on
    the rays brute force timed (ties and grazes only, t to 1e-5 relative
    but at a graze); the complexity fit. The 100M row (more than 256
    chunks, brute force skipped, its scene freed by the sweep) is held
    against brute force on its first 1,024 rays over the scene drawn again
-   from its seed; its routed rows' first 2,048 pairs through
+   from its seed; ``phase_a_cuda`` on its first block of pairs (the
+   ``pair_block`` the torch operations take at a time) against the torch
+   operations and against its own launch over every pair, timed; its
+   routed rows' first 2,048 pairs through
    ``routed_cuda`` against ``routed_plain`` bit for bit; its stage times,
    launches, walk bound and compactor planes (``routed_row``); then the
    same tables at the published sweep's 524,288 rays: the query settled
@@ -138,7 +151,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
 8d. the distribution (``dist_slice``) at world size 1 over NCCL, each
    query timed beside its unsharded twin, the group's start timed:
    ``nearest_hit_sharded`` on the headline query bitwise the unsharded
-   query, launching ``leafcull_cuda`` once and ``compact_cuda`` twice
+   query, launching ``phase_a_cuda`` and ``leafcull_cuda`` once each
    (counters set to 0 just before, read just after); ``measure_scaling``
    with one rank; ``render_sharded`` path frames at 800x600, 100k spheres,
    ``--impl auto`` (leaf walk and compactor launched) and ``pallas``
@@ -190,13 +203,15 @@ reference quadratic rounds differently, see MIN_AGREE_REFERENCE). Every
 kernel equals its plain version exactly.
 
 ``compact_cuda``'s ``launches`` in the per-kernel line is its count on
-the headline query (phase 4) plus its count on the differentiable path
-(phase 7c); every other kernel's is its own path's count.
+the differentiable path (phase 7c): the headline query no longer calls
+it; every other kernel's is its own path's count. ``phase_a_cuda``'s
+``ms``, ``plain_ms`` and ``bound_ms`` are the headline's (phase 4), with
+the 10M rows' beside them (``*_10m``).
 
 Each kernel's ``ms`` in the per-kernel line is its wrapper's call timed
 on CUDA events over back-to-back calls; ``compact_cuda``'s is summed over
-the two synthetic planes of phase 3a. The calls of ``compact_cuda`` and
-``conecull_cuda`` take less device time than the host takes to issue
+the two synthetic planes of phase 3a. The calls of ``compact_cuda``,
+``phase_a_cuda`` and ``conecull_cuda`` take less device time than the host takes to issue
 them, so their device time (the call captured in a CUDA graph and
 replayed between CUDA events: ``timing.time_graph``) is logged beside.
 Each kernel's ``bound_ms`` is the larger of its bytes (each input read
@@ -212,7 +227,10 @@ test over the leaves it tested (leaf visits x leaf size x 1024); the tile
 walk 20 per (ray, prim) test over the listed tiles (sum of counts x 128 x
 128); phase B 22 per cone test of a walked prim and 19 per (ray,
 survivor) test; the packet cull 25 per b-form test over the walked tiles
-(sum of min(count, K) x 1024 x 128).
+(sum of min(count, K) x 1024 x 128); phase A 85 per interval slab test of
+a box, over every group of an active row's chunk and the member leaves of
+the groups of rows that meet at most k0 (its bytes: the rows written, the
+bounds, group boxes, leaf boxes and pair tables read once).
 """
 
 import contextlib
@@ -246,6 +264,7 @@ OPS_PER_SLAB = 25       # packet walk: one (ray, node) slab test
 OPS_PER_BFORM = 25      # packet walk: one b-form (ray, prim) test
 OPS_PER_TILE_TEST = OPS_PER_TEST + 1    # tile walk: u-form plus t = -u/a
 OPS_PER_CONE = 22       # phase B: one cone test of a walked prim
+OPS_PER_BOX = 85        # phase A: one interval slab test of a box
 CULL_K = 128            # the packet cull's first budget at full size
 SMALL_CULL_K = 8        # an overflowing packet-cull budget at 20k spheres
 PLAIN_ELEMS = 1 << 26   # slice size of the plain walks on the card
@@ -1333,6 +1352,146 @@ def phase_a(feats, tables, mg=None, mc=None):
             cones_of(feats, tables))
 
 
+def phase_a_plain(bounds, tables, S, budgets, pairs=()):
+    """The torch operations ``phase_a_cuda`` replaces, on its arguments:
+    ``candidate_rows`` (no pairs) or ``tlas._pair_block_rows``. Returns
+    (rows (nrows, rowlen), overflow)."""
+    from tracer_torch.kernels.conecull import candidate_rows
+    from tracer_torch.kernels.tlas import _pair_block_rows
+    k0, k, kg, keep_l, gkeep, rowlen = budgets
+    cull = tables.cull
+    if not pairs:
+        rows, ovf = candidate_rows(tuple(bounds[:, i:i + 3]
+                                         for i in range(0, 12, 3)), cull,
+                                   tables.leaf_boxes, k0, k, rowlen,
+                                   exact=False)
+        return rows[0], ovf
+    C, gpc = cull.num_chunks, cull.leaves_per_chunk // cull.leaves_per_group
+    rows, ovf = _pair_block_rows(
+        bounds.reshape(-1, S * 12), cull.group_min.reshape(C, gpc, 3),
+        cull.group_max.reshape(C, gpc, 3), tables, *pairs, S, k0, gkeep, k,
+        kg, keep_l, rowlen)
+    return rows.reshape(-1, rowlen), ovf
+
+
+def phase_a_tests(bounds, tables, S, k0, pairs=()):
+    """(group-box tests, leaf-box tests) the rows need: every group of a
+    row's chunk (of active rows), and the member leaves of its first
+    groups where it has at most k0."""
+    import torch
+    from tracer_torch.kernels.conecull import _slab_hit_cols
+    cull = tables.cull
+    lpg = cull.leaves_per_group
+    gpc = cull.leaves_per_chunk // lpg
+    b = tuple(bounds[:, i:i + 3] for i in range(0, 12, 3))
+    g = torch.arange(gpc, device=bounds.device)
+    if pairs:
+        pc, pg, act = (x.long() for x in pairs)
+        q = (pg[:, None] * S + torch.arange(S, device=bounds.device)) \
+            .reshape(-1)
+        chunk = pc.repeat_interleave(S)
+        b = tuple(x[q] for x in b)
+        live = act.repeat_interleave(S).bool()
+    else:
+        chunk = torch.zeros(bounds.shape[0], dtype=torch.long,
+                            device=bounds.device)
+        live = torch.ones_like(chunk, dtype=torch.bool)
+    counts = []
+    for i in range(0, chunk.shape[0], 8192):
+        ids = chunk[i:i + 8192, None] * gpc + g
+        hit = _slab_hit_cols(*(x[i:i + 8192] for x in b),
+                             tuple(cull.group_min[ids, a] for a in range(3)),
+                             tuple(cull.group_max[ids, a] for a in range(3)))
+        counts.append((hit & (ids * lpg < cull.num_real_leaves)).sum(1))
+    gtotal = torch.cat(counts)
+    refined = torch.where(live & (gtotal <= k0), gtotal, 0)
+    return int(live.sum()) * gpc, int(refined.sum()) * lpg
+
+
+def phase_a_check(name, bounds, tables, S, budgets, pairs=(), timed=True):
+    """``phase_a_cuda`` against :func:`phase_a_plain` on the same
+    arguments, rows and overflow flag bit for bit; with ``timed`` the
+    kernel's device time (CUDA graph), the plain version's (events) and
+    the kernel's bound logged. Returns the results row."""
+    import torch
+    from tracer_torch.bench.timing import time_cuda, time_graph
+    from tracer_torch.kernels.conecull import phase_a_cuda
+    launches = phase_a_cuda.launches
+    rows, ovf = phase_a_cuda(bounds, tables, S, *budgets, *pairs)
+    prow, povf = phase_a_plain(bounds, tables, S, budgets, pairs)
+    torch.cuda.synchronize()
+    if not torch.equal(rows, prow) or bool(ovf) != bool(povf):
+        bad = int((rows != prow).any(dim=1).sum())
+        raise AssertionError(f"{name}: phase_a_cuda differs from the plain "
+                             f"version on {bad} of {rows.shape[0]} rows "
+                             f"(overflow {bool(ovf)}, plain {bool(povf)})")
+    cnt = rows[:, 0]
+    msg = (f"{name}: phase_a_cuda equal to the plain version on "
+           f"{rows.shape[0]} rows x {rows.shape[1]}, group rows "
+           f"{int((cnt < 0).sum())}, overflow {bool(ovf)}")
+    out = {"max_abs_err": 0, "library_ms": None}
+    if timed:
+        ms = time_graph(phase_a_cuda, bounds, tables, S, *budgets, *pairs)
+        plain_ms = time_cuda(phase_a_plain, bounds, tables, S, budgets,
+                             pairs, warmup=1, iters=3)
+        n_g, n_l = phase_a_tests(bounds, tables, S, budgets[0], pairs)
+        cull = tables.cull
+        bms, bby = bound(nbytes(rows, bounds, cull.group_min, cull.group_max,
+                                tables.leaf_boxes, *pairs),
+                         (n_g + n_l) * OPS_PER_BOX)
+        msg += (f"; kernel {ms:.4f} ms (device, graph), plain "
+                f"{plain_ms:.4f} ms (events), bound {bms:.4f} ms ({bby}: "
+                f"{n_g} group and {n_l} leaf box tests)")
+        out.update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bby)
+    log(msg)
+    phase_a_cuda.launches = launches
+    return out
+
+
+def synthetic_bounds(n, widths, gen, device):
+    """(n, 12) f32 bounds [o_lo | o_hi | d_lo | d_hi] of skewed rows:
+    origin boxes of side 0.02 at the world's centre, direction boxes of
+    half width ``widths[i % len]`` round random unit directions (a width
+    past a component's size straddles 0 on that axis)."""
+    import torch
+    d = torch.randn((n, 3), generator=gen)
+    d = d / d.norm(dim=1, keepdim=True)
+    w = torch.tensor(widths)[torch.arange(n) % len(widths)][:, None]
+    o = (torch.rand((n, 3), generator=gen) - 0.5) * 0.02
+    return torch.cat([o - 0.01, o + 0.01, d - w, d + w], dim=1).to(device)
+
+
+def skewed_phase_a(tables, btables, dev):
+    """Phase 3: ``phase_a_cuda`` on skewed rows, untimed: one-chunk rows
+    on the 100k tables from hair-thin to every-group direction boxes
+    (group mode from the leaf budget, from the group count and past the
+    kept prefix), and routed rows on the 10M tables over random chunks,
+    the last one included, with every fifth pair inactive."""
+    import torch
+    from tracer_torch.bench import headline
+    from tracer_torch.kernels.conecull import cone_budgets
+    from tracer_torch.kernels.tlas import pair_row_budgets
+    gen = torch.Generator().manual_seed(21)
+    S = headline.S
+    widths = (0.0005, 0.005, 0.05, 0.5, 2.0)
+    for mc in (headline.MC, 16):
+        phase_a_check(f"phase A skewed one-chunk rows, MC {mc}",
+                      synthetic_bounds(512 * S, widths, gen, dev), tables, S,
+                      cone_budgets(tables.cull, headline.MG, mc),
+                      timed=False)
+    cull = btables.cull
+    C, npairs, g = cull.num_chunks, 4096, 256
+    pc = torch.randint(0, C, (npairs,), generator=gen, dtype=torch.int32)
+    pc[-1] = C - 1
+    pg = torch.randint(0, g, (npairs,), generator=gen, dtype=torch.int32)
+    act = torch.arange(npairs) % 5 != 4
+    pairs = tuple(x.to(dev) for x in (pc, pg, act))
+    for mc in (119, 7):
+        phase_a_check(f"phase A skewed routed rows, MC {mc}",
+                      synthetic_bounds(g * S, widths, gen, dev), btables, S,
+                      pair_row_budgets(cull, 32, mc), pairs, timed=False)
+
+
 def compare_conecull(name, feats, rows, cones, cull):
     """conecull_cuda vs conecull_plain (t, slots, survivor counts) and vs
     leafcull_cuda (t, slots) on the same rows, all bit for bit. Returns
@@ -1603,12 +1762,16 @@ def phase_b_slice(dev, scene, tables, bvh16, o, d, t_ref, sid_ref, results,
     from tracer_torch.intersect.brute import brute_t_fast
     from tracer_torch.kernels.conecull import (build_cone_tables, compact_cuda,
                                                conecull_cuda, conecull_plain,
-                                               nearest_hit_conecull_t)
+                                               nearest_hit_conecull_t,
+                                               phase_a_cuda)
     from tracer_torch.kernels.leafcull import (leafcull_cuda,
                                                pack_ray_features, _escalate)
     S, SP = headline.S, headline.SP
     for leaf, tb in ((32, tables), (16, build_cone_tables(scene, bvh16))):
-        conecull_cuda.launches = compact_cuda.launches = 0
+        # One chunk: phase A is phase_a_cuda; more: the torch operations
+        # and the compactor.
+        rows_by = phase_a_cuda if tb.cull.num_chunks == 1 else compact_cuda
+        conecull_cuda.launches = rows_by.launches = 0
         padded, pdest = prep_rays_bucketed(Ray(o, d), SP,
                                            cell_bits=headline.CELL_BITS)
         with comp.record():
@@ -1617,7 +1780,7 @@ def phase_b_slice(dev, scene, tables, bvh16, o, d, t_ref, sid_ref, results,
                     padded, tb, k0, k, S, SP)), tb, headline.MG, headline.MC)
         torch.cuda.synchronize()
         launches = {"conecull_cuda": conecull_cuda.launches,
-                    "compact_cuda": compact_cuda.launches}
+                    rows_by.__name__: rows_by.launches}
         comp.check(f"phase B leaf {leaf}")
         mg = min(headline.MG << esc, tb.cull.num_groups)
         mc = min(headline.MC << esc, tb.cull.leaves_per_chunk)
@@ -2027,8 +2190,9 @@ def time_compactor(name, ids, sentinel, keep):
 
 # The kernels each row path of the sweep launches per query.
 SWEEP_KERNELS = {"dense_brute_fast": set(),
-                 "hybrid_feats": {"leafcull_cuda", "compact_cuda"},
-                 "tlas_routed": {"routed_cuda", "compact_cuda"}}
+                 "hybrid_feats": {"leafcull_cuda", "phase_a_cuda"},
+                 "tlas_routed": {"routed_cuda", "compact_cuda",
+                                 "phase_a_cuda"}}
 TOOLS_RENDER = ["render", "--scene", "benchmark", "--spheres", "100000",
                 "--compact"]   # path/auto, 800x600, depth 5
 DEBUG_RAYS = 4096       # rays of the checked per-ray walk at 100k spheres
@@ -2036,7 +2200,8 @@ DEBUG_RAYS = 4096       # rays of the checked per-ray walk at 100k spheres
 
 def kernel_counters():
     """Every kernel wrapper of the port, by name (each has ``launches``)."""
-    from tracer_torch.kernels.conecull import compact_cuda, conecull_cuda
+    from tracer_torch.kernels.conecull import (compact_cuda, conecull_cuda,
+                                               phase_a_cuda)
     from tracer_torch.kernels.cull import cull_cuda
     from tracer_torch.kernels.leafcull import anyhit_cuda, leafcull_cuda
     from tracer_torch.kernels.tilecull import tilecull_cuda
@@ -2044,7 +2209,8 @@ def kernel_counters():
     from tracer_torch.kernels.traverse import traverse_cuda
     return {f.__name__: f for f in (
         leafcull_cuda, compact_cuda, anyhit_cuda, routed_cuda,
-        traverse_cuda, tilecull_cuda, conecull_cuda, cull_cuda)}
+        traverse_cuda, tilecull_cuda, conecull_cuda, cull_cuda,
+        phase_a_cuda)}
 
 
 def check_sweep_row(name, o, d, scene, ta, ia, tb, ib):
@@ -2092,8 +2258,10 @@ def routed_row(n, tables, o, d, budgets, comp):
     import torch
     from tracer_torch.bench import harness, large
     from tracer_torch.bench.timing import time_cuda
-    from tracer_torch.kernels.conecull import compact_cuda
-    from tracer_torch.kernels.tlas import (routed_call, routed_cuda,
+    from tracer_torch.kernels.conecull import (bounds_from_feats,
+                                               compact_cuda, phase_a_cuda)
+    from tracer_torch.kernels.tlas import (pair_row_budgets, route_pairs,
+                                           routed_call, routed_cuda,
                                            routed_plain, tlas_candidates,
                                            tlas_merge)
     cull = tables.cull
@@ -2108,18 +2276,35 @@ def routed_row(n, tables, o, d, budgets, comp):
     if bool(ovf):
         raise AssertionError(f"n={n}: routed phase A overflowed at its "
                              f"settled budgets")
+    # The first block of pairs the torch operations took at a time, and
+    # the same rows of the kernel's one launch over every pair.
+    S = feats.shape[1]
+    bounds = bounds_from_feats(feats)
+    act = route_pairs(*bounds, tables, S, npairs, kc)[2]
+    bounds = torch.cat(bounds, dim=1)
+    blk = (pc[:pblk], pg[:pblk], act[:pblk])
+    pa_budgets = pair_row_budgets(cull, mg, mc)
+    pa = phase_a_check(f"{name}, phase A, first {blk[0].shape[0]} pairs",
+                       bounds, tables, S, pa_budgets, blk)
+    first, _ = phase_a_cuda(bounds, tables, S, *pa_budgets, *blk)
+    if not torch.equal(first, rows[:pblk].reshape(first.shape)):
+        raise AssertionError(f"{name}: phase_a_cuda's rows of the first "
+                             f"block differ from its launch over every pair")
+    phase_a_cuda.launches -= 1
     args = (pc, pg, rows, feats, cull.prims, cull.leaf_size,
             cull.leaves_per_chunk, cull.leaves_per_group)
     walk_ms = time_cuda(routed_call, *args, warmup=1, iters=3)
     t_p, s_p = routed_call(*args)
     merge_ms = time_cuda(tlas_merge, t_p, s_p, merge_pos)
-    before = (routed_cuda.launches, compact_cuda.launches)
+    before = (routed_cuda.launches, compact_cuda.launches,
+              phase_a_cuda.launches)
     with comp.record():
         harness._prep_query(harness.nearest_hit_tlas_feats, o, d, tables,
                             mg, mc, npairs, kc, pblk)
     torch.cuda.synchronize()
     launches = {"routed_cuda": routed_cuda.launches - before[0],
-                "compact_cuda": compact_cuda.launches - before[1]}
+                "compact_cuda": compact_cuda.launches - before[1],
+                "phase_a_cuda": phase_a_cuda.launches - before[2]}
     comp.check(name, timed=3)
     k = min(PAIR_SLICE, pc.shape[0])
     sl = (pc[:k], pg[:k], rows[:k], *args[3:])
@@ -2138,7 +2323,8 @@ def routed_row(n, tables, o, d, budgets, comp):
         f"{plain_ms:.3f} ms on the first {k} pairs), merge {merge_ms:.3f} "
         f"ms; walk bound {bms:.4f} ms ({bby})")
     return {"ms": walk_ms, "plain_ms_slice": plain_ms, "slice": k,
-            "bound_ms": bms, "bound_by": bby, "launches": launches}
+            "bound_ms": bms, "bound_by": bby, "launches": launches,
+            "phase_a": pa}
 
 
 def sweep_slice(comp):
@@ -2269,7 +2455,8 @@ def sweep_slice(comp):
     rows.clear()
     torch.cuda.empty_cache()
     log(f"sweep complexity: {json.dumps(rec['complexity'])}")
-    missing = {"leafcull_cuda", "compact_cuda", "routed_cuda"} - set(launches)
+    missing = {"leafcull_cuda", "compact_cuda", "routed_cuda",
+               "phase_a_cuda"} - set(launches)
     if missing:
         raise AssertionError(f"the sweep launched no {sorted(missing)}")
     return rec, launches
@@ -2458,9 +2645,9 @@ def dist_slice(dev, scene, tables, o, d):
     (ts, ids, ovf), n = run_counted(nearest_hit_sharded, rays, scene, mesh,
                                     head)
     log(f"dist sharded headline query launches: {n}")
-    if n != {"leafcull_cuda": 1, "compact_cuda": 2}:
-        raise AssertionError("the sharded query did not launch the leaf walk "
-                             "once and the compactor twice")
+    if n != {"leafcull_cuda": 1, "phase_a_cuda": 1}:
+        raise AssertionError("the sharded query did not launch phase A and "
+                             "the leaf walk once each")
     tu, idu, ovu = head(rays, scene)
     if bool(ovf.any()) or bool(ovu.any()):
         raise AssertionError("the headline query overflowed")
@@ -2700,13 +2887,16 @@ def main(argv=None) -> int:
     from tracer_torch.bench.timing import time_cuda
     from tracer_torch.intersect.brute import any_hit_brute, brute_t_fast
     from tracer_torch.core.types import Ray
-    from tracer_torch.kernels.conecull import (compact_cuda,
-                                               nearest_hit_hybrid_feats)
+    from tracer_torch.kernels.conecull import (bounds_from_feats,
+                                               compact_cuda, cone_budgets,
+                                               nearest_hit_hybrid_feats,
+                                               phase_a_cuda)
     from tracer_torch.kernels.leafcull import (
         anyhit_cuda, anyhit_plain, leafcull_cuda, leafcull_plain,
         pack_ray_features, prep_feats_bucketed)
     from tracer_torch.kernels.tlas import (
-        nearest_hit_tlas_feats, routed_cuda, routed_plain, tlas_candidates)
+        nearest_hit_tlas_feats, pair_row_budgets, route_pairs, routed_cuda,
+        routed_plain, tlas_candidates)
     results = {}
 
     def shadow_prep(o, d, t_max):
@@ -2808,12 +2998,12 @@ def main(argv=None) -> int:
     cull = tables.cull
     log(f"100k scene: bvh build {build_ms:.1f} ms, {cull.num_chunks} "
         f"chunk(s), {cull.num_real_leaves} leaves")
-    leafcull_cuda.launches = compact_cuda.launches = 0
+    leafcull_cuda.launches = phase_a_cuda.launches = 0
     with comp.record():
         t, slot, dest, overflow = headline.query(o, d, tables)
     torch.cuda.synchronize()
     launches = {"leafcull_cuda": leafcull_cuda.launches,
-                "compact_cuda": compact_cuda.launches}
+                "phase_a_cuda": phase_a_cuda.launches}
     log(f"closest-hit slice launches: {launches}")
     comp.check("headline", timed=2)
     if min(launches.values()) < 1:
@@ -2835,6 +3025,11 @@ def main(argv=None) -> int:
                   sphere_of_in(scene), tr[:n], sid[:n], tb, ib, -1)
 
     feats, _ = headline.prep(o, d)
+    budgets = cone_budgets(cull, headline.MG, headline.MC)
+    results["phase_a_cuda"] = phase_a_check(
+        "phase A 100k x 512k", torch.cat(bounds_from_feats(feats), dim=1),
+        tables, headline.S, budgets)
+    results["phase_a_cuda"]["launches"] = launches["phase_a_cuda"]
     rows = phase_a_rows(feats, tables)
     compare_walk("walk 100k x 512k", feats, rows, cull)
     leaf_rows("walk 100k x 512k rows", rows, cull.leaves_per_group)
@@ -2852,15 +3047,15 @@ def main(argv=None) -> int:
         ms=walk_ms, plain_ms=walk_plain_ms, library_ms=None, bound_ms=wb,
         bound_by=wby, max_abs_err=0,
         launches=launches["leafcull_cuda"])
-    results["compact_cuda"]["launches"] = launches["compact_cuda"]
+    results["compact_cuda"]["launches"] = 0    # phase A is one kernel
 
     # -- 5. the shadow slice at full size ----------------------------------
-    anyhit_cuda.launches = compact_cuda.launches = 0
+    anyhit_cuda.launches = phase_a_cuda.launches = 0
     with comp.record():
         occ, sdest, s_overflow = headline.shadow_query(o, d, tables)
     torch.cuda.synchronize()
     s_launches = {"anyhit_cuda": anyhit_cuda.launches,
-                  "compact_cuda": compact_cuda.launches}
+                  "phase_a_cuda": phase_a_cuda.launches}
     log(f"shadow slice launches: {s_launches}")
     comp.check("shadow")
     if min(s_launches.values()) < 1:
@@ -2878,6 +3073,9 @@ def main(argv=None) -> int:
                     d[:n], occ[:n], ref, scene.centers, scene.radii, t_max,
                     MIN_AGREE_REFERENCE)
     sfeats = shadow_prep(o, d, t_max)
+    phase_a_check("phase A any-hit 100k x 512k",
+                  torch.cat(bounds_from_feats(sfeats), dim=1), tables,
+                  headline.S, budgets, timed=False)
     srows = phase_a_rows(sfeats, tables)
     compare_anyhit("any-hit 100k x 512k", sfeats, srows, cull)
     leaf_rows("any-hit 100k x 512k rows", srows, cull.leaves_per_group)
@@ -2906,11 +3104,13 @@ def main(argv=None) -> int:
         f"ms, {bcull.num_chunks} chunks; budgets (mg, npairs, kc, block) "
         f"{budget}")
     routed_cuda.launches = compact_cuda.launches = 0
+    phase_a_cuda.launches = 0
     with comp.record():
         bt, bslot, bdest, b_overflow = large.query(bo, bd, btables, budget)
     torch.cuda.synchronize()
     b_launches = {"routed_cuda": routed_cuda.launches,
-                  "compact_cuda": compact_cuda.launches}
+                  "compact_cuda": compact_cuda.launches,
+                  "phase_a_cuda": phase_a_cuda.launches}
     log(f"TLAS slice launches: {b_launches}")
     comp.check("10M TLAS", timed=3)
     if min(b_launches.values()) < 1:
@@ -2942,9 +3142,17 @@ def main(argv=None) -> int:
 
     mg, npairs, kc, pblk = budget
     npairs = min(npairs, bcull.num_chunks * bfeats.shape[0])
-    trows, pc, pg, _, _ = tlas_candidates(
-        bfeats, btables, mg, large.MC, npairs, min(kc, bcull.num_chunks),
-        pblk)
+    kc = min(kc, bcull.num_chunks)
+    trows, pc, pg, _, _ = tlas_candidates(bfeats, btables, mg, large.MC,
+                                          npairs, kc, pblk)
+    bb = bounds_from_feats(bfeats)
+    pairs = (pc, pg, route_pairs(*bb, btables, large.S, npairs, kc)[2])
+    tla = phase_a_check("phase A routed 10M", torch.cat(bb, dim=1), btables,
+                        large.S, pair_row_budgets(bcull, mg, large.MC),
+                        pairs)
+    results["phase_a_cuda"].update(
+        {f"{k}_10m": tla[k] for k in ("ms", "plain_ms", "bound_ms")})
+    skewed_phase_a(tables, btables, dev)
     rargs = (pc, pg, trows, bfeats, bcull.prims, bcull.leaf_size,
              bcull.leaves_per_chunk, bcull.leaves_per_group)
     compare_routed("routed 10M", rargs)
@@ -3009,6 +3217,10 @@ def main(argv=None) -> int:
                           "tracer/kernels/conecull.py:562"),
         "cull_cuda": ("tracer_torch/csrc/cull.cu",
                       "tracer/kernels/cull_pallas.py:57"),
+        "phase_a_cuda": ("tracer_torch/csrc/phase_a.cu",
+                         "none (XLA operations: tracer/kernels/conecull.py "
+                         "cone_candidates, tracer/kernels/tlas.py "
+                         "tlas_candidates)"),
     }
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")

@@ -1,0 +1,239 @@
+"""Phase A's rows as one kernel (``conecull.phase_a_cuda``,
+``csrc/phase_a.cu``): a row-at-a-time model of the kernel's algorithm
+(``torch_parity.phase_a_row_model``: ascending 32-lane sweeps, ballot-order
+appends, the keep budgets, raw counts, both fallback rules) against the
+torch operations it replaces, ``candidate_rows`` (one chunk, not exact)
+and ``tlas._pair_block_rows`` (routed pairs), bit for bit; and the
+dispatch, which gives CPU tensors the torch operations.
+
+The kernel itself runs only on the card; ``chip_smoke.py`` holds it to the
+same torch operations there.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import tracer_torch as tt
+from tests import torch_parity as tp
+from tests.torch_parity import one_thread  # noqa: F401
+from tracer_torch import trace
+from tracer_torch.kernels import conecull as tc
+from tracer_torch.kernels import tlas as ttlas
+
+
+def _tables(n, leaf, max_chunk_bytes, seed):
+    c, r, a = tp.scene_np(n, seed=seed, world=100.0)
+    scene = tt.scene_from_numpy(c, r, a, device="cpu")
+    bvh = tt.build_bvh(c, r, leaf_size=leaf, device="cpu")
+    return tt.build_cone_tables(scene, bvh, max_chunk_bytes=max_chunk_bytes)
+
+
+@pytest.fixture(scope="module")
+def world():
+    o, d = tp.origin_rays_np(4096, seed=2)
+    feats, _ = tt.prep_feats_bucketed(torch.as_tensor(o), torch.as_tensor(d),
+                                      tp.S, tp.SP, cell_bits=tp.CELL_BITS)
+    return {
+        # One chunk of 249 groups, its last group part padding: the 100k
+        # query's regime (one chunk of 269 groups) at a CPU test's size.
+        "one": _tables(12000, 4, 9 << 20, 5),
+        # One chunk of 625 groups: more than the 512 a group prefix keeps.
+        "wide": _tables(10000, 1, 64 << 20, 6),
+        # Four chunks of 157 groups, the last one partial: routed pairs.
+        "routed": _tables(10000, 1, 5 << 20, 6),
+        "feats": feats,
+    }
+
+
+def synthetic_bounds(n, widths, seed):
+    """(n, 12) f32 subpacket bounds [o_lo | o_hi | d_lo | d_hi]: origin
+    boxes of side 0.02 round the scene's centre, direction boxes of half
+    width ``widths[i % len]`` round random unit directions; a width past
+    a component's size makes that axis straddle 0 (``free``)."""
+    rng = np.random.default_rng(seed)
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    w = np.asarray(widths)[np.arange(n) % len(widths)][:, None]
+    o = rng.uniform(-0.01, 0.01, (n, 3))
+    b = np.concatenate([o - 0.01, o + 0.01, d - w, d + w], axis=1)
+    return torch.as_tensor(b.astype(np.float32))
+
+
+def one_chunk_rows(bounds, tables, mg, mc):
+    """candidate_rows at ``cone_candidates``' budgets, and the model with
+    the arguments ``cone_candidates`` gives the kernel."""
+    cull = tables.cull
+    k0, k, kg, K_l, K0, rowlen = tc.cone_budgets(cull, mg, mc)
+    rows, ovf = tc.candidate_rows(tuple(bounds[:, i:i + 3]
+                                        for i in range(0, 12, 3)),
+                                  cull, tables.leaf_boxes, k0, k, rowlen,
+                                  exact=False)
+    model = tp.phase_a_row_model(bounds, tables, tp.S, k0, k, kg, K_l, K0,
+                                 rowlen)
+    return (tp.np_(rows[0]), bool(ovf)), model, k0
+
+
+def box_at_tnear_tfar(tables):
+    """``tables`` with group 0 and its member leaves moved to the box
+    [1, 2] x [1, 1.5] x [0.25, 0.5], and the bounds of a ray from the
+    origin along (1, 0.5, 0.25): its slabs meet it over t in [1, 2],
+    [2, 3] and [1, 2], so tnear == tfar == 2."""
+    cull = tables.cull
+    lpg = cull.leaves_per_group
+    lo = torch.tensor([1.0, 1.0, 0.25])
+    hi = torch.tensor([2.0, 1.5, 0.5])
+    gmin, gmax = cull.group_min.clone(), cull.group_max.clone()
+    gmin[0], gmax[0] = lo, hi
+    boxes = tables.leaf_boxes.clone()
+    for a in range(3):
+        boxes[0, a * lpg:(a + 1) * lpg] = lo[a]
+        boxes[0, (3 + a) * lpg:(4 + a) * lpg] = hi[a]
+    moved = dataclasses.replace(
+        tables, cull=dataclasses.replace(cull, group_min=gmin,
+                                         group_max=gmax),
+        leaf_boxes=boxes)
+    ray = torch.tensor([0.0, 0, 0, 0, 0, 0, 1.0, 0.5, 0.25, 1.0, 0.5, 0.25])
+    return moved, ray
+
+
+def _group_rows(rows):
+    return -rows[:, 0][rows[:, 0] < 0]
+
+
+ONE_CHUNK = ["sorted", "leaf_budget", "keep_l", "padding", "free",
+             "tnear_tfar", "overflow"]
+
+
+@pytest.mark.parametrize("case", ONE_CHUNK)
+def test_model_equals_one_chunk_rows(world, case):
+    tables, mg, mc = world["one"], 64, 119
+    if case == "sorted":
+        bounds = torch.cat(tc.bounds_from_feats(world["feats"]), dim=1)
+    elif case == "leaf_budget":
+        bounds, mc = synthetic_bounds(64, (0.002, 0.01, 0.03, 0.1), 1), 16
+    elif case == "keep_l":
+        bounds, mg, mc = synthetic_bounds(64, (0.02, 0.1, 0.2, 0.3), 2), \
+            256, 1024
+    elif case == "padding":
+        cull = tables.cull
+        tables = dataclasses.replace(tables, cull=dataclasses.replace(
+            cull, num_real_leaves=cull.num_real_leaves - 40))
+        bounds = synthetic_bounds(32, (0.05, 2.0), 3)
+    elif case == "free":
+        bounds = synthetic_bounds(32, (0.3, 0.7, 1.2, 2.0), 4)
+    elif case == "tnear_tfar":
+        tables, ray = box_at_tnear_tfar(tables)
+        bounds = torch.cat([ray[None].expand(tp.S, 12),
+                            synthetic_bounds(tp.S, (0.01,), 5)])
+    else:
+        tables = world["wide"]
+        bounds = synthetic_bounds(32, (0.01, 0.1, 2.0, 2.0), 6)
+    (rows, ovf), (mrows, movf), k0 = one_chunk_rows(bounds, tables, mg, mc)
+    np.testing.assert_array_equal(mrows, rows)
+    assert movf == ovf
+    cull = tables.cull
+    lpc, gpc = cull.leaves_per_chunk, cull.num_groups
+    groups = _group_rows(rows)
+    if case == "sorted":
+        assert (rows[:, 0] > 0).any() and not ovf
+    elif case in ("leaf_budget", "keep_l"):
+        # Group mode from the leaves alone: every group was refined.
+        assert ((groups > 0) & (groups <= k0)).any()
+        if case == "keep_l":
+            assert (rows[:, 0] > 119).any()   # past the default budget
+    elif case == "padding":
+        real_g = -(-cull.num_real_leaves // cull.leaves_per_group)
+        assert real_g < gpc and (groups == real_g).any()
+        for row in rows:
+            n = abs(int(row[0]))
+            ids = row[1:n + 1]
+            assert (ids < (real_g if row[0] < 0 else cull.num_real_leaves)
+                    ).all()
+    elif case == "free":
+        # A row that meets every group lists the kg a row holds.
+        assert (groups == min(gpc, rows.shape[1] - 9)).any() and ovf
+    elif case == "tnear_tfar":
+        assert 0 < rows[0, 0] < lpc and 0 in rows[0, 1:rows[0, 0] + 1]
+    else:
+        assert gpc > 512 and ovf          # a row past the kept prefix
+
+
+@pytest.mark.parametrize("case", ["routed", "skewed"])
+def test_model_equals_routed_rows(world, case):
+    tables = world["routed"]
+    cull = tables.cull
+    C, gpc = cull.num_chunks, cull.leaves_per_chunk // cull.leaves_per_group
+    S = tp.S
+    if case == "routed":
+        feats = world["feats"]
+        g = feats.shape[0]
+        mg, mc = 64, 119
+        bounds = tc.bounds_from_feats(feats)
+        # A pair budget past the C * g pairs leaves the last 8 inactive.
+        npairs = C * g + 8
+        pc, pg, act, _, _ = ttlas.route_pairs(*bounds, tables, S, npairs, C)
+        rows = ttlas.tlas_candidates(feats, tables, mg, mc, npairs, C)[0]
+        budgets = ttlas.pair_row_budgets(cull, mg, mc)
+        ovf = None
+        bounds = torch.cat(bounds, dim=1)
+    else:
+        gen = np.random.default_rng(7)
+        npairs, g = 16, 6
+        bounds = synthetic_bounds(g * S, (0.01, 0.1, 2.0), 8)
+        pc = torch.as_tensor(np.r_[C - 1, gen.integers(0, C, npairs - 1)]
+                             .astype(np.int32))
+        pg = torch.as_tensor(gen.integers(0, g, npairs).astype(np.int32))
+        act = torch.as_tensor(np.arange(npairs) % 5 != 4)
+        budgets = ttlas.pair_row_budgets(cull, 64, 7)
+        k0, k, kg, K_l, gkeep, rowlen = budgets
+        rows, ovf = ttlas._pair_block_rows(
+            bounds.reshape(g, S * 12), cull.group_min.reshape(C, gpc, 3),
+            cull.group_max.reshape(C, gpc, 3), tables, pc, pg, act, S, k0,
+            gkeep, k, kg, K_l, rowlen)
+        ovf = bool(ovf)
+    k0, k, kg, K_l, gkeep, rowlen = budgets
+    mrows, movf = tp.phase_a_row_model(bounds, tables, S, k0, k, kg, K_l,
+                                       gkeep, rowlen, pc, pg, act)
+    rows = tp.np_(rows).reshape(-1, rowlen)
+    np.testing.assert_array_equal(mrows, rows)
+    assert not bool(act.all())                # inactive pairs
+    assert (rows.reshape(-1, S, rowlen)[~tp.np_(act), :, 0] == 0).all()
+    assert bool((pc == C - 1).any())           # the partial last chunk
+    if case == "skewed":
+        assert movf == ovf and ovf
+    else:
+        assert not movf and (rows[:, 0] > 0).any()
+
+
+def test_cpu_tensors_take_the_torch_operations(world):
+    """CPU tensors run the plain path: the kernel's launch counter stays,
+    ``phase_a_kernel`` reads 0, and the rows are the same with the trace
+    on and off."""
+    feats = world["feats"]
+    launches = tc.phase_a_cuda.launches
+    one, routed = world["one"], world["routed"]
+    C = routed.cull.num_chunks
+    calls = (lambda: tc.cone_candidates(feats, one, 64, 119),
+             lambda: ttlas.tlas_candidates(feats, routed, 64, 119,
+                                           C * feats.shape[0], C))
+    for call in calls:
+        off = call()
+        trace.reset()
+        with trace.enabled():
+            on = call()
+        (a,) = [s for r in trace.records() for s in r["spans"]
+                if s["name"] == "tracer_torch.phase_a"]
+        assert a["counters"]["phase_a_kernel"] == 0
+        assert torch.equal(off[0], on[0]) and bool(off[-1]) == bool(on[-1])
+    trace.reset()
+    assert tc.phase_a_cuda.launches == launches
+
+
+def test_phase_a_cuda_refuses_cpu_tensors(world):
+    tables = world["one"]
+    with pytest.raises(ValueError, match="runs on CUDA tensors"):
+        tc.phase_a_cuda(synthetic_bounds(tp.S, (0.1,), 0), tables, tp.S, 64,
+                        119, 119, 512, 512, 256)

@@ -202,7 +202,8 @@ def test_counters_equal_a_recount(setups, case, monkeypatch):
         cnt = rows[..., 0]
         (a,) = _spans(recs, "tracer_torch.phase_a")
         assert a["counters"] == {
-            "rows": cnt.numel(), "group_rows": int((cnt < 0).sum())}
+            "rows": cnt.numel(), "group_rows": int((cnt < 0).sum()),
+            "phase_a_kernel": 0}
         assert 0 < a["counters"]["group_rows"] < cnt.numel()
         (n,) = _spans(recs, "tracer_torch.nearest")
         assert n["counters"] == {"rays": feats.shape[0] * S * SP}
@@ -223,7 +224,7 @@ def test_counters_equal_a_recount(setups, case, monkeypatch):
         (a,) = _spans(recs, "tracer_torch.phase_a")
         assert a["counters"] == {
             "rows": int(active.sum()) * S,
-            "group_rows": int((cnt < 0).sum())}
+            "group_rows": int((cnt < 0).sum()), "phase_a_kernel": 0}
         assert a["counters"]["group_rows"] > 0
     else:
         bounces = _spans(recs, "tracer_torch.bounce")

@@ -219,6 +219,115 @@ def compact_warp_model(masked_ids, sentinel: int, keep: int):
     return out, carry.to(torch.int32)
 
 
+def _slab_lanes(b, lo, hi) -> np.ndarray:
+    """csrc/phase_a.cu's slab_hit for one row's bounds b (12,) against the
+    boxes of a step's lanes, lo/hi (3, n) f32: an IEEE reciprocal, each
+    product rounded, NaN-propagating min/max (np.minimum, np.maximum)."""
+    f32 = np.float32
+    tnear = tfar = None
+    with np.errstate(all="ignore"):
+        for a in range(3):
+            ol, oh, dl, dh = (f32(b[i + a]) for i in (0, 3, 6, 9))
+            free = bool(dl <= 0) and bool(dh >= 0)
+            ilo = f32(1) / (f32(1) if free else dh)
+            ihi = f32(1) / (f32(1) if free else dl)
+
+            def imul(al, ah):
+                p = [al * ilo, al * ihi, ah * ilo, ah * ihi]
+                return (np.minimum(np.minimum(p[0], p[1]),
+                                   np.minimum(p[2], p[3])),
+                        np.maximum(np.maximum(p[0], p[1]),
+                                   np.maximum(p[2], p[3])))
+
+            t1l, t1h = imul(lo[a] - oh, lo[a] - ol)
+            t2l, t2h = imul(hi[a] - oh, hi[a] - ol)
+            tn = np.full_like(t1l, f32(-1e18)) if free else np.minimum(t1l,
+                                                                       t2l)
+            tf = np.full_like(t1h, f32(1e18)) if free else np.maximum(t1h,
+                                                                      t2h)
+            tnear = tn if tnear is None else np.maximum(tnear, tn)
+            tfar = tf if tfar is None else np.minimum(tfar, tf)
+        return (tfar >= tnear) & (tfar > f32(1e-6))
+
+
+def phase_a_row_model(bounds, tables, S: int, k0: int, k: int, kg: int,
+                      keep_l: int, gkeep: int, rowlen: int, pair_c=None,
+                      pair_gb=None, pair_active=None):
+    """``phase_a_cuda`` (csrc/phase_a.cu) one row at a time, as its warp
+    runs it: the chunk's groups in ascending 32-lane steps, each step's
+    survivors appended in lane (ballot) order to a list of the first
+    min(max(k0, kg), gpc) and all counted; unless the count passes k0, the
+    listed groups' member leaves in 32-lane steps (two groups at lpg =
+    16), the first min(k, keep_l) appended, the sweep stopped once the
+    count passes that; then the row: group mode (count past k0, or leaves
+    past min(k, keep_l), the two fallback rules) lists min(groups, gkeep,
+    kg) groups padded with gpc to max(k, kg), leaf mode its leaves; lpc
+    after; overflow where a group-mode row's groups pass kg or gkeep.
+
+    bounds (Pb, 12) f32 [o_lo | o_hi | d_lo | d_hi]; without pair tables
+    row r reads bounds r in chunk 0, with them row (p, s) reads bounds
+    pair_gb[p] * S + s in chunk pair_c[p], empty unless pair_active[p].
+    Returns (rows (nrows, rowlen) int32, overflow bool)."""
+    cull = tables.cull
+    lpg, lpc, nrl = (cull.leaves_per_group, cull.leaves_per_chunk,
+                     cull.num_real_leaves)
+    gpc = lpc // lpg
+    bounds = np_(bounds)
+    gmin, gmax = np_(cull.group_min).T, np_(cull.group_max).T   # (3, G)
+    boxes = np_(tables.leaf_boxes).reshape(-1, 6, lpg)
+    routed = pair_c is not None
+    if routed:
+        pc, pg, pa = np_(pair_c), np_(pair_gb), np_(pair_active)
+        nrows = pc.shape[0] * S
+    else:
+        nrows = bounds.shape[0]
+    glist, lcap = min(max(k0, kg), gpc), min(k, keep_l)
+    rows = np.empty((nrows, rowlen), np.int32)
+    overflow = False
+    for r in range(nrows):
+        chunk, b, active = 0, r, True
+        if routed:
+            p = r // S
+            chunk, b, active = int(pc[p]), int(pg[p]) * S + r % S, bool(pa[p])
+        g0 = chunk * gpc
+        gl, gtotal = [], 0
+        for base in range(0, gpc if active else 0, 32):
+            lanes = np.arange(base, min(base + 32, gpc))
+            g = g0 + lanes
+            hit = ((g * lpg < nrl)
+                   & _slab_lanes(bounds[b], gmin[:, g], gmax[:, g]))
+            gl += lanes[hit][:max(glist - gtotal, 0)].tolist()
+            gtotal += int(hit.sum())
+        ll, ltotal = [], 0
+        if gtotal <= k0:
+            m = np.arange(gtotal * lpg)
+            for base in range(0, m.shape[0], 32):
+                if ltotal > lcap:
+                    break
+                mm = m[base:base + 32]
+                grp = np.asarray(gl, np.int64)[mm // lpg]
+                leaf = grp * lpg + mm % lpg
+                bx = boxes[g0 + grp, :, mm % lpg].T              # (6, n)
+                hit = ((chunk * lpc + leaf < nrl)
+                       & _slab_lanes(bounds[b], bx[:3], bx[3:]))
+                ll += leaf[hit][:max(lcap - ltotal, 0)].tolist()
+                ltotal += int(hit.sum())
+        use_g = gtotal > k0 or ltotal > lcap
+        gcnt = min(gtotal, gkeep)
+        gshow = min(gcnt, kg)
+        row = np.full(rowlen, lpc, np.int32)
+        if use_g:
+            row[0] = -gshow
+            row[1:max(k, kg) + 1] = gpc
+            row[1:gshow + 1] = gl[:gshow]
+            overflow |= gcnt > kg or gtotal > gkeep
+        else:
+            row[0] = ltotal
+            row[1:ltotal + 1] = ll
+        rows[r] = row
+    return rows, overflow
+
+
 def leaf_item_rows(cand, leaves_per_group: int, chunk: int):
     """The split leaf walks' items as rows of their own: (row (items,)
     int64, the item's row of the flattened (C, G, S) grid; sub (items,

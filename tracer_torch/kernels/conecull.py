@@ -9,8 +9,12 @@ overflow flag. Rows, counts and overflow equal the JAX package's for the
 same tables and features. The per-subpacket bounding cones that phase B
 reads (``cone_from_feats``) match JAX's to rounding.
 
-The compactor is ``compact_cuda`` (hand-written CUDA, ``csrc/compact.cu``)
-on CUDA tensors and ``compact_ascending_rows_plain`` on CPU tensors;
+On one-chunk tables on a CUDA device the rows come from one kernel,
+``phase_a_cuda`` (hand-written CUDA, ``csrc/phase_a.cu``), whose plain
+version is :func:`candidate_rows`: the torch operations that CPU tensors,
+tables of several chunks and the exact mode run. The compactor they call
+is ``compact_cuda`` (``csrc/compact.cu``) on CUDA tensors and
+``compact_ascending_rows_plain`` on CPU tensors;
 :func:`compact_ascending_rows` picks by device and raises for any other.
 
 Phase B (``conecull_call``: ``conecull_cuda``, ``csrc/conecull.cu``, on
@@ -206,14 +210,25 @@ def cone_candidates(feats: Tensor, tables: ConeTables, max_groups: int,
     phase-B walk reads cones, and its path builds them with
     :func:`cone_from_feats`, so the leaf walk's phase A does not pay for
     them. No host sync.
+
+    One-chunk tables on a CUDA device take :func:`phase_a_cuda`, whose rows
+    and flag equal :func:`candidate_rows`'; the trace counts which ran as
+    ``phase_a_kernel`` (1 the kernel, 0 the torch operations).
     """
     cull = tables.cull
-    k0 = _round_up(min(max_groups, cull.num_groups), 8)
-    k = min(max_candidates, cull.leaves_per_chunk)
-    rows, overflow = candidate_rows(bounds_from_feats(feats), cull,
-                                    tables.leaf_boxes, k0, k,
-                                    _round_up(k + 17, _ROW_ALIGN),
-                                    exact=False)
+    k0, k, kg, K_l, K0, rowlen = cone_budgets(cull, max_groups,
+                                              max_candidates)
+    bounds = bounds_from_feats(feats)
+    kernel = cull.num_chunks == 1 and feats.device.type != "cpu"
+    if kernel:
+        rows, overflow = phase_a_cuda(torch.cat(bounds, dim=1), tables,
+                                      feats.shape[1], k0, k, kg, K_l, K0,
+                                      rowlen)
+        rows = rows[None]
+    else:
+        rows, overflow = candidate_rows(bounds, cull, tables.leaf_boxes, k0,
+                                        k, rowlen, exact=False)
+    trace.count(phase_a_kernel=int(kernel))
     count_rows(rows)
     return rows, None, overflow
 
@@ -271,8 +286,7 @@ def candidate_rows(bounds, cull: CullTables, leaf_boxes: Tensor, k0: int,
 
     Gpad = _round_up(G, _ROW_ALIGN)
     gm_ids = _pad_cols(torch.where(ghit, gids, G), Gpad, G)
-    K0 = min(Gpad, max(_round_up(max(k0, kg) if exact else k0, _ROW_ALIGN),
-                       4 * _ROW_ALIGN))
+    K0, K_l = phase_a_keeps(cull, k0, k, kg, exact)
     gprefix, gtotal = compact_ascending_rows(gm_ids, G, K0)
     gcand = _pad_cols(gprefix[:, :k0], k0, G)
 
@@ -318,9 +332,6 @@ def candidate_rows(bounds, cull: CullTables, leaf_boxes: Tensor, k0: int,
 
     use_g = refine_truncated[:, None]
     if C == 1 or not exact:
-        K_l = min(member.shape[1],
-                  max(_round_up(k, _ROW_ALIGN), 4 * _ROW_ALIGN) if exact
-                  else 4 * _ROW_ALIGN)
         lprefix, ltotal = compact_ascending_rows(
             torch.where(lhit, member, C * lpc), C * lpc, K_l)
     if C == 1:
@@ -348,6 +359,105 @@ def candidate_rows(bounds, cull: CullTables, leaf_boxes: Tensor, k0: int,
     rows = torch.cat([cnt_col[..., None], body], dim=2)
     rows = _pad_cols(rows, rowlen, lpc)
     return rows.permute(1, 0, 2).contiguous(), overflow
+
+
+def cone_budgets(cull: CullTables, max_groups: int, max_candidates: int):
+    """:func:`cone_candidates`' budgets for ``cull``: (k0 groups refined,
+    k leaves a row lists, kg groups a group-mode row lists, K_l leaves and
+    K0 groups the prefixes keep, rowlen)."""
+    k0 = _round_up(min(max_groups, cull.num_groups), 8)
+    k = min(max_candidates, cull.leaves_per_chunk)
+    rowlen = _round_up(k + 17, _ROW_ALIGN)
+    kg = min(cull.leaves_per_chunk // cull.leaves_per_group, rowlen - 9)
+    K0, K_l = phase_a_keeps(cull, k0, k, kg, exact=False)
+    return k0, k, kg, K_l, K0, rowlen
+
+
+def phase_a_keeps(cull: CullTables, k0: int, k: int, kg: int, exact: bool):
+    """:func:`candidate_rows`' prefix widths (K0 groups, K_l leaves): the
+    survivors each level's compaction keeps in order (it counts them all).
+    Without ``exact``, K0 = min(Gpad, max(round_up(k0, 128), 512)) and
+    K_l = min(k0 * lpg, 512)."""
+    Gpad = _round_up(cull.num_groups, _ROW_ALIGN)
+    K0 = min(Gpad, max(_round_up(max(k0, kg) if exact else k0, _ROW_ALIGN),
+                       4 * _ROW_ALIGN))
+    K_l = min(k0 * cull.leaves_per_group,
+              max(_round_up(k, _ROW_ALIGN), 4 * _ROW_ALIGN) if exact
+              else 4 * _ROW_ALIGN)
+    return K0, K_l
+
+
+def _check_phase_a_args(bounds, pair_c, pair_gb, pair_active, S):
+    if bounds.dim() != 2 or bounds.shape[1] != 12 \
+            or bounds.dtype != torch.float32:
+        raise ValueError(f"bounds must be (P, 12) float32, got "
+                         f"{tuple(bounds.shape)} {bounds.dtype}")
+    pairs = (pair_c, pair_gb, pair_active)
+    if all(x is None for x in pairs):
+        if bounds.shape[0] % S:
+            raise ValueError(f"{bounds.shape[0]} bounds rows are not whole "
+                             f"packets of {S}")
+        return
+    if any(x is None for x in pairs):
+        raise ValueError("pair_c, pair_gb and pair_active go together")
+    n = pair_c.shape[0]
+    if any(tuple(x.shape) != (n,) for x in pairs) \
+            or pair_c.dtype != torch.int32 or pair_gb.dtype != torch.int32 \
+            or pair_active.dtype != torch.bool:
+        raise ValueError("pair tables must be (npairs,) int32, int32, bool")
+
+
+def phase_a_cuda(bounds: Tensor, tables: ConeTables, S: int, k0: int,
+                 k: int, kg: int, keep_l: int, gkeep: int, rowlen: int,
+                 pair_c: Tensor | None = None, pair_gb: Tensor | None = None,
+                 pair_active: Tensor | None = None):
+    """Phase A's candidate rows as the hand-written CUDA kernel
+    (``csrc/phase_a.cu``): one warp a row tests its chunk's group boxes,
+    keeps and counts the survivors in ascending order, refines the first
+    ``k0`` groups to their leaves, keeps and counts those, and writes the
+    finished row; nothing between the levels goes to device memory.
+
+    bounds: (Pb, 12) f32 subpacket bounds [o_lo | o_hi | d_lo | d_hi]. The
+    group prefix keeps ``gkeep`` ids and the leaf prefix ``keep_l``; a row
+    lists at most ``k`` leaves, else in group mode min(count, gkeep, kg)
+    groups; overflow is set where a group-mode row's groups pass kg or
+    gkeep. Without pair tables row r reads bounds r in chunk 0, as
+    :func:`candidate_rows` (C == 1, not exact) with gkeep = K0; with them
+    row (p, s) reads bounds pair_gb[p] * S + s in chunk pair_c[p] and is
+    empty unless pair_active[p], as ``tlas._pair_block_rows``. Returns
+    (rows (npairs * S, rowlen) i32, overflow 0-d bool), bit for bit those
+    versions'. Raises for tensors that are not on one CUDA device. Reads
+    no device value on the host. Adds one to ``phase_a_cuda.launches`` per
+    launch.
+    """
+    cull = tables.cull
+    given = [x for x in (pair_c, pair_gb, pair_active) if x is not None]
+    dev = _lib.require_cuda("phase_a_cuda", bounds, cull.group_min,
+                            cull.group_max, tables.leaf_boxes, *given)
+    _check_phase_a_args(bounds, pair_c, pair_gb, pair_active, S)
+    nrows = bounds.shape[0] if pair_c is None else pair_c.shape[0] * S
+    bounds, gmin, gmax, boxes = (x.contiguous() for x in (
+        bounds, cull.group_min, cull.group_max, tables.leaf_boxes))
+    rows = torch.empty((nrows, rowlen), dtype=torch.int32, device=dev)
+    overflow = torch.empty((), dtype=torch.bool, device=dev)
+    pairs = [None if x is None else x.contiguous()
+             for x in (pair_c, pair_gb, pair_active)]
+    lib = _lib.load()
+    with torch.cuda.device(dev):
+        rc = lib.tracer_phase_a(
+            _lib.ptr(bounds), _lib.ptr(gmin), _lib.ptr(gmax), _lib.ptr(boxes),
+            *(None if x is None else _lib.ptr(x) for x in pairs),
+            _lib.ptr(rows), _lib.ptr(overflow), nrows, S,
+            cull.leaves_per_chunk // cull.leaves_per_group,
+            cull.leaves_per_group, cull.leaves_per_chunk,
+            cull.num_real_leaves, k0, k, kg, keep_l, gkeep, rowlen,
+            _lib.stream(dev))
+    _lib.check(lib, rc, "phase_a_cuda")
+    phase_a_cuda.launches += 1
+    return rows, overflow
+
+
+phase_a_cuda.launches = 0
 
 
 # ---------------------------------------------------------------------------

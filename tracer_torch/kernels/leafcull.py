@@ -268,6 +268,7 @@ def leaf_candidates(o: Tensor, d: Tensor, tables: CullTables,
                                     leaf_box_rows(tables),
                                     min(max_groups, tables.num_groups), k,
                                     _round_up(k + 17, _ROW_ALIGN), exact=True)
+    trace.count(phase_a_kernel=0)
     count_rows(rows)
     return rows, overflow
 

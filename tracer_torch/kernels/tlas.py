@@ -10,8 +10,9 @@ them empty. This path adds the top level of a two-level hierarchy:
      chunk-major, from one sort of the C*g routing matrix.
   2. PHASE A per pair (:func:`tlas_candidates`): the group test and leaf
      refine of ``cone_candidates``, restricted to the pair's chunk, so ids
-     come out chunk-relative; pairs are processed in blocks of
-     ``pair_block`` to bound memory.
+     come out chunk-relative: one launch of ``conecull.phase_a_cuda``
+     (hand-written CUDA, ``csrc/phase_a.cu``) on CUDA tensors, torch
+     operations over blocks of ``pair_block`` pairs on CPU tensors.
   3. WALK (:func:`routed_call`): one closest-hit walk per routed pair,
      ``routed_cuda`` (hand-written CUDA, ``csrc/routed.cu``, the split
      leaf walk of ``leafcull_cuda``: the routed rows cut into items of
@@ -33,9 +34,9 @@ every group, and every other row is unchanged.
 
 At 100M spheres (about 1,000 chunks) the JAX package needed four fixes.
 Here: the tables are assembled on the host (``build_cull_tables``), as
-JAX's fix does; phase A runs ``pair_block`` pairs at a time
-(:func:`tlas_candidates`); the merge runs ``_MERGE_ROWS`` g-rows at a
-time (JAX's ``row_block``). JAX's fourth fix, the routed kernel called
+JAX's fix does; phase A's torch operations run ``pair_block`` pairs at a
+time (:func:`tlas_candidates`), its kernel every pair in one launch; the
+merge runs ``_MERGE_ROWS`` g-rows at a time (JAX's ``row_block``). JAX's fourth fix, the routed kernel called
 over ranges of ``KSPLIT`` pairs (``nearest_hit_tlas_split``), is not
 carried: it keeps the scalar-prefetched pair tables within TPU SMEM and
 each program within the TPU compiler's limits, while ``routed.cu`` reads
@@ -53,8 +54,9 @@ from tracer_torch import trace
 from tracer_torch.kernels import _lib, tilewalk
 from tracer_torch.kernels.conecull import (ConeTables, bounds_from_feats,
                                            compact_ascending_rows, count_rows,
-                                           _pad_cols, _round_up,
-                                           _slab_hit_cols, _ROW_ALIGN)
+                                           phase_a_cuda, _pad_cols,
+                                           _round_up, _slab_hit_cols,
+                                           _ROW_ALIGN)
 from tracer_torch.kernels.leafcull import (FEAT, MISS_KEY, _BIG, _NOSLOT,
                                            check_slot_space,
                                            closest_rows_plain, item_leaves,
@@ -127,8 +129,9 @@ def route_pairs(o_lo, o_hi, d_lo, d_hi, tables: ConeTables, subpackets: int,
 
 
 def _pair_block_rows(packed, gmin, gmax, tables, pair_c, pair_gb,
-                     pair_active, S, k0, gkeep, k, kg, rowlen):
-    """Phase A rows of one block of pairs: ((np, S, rowlen) i32, ovf)."""
+                     pair_active, S, k0, gkeep, k, kg, K_l, rowlen):
+    """Phase A rows of one block of pairs: ((np, S, rowlen) i32, ovf); the
+    plain version of ``conecull.phase_a_cuda`` with pair tables."""
     cull = tables.cull
     lpg, lpc = cull.leaves_per_group, cull.leaves_per_chunk
     gpc = lpc // lpg
@@ -169,7 +172,6 @@ def _pair_block_rows(packed, gmin, gmax, tables, pair_c, pair_gb,
         & (member + pc2[:, None] * lpc < cull.num_real_leaves)
     lhit = _slab_hit_cols(po_lo, po_hi, pd_lo, pd_hi, tuple(att[0:3]),
                           tuple(att[3:6])) & valid
-    K_l = min(member.shape[1], 8 * _ROW_ALIGN)
     lprefix, ltotal = compact_ascending_rows(
         torch.where(lhit, member, lpc), lpc, K_l)
 
@@ -194,23 +196,13 @@ def _pair_block_rows(packed, gmin, gmax, tables, pair_c, pair_gb,
     return rows.reshape(np_, S, rowlen), ovf
 
 
-@trace.spanned("phase_a")
-def tlas_candidates(feats: Tensor, tables: ConeTables, max_groups: int,
-                    max_candidates: int, npairs: int, kc: int,
-                    pair_block: int = 8192):
-    """Routed phase A: feats (g, S, SP, FEAT) -> per-pair candidate rows.
-
-    Returns (rows (npairs, S, rowlen) i32 chunk-relative count-embedded
-    rows in ``cone_candidates``' format, pair_c, pair_gb, merge_pos,
-    overflow). Pairs are processed ``pair_block`` at a time, which bounds
-    the leaf-refine temporaries and changes no result. No host sync.
-    """
-    cull = tables.cull
+def pair_row_budgets(cull, max_groups: int, max_candidates: int):
+    """Routed phase A's budgets for ``cull``: (k0 groups refined, k
+    leaves a row lists, kg groups a group-mode row lists, K_l leaves and
+    gkeep groups the prefixes keep, rowlen). K_l = min(k0 * lpg, 1024);
+    gkeep = max(K0, kg), where JAX keeps K0 (the module docstring)."""
     lpg, lpc = cull.leaves_per_group, cull.leaves_per_chunk
     gpc = lpc // lpg
-    C = cull.num_chunks
-    g, S, _, _ = feats.shape
-
     k0 = max(8, _round_up(min(max_groups, gpc), 8))
     while k0 * lpg > 1024:      # the JAX compactor's row-width ceiling
         k0 -= 8
@@ -219,24 +211,54 @@ def tlas_candidates(feats: Tensor, tables: ConeTables, max_groups: int,
     kg = min(gpc, rowlen - 9)
     K0 = min(_round_up(gpc, _ROW_ALIGN),
              max(_round_up(k0, _ROW_ALIGN), _ROW_ALIGN))
-    gkeep = max(K0, kg)         # JAX keeps K0: see the module docstring
+    return k0, k, kg, min(k0 * lpg, 8 * _ROW_ALIGN), max(K0, kg), rowlen
+
+
+@trace.spanned("phase_a")
+def tlas_candidates(feats: Tensor, tables: ConeTables, max_groups: int,
+                    max_candidates: int, npairs: int, kc: int,
+                    pair_block: int = 8192):
+    """Routed phase A: feats (g, S, SP, FEAT) -> per-pair candidate rows.
+
+    Returns (rows (npairs, S, rowlen) i32 chunk-relative count-embedded
+    rows in ``cone_candidates``' format, pair_c, pair_gb, merge_pos,
+    overflow). On a CUDA device one launch of ``conecull.phase_a_cuda``
+    writes every pair's rows; on the CPU the torch operations take
+    ``pair_block`` pairs at a time, which bounds their temporaries and
+    changes no result. The trace counts which ran as ``phase_a_kernel``.
+    No host sync.
+    """
+    cull = tables.cull
+    gpc = cull.leaves_per_chunk // cull.leaves_per_group
+    C = cull.num_chunks
+    g, S, _, _ = feats.shape
+    k0, k, kg, K_l, gkeep, rowlen = pair_row_budgets(cull, max_groups,
+                                                     max_candidates)
 
     o_lo, o_hi, d_lo, d_hi = bounds_from_feats(feats)
     pair_c, pair_gb, active, merge_pos, overflow = route_pairs(
         o_lo, o_hi, d_lo, d_hi, tables, S, npairs, kc)
     packed = torch.cat([o_lo, o_hi, d_lo, d_hi], dim=1).reshape(g, S * 12)
-    gmin = cull.group_min.reshape(C, gpc, 3)
-    gmax = cull.group_max.reshape(C, gpc, 3)
-
-    blocks = []
-    for i in range(0, npairs, pair_block):
-        sl = slice(i, i + pair_block)
-        rows, ovf = _pair_block_rows(packed, gmin, gmax, tables, pair_c[sl],
-                                     pair_gb[sl], active[sl], S, k0, gkeep,
-                                     k, kg, rowlen)
-        blocks.append(rows)
+    kernel = feats.device.type != "cpu"
+    if kernel:
+        rows, ovf = phase_a_cuda(packed.reshape(g * S, 12), tables, S, k0,
+                                 k, kg, K_l, gkeep, rowlen, pair_c, pair_gb,
+                                 active)
+        rows = rows.reshape(npairs, S, rowlen)
         overflow = overflow | ovf
-    rows = torch.cat(blocks)
+    else:
+        gmin = cull.group_min.reshape(C, gpc, 3)
+        gmax = cull.group_max.reshape(C, gpc, 3)
+        blocks = []
+        for i in range(0, npairs, pair_block):
+            sl = slice(i, i + pair_block)
+            rows, ovf = _pair_block_rows(packed, gmin, gmax, tables,
+                                         pair_c[sl], pair_gb[sl], active[sl],
+                                         S, k0, gkeep, k, kg, K_l, rowlen)
+            blocks.append(rows)
+            overflow = overflow | ovf
+        rows = torch.cat(blocks)
+    trace.count(phase_a_kernel=int(kernel))
     count_rows(rows, active)
     return rows, pair_c, pair_gb, merge_pos, overflow
 
