@@ -245,9 +245,12 @@ T_RTOL = 1e-5           # t where both sides chose the same prim
 TMAX_RTOL = 1e-5        # hit t this close to t_max: a clip flip
 MIN_AGREE = 0.9999      # share of rays whose choice must be equal
 # any_hit_brute computes the reference quadratic (b = 2 oc.d, disc =
-# b^2 - 4ac), whose f32 rounding differs from the kernels' u-form: on the
-# card ~1 % of hits at this scene's distances lie in that graze band. Its
-# flips are held to the JAX shadow test's budget (tests/test_shadow.py).
+# b^2 - 4ac), the walks' sums on oc = o - c times exact powers of two; it
+# accepts on t > EPSILON and t < t_max where the walks compare u, so the
+# two can part only at those bounds. Its flips are held to the JAX shadow
+# test's budget (tests/test_shadow.py), set when the walks expanded the
+# quadratic and ~1 % of hits at this scene's distances lay in the graze
+# band.
 MIN_AGREE_REFERENCE = 0.995
 BRUTE_RAYS = 16384
 BRUTE_RAYS_10M = 4096
@@ -258,25 +261,27 @@ SMALL_T_MAX = 150.0     # shadow t_max in the 20k settings (world 500)
 DENSE_MG = 2048         # dense 10M comparison: group budget (no overflow)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
-OPS_PER_TEST = 19       # fp32 operations of one (ray, prim) test
+OPS_PER_TEST = 20       # fp32 operations of one (ray, prim) test: 17 to disc
 OPS_PER_ID = 3          # compactor: compare, scan add, store index
 OPS_PER_SLAB = 25       # packet walk: one (ray, node) slab test
 OPS_PER_BFORM = 25      # packet walk: one b-form (ray, prim) test
-OPS_PER_TILE_TEST = OPS_PER_TEST + 1    # tile walk: u-form plus t = -u/a
+OPS_PER_TILE_TEST = OPS_PER_TEST + 1    # tile walk: the test plus t = -u/a
 OPS_PER_CONE = 22       # phase B: one cone test of a walked prim
 OPS_PER_BOX = 85        # phase A: one interval slab test of a box
 CULL_K = 128            # the packet cull's first budget at full size
 SMALL_CULL_K = 8        # an overflowing packet-cull budget at 20k spheres
 PLAIN_ELEMS = 1 << 26   # slice size of the plain walks on the card
-# The packet walk keeps the JAX kernel's b-form quadratic, the leaf and
-# tile walks (and brute_t_fast) the u-form. At 100k spheres of r = 0.5 in a
-# 1000-unit world, seen from the default camera at (0, 4, 50), the
-# discriminant cancels terms of size |c|^2 ~ 1e5 down to r^2 = 0.25, so the
-# two roundings disagree on the sign of disc for a few tenths of a percent
-# of primary rays (46 of 20,000 in a numpy f32 model of this frame), every
-# one at a graze. Agreement between such differently rounded results is
-# held to this share; each path is also held at MIN_AGREE against an oracle
-# with its own rounding.
+# The packet walk keeps the JAX kernel's b-form quadratic (b = 2 oc.d); the
+# leaf and tile walks (and brute_t_fast) take its sums halved, on
+# oc = o - c, and so the same sign of disc. When they expanded
+# |o|^2 - 2 o.c + (|c|^2 - r^2) instead, at 100k spheres of r = 0.5 in a
+# 1000-unit world seen from the default camera at (0, 4, 50), that
+# cancelled terms of size |c|^2 ~ 1e5 down to r^2 = 0.25 and the two
+# roundings disagreed on a few tenths of a percent of primary rays (46 of
+# 20,000 in a numpy f32 model of this frame), every one at a graze.
+# Agreement between results rounded in different orders is held to this
+# share; each path is also held at MIN_AGREE against an oracle with its
+# own rounding.
 MIN_AGREE_OTHER_ROUNDING = 0.99
 WALK_SPHERES, WALK_RAYS = 20_000, 65_536   # packet and tile walk settings
 LEAF_ITEM_PRIMS = (128, 256, 512)   # prims per item in the leaf walks' sweep
@@ -284,6 +289,13 @@ CONE_ITEM_PRIMS = (128, 256, 512)   # and in the phase-B walk's
 SWEEP_CAPS = (64, 256, 1024)        # the packet walk's step caps swept
 LONG_WALK = 1000        # packets over this many steps are logged
 RENDER_FRAMES = 3       # timed frames per (mode, impl); the first dropped
+OFF_ORIGIN_RAYS = 131_072   # rays of the off-origin walk checks
+# The walks' times on this script's origin rows (CUDA events) with the
+# expanded quadratic |o|^2 - 2 o.c + (|c|^2 - r^2) that the test on
+# oc = o - c replaced, measured by this script on an NVIDIA H100 80GB HBM3
+# at 700 W: printed beside today's.
+EXPANDED_MS = {"walk 100k x 512k": 0.9483, "any-hit 100k x 512k": 1.0973,
+               "routed 10M": 15.0131}
 PIXEL_ATOL = 1e-5       # two renders of a pixel agree within this
 
 
@@ -424,6 +436,36 @@ def compare_routed(name, args):
                              f"{int((tk != tp).sum())} t value(s)")
     log(f"{name}: {args[0].shape[0]} pairs, {int((sk < 2 ** 30).sum())} "
         f"hits; t and slots equal bit for bit")
+
+
+def off_origin_rays(scene, n, seed):
+    """(o, d) of n unit rays that start off the world's origin, as a
+    frame's do: half from points around the camera at (0, 4, 50) into the
+    half-space it faces, half from points on random spheres, outwards."""
+    import torch
+    dev = scene.centers.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(m):
+        return torch.randn((m, 3), generator=gen, device=dev)
+    h = n // 2
+    o1 = torch.tensor([0.0, 4.0, 50.0], device=dev) + randn(h)
+    d1 = randn(h)
+    d1[:, 2] = -d1[:, 2].abs()
+    idx = torch.randint(0, scene.centers.shape[0], (n - h,), generator=gen,
+                        device=dev)
+    nrm = torch.nn.functional.normalize(randn(n - h), dim=1)
+    o2 = scene.centers[idx] + scene.radii[idx, None] * nrm
+    d2 = nrm + 0.8 * randn(n - h)
+    d = torch.nn.functional.normalize(torch.cat([d1, d2]), dim=1)
+    return torch.cat([o1, o2]).contiguous(), d.contiguous()
+
+
+def log_beside_expanded(name, ms):
+    """A walk's time on the origin rows beside its expanded-form time."""
+    was = EXPANDED_MS[name]
+    log(f"{name}: cuda {ms:.4f} ms on the test on oc = o - c, "
+        f"{was:.4f} ms with the expanded quadratic ({ms / was - 1:+.1%})")
 
 
 def tie_breaks(device):
@@ -1281,7 +1323,7 @@ def render_slice(dev, results, comp):
     ib_b = bform_brute_ids(o, d, scene)
     sphere_of, t_of = sphere_of_in(scene), ref_t_of(o, d, scene)
 
-    check_choices("b-form vs u-form brute force (first 16k primary rays)",
+    check_choices("b-form vs oc-form brute force (first 16k primary rays)",
                   o, d, sphere_of, t_of(ib_b), ib_b, t_of(ib), ib, -1,
                   MIN_AGREE_OTHER_ROUNDING)
     for impl in brender.IMPLS:
@@ -1777,7 +1819,8 @@ def phase_b_slice(dev, scene, tables, bvh16, o, d, t_ref, sid_ref, results,
         with comp.record():
             (t, sid, ovf), esc = _escalate(
                 lambda k0, k: (lambda r: (r, r[2]))(nearest_hit_conecull_t(
-                    padded, tb, k0, k, S, SP)), tb, headline.MG, headline.MC)
+                    padded, tb, k0, k, S, SP)), padded.origin.shape[0], tb,
+                headline.MG, headline.MC)
         torch.cuda.synchronize()
         launches = {"conecull_cuda": conecull_cuda.launches,
                     rows_by.__name__: rows_by.launches}
@@ -3091,6 +3134,25 @@ def main(argv=None) -> int:
     results["anyhit_cuda"] = dict(
         ms=any_ms, plain_ms=any_plain_ms, library_ms=None, bound_ms=ab,
         bound_by=aby, max_abs_err=0, launches=s_launches["anyhit_cuda"])
+    log_beside_expanded("walk 100k x 512k", walk_ms)
+    log_beside_expanded("any-hit 100k x 512k", any_ms)
+
+    # -- 5a. the leaf walks on rays off the world's origin -------------------
+    oo, od = off_origin_rays(scene, OFF_ORIGIN_RAYS, seed=31)
+    ofeats, _ = headline.prep(oo, od)
+    orows = phase_a_rows(ofeats, tables)
+    compare_walk(f"walk 100k x {OFF_ORIGIN_RAYS} off the origin", ofeats,
+                 orows, cull)
+    osfeats = shadow_prep(oo, od, t_max)
+    osrows = phase_a_rows(osfeats, tables)
+    compare_anyhit(f"any-hit 100k x {OFF_ORIGIN_RAYS} off the origin",
+                   osfeats, osrows, cull)
+    log(f"walks 100k x {OFF_ORIGIN_RAYS} off the origin: closest hit "
+        f"{time_cuda(leafcull_cuda, *walk_args(ofeats, orows, cull)):.4f} "
+        f"ms, any hit "
+        f"{time_cuda(anyhit_cuda, *walk_args(osfeats, osrows, cull)):.4f} "
+        f"ms")
+    del oo, od, ofeats, orows, osfeats, osrows
 
     # -- 5b, 5c. the packet cull and phase B at full size -------------------
     bvh16 = cull_slice(dev, scene, o, d, results, comp)
@@ -3138,6 +3200,7 @@ def main(argv=None) -> int:
     tb, ib = brute_t_fast(bo[:m], bd[:m], big.centers, big.radii, block=16)
     check_choices(f"10M TLAS vs brute_t_fast (first {m} rays)", bo[:m],
                   bd[:m], sphere_of_in(big), btr[:m], bsid[:m], tb, ib, -1)
+    boo, bod = off_origin_rays(big, large.B, seed=37)
     del big, dt, ds, tb, ib
 
     mg, npairs, kc, pblk = budget
@@ -3175,6 +3238,17 @@ def main(argv=None) -> int:
         ms=routed_ms, plain_ms=routed_plain_ms, library_ms=None,
         bound_ms=rb, bound_by=rby, max_abs_err=0,
         launches=b_launches["routed_cuda"])
+    log_beside_expanded("routed 10M", routed_ms)
+    ofeats, _ = large.prep(boo, bod)
+    otrows, opc, opg, _, oovf = tlas_candidates(ofeats, btables, mg,
+                                                large.MC, npairs, kc, pblk)
+    oargs = (opc, opg, otrows, ofeats, bcull.prims, bcull.leaf_size,
+             bcull.leaves_per_chunk, bcull.leaves_per_group)
+    compare_routed(f"routed 10M off the origin (routing overflow "
+                   f"{bool(oovf)})", oargs)
+    log(f"routed 10M off the origin: cuda "
+        f"{time_cuda(routed_cuda, *oargs):.4f} ms")
+    del boo, bod, ofeats, otrows, oargs
 
     # -- 7. the render slice at full size -------------------------------------
     render_slice(dev, results, comp)

@@ -2,7 +2,8 @@
 FlatBVH invariants, and the cull and cone tables built from one BVH.
 
 Integer arrays and box tables must be identical; the port's slot-major prim
-table must hold exactly the JAX entries' values.
+table, in the JAX layout (``torch_parity.jax_prims``), must hold exactly
+the JAX entries' values.
 """
 
 import numpy as np
@@ -118,10 +119,11 @@ def test_cull_and_cone_tables_match_jax(case):
     np.testing.assert_array_equal(tp.np_(t.leaf_boxes), tp.np_(jt.leaf_boxes))
     assert t.r_max == jt.r_max
 
-    prims = tp.np_(tc.prims)
+    prims = tp.np_(tp.jax_prims(tc.prims))
     want = tp.entries_to_prims(jc.entries, jc.leaf_size)
     assert prims.shape == want.shape
     real = tp.np_(tc.slot_to_sphere).reshape(prims.shape[:2]) >= 0
     np.testing.assert_array_equal(prims[real], want[real])
     assert (prims[~real] == np.float32([0.0, 0.0, 0.0, 1e30])).all()
+    assert (tp.np_(tc.prims)[~real] == np.float32([0, 0, 0, -1e30])).all()
     assert real.any() and (~real).any()

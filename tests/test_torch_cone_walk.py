@@ -273,7 +273,8 @@ def test_skewed_phase_b_rows_match_jax_and_leaf_walk(cone_tie):
     assert torch.equal(slot, slot_l) and torch.equal(t, t_l)
     G, S, SP = feats.shape[:3]
     jt, js = jcone._conecull_call(
-        tp.to_jax(feats), tp.to_jax(cand), tp.to_jax(cones.reshape(G, 1, S, -1)),
+        tp.jfeats(feats), tp.to_jax(cand),
+        tp.to_jax(cones.reshape(G, 1, S, -1)),
         tp.prims_to_entries(prims, ls), S, SP, ls, lpc, lpg, interpret=True)
     tm, sm = _min_merge_chunks(t, slot)
     np.testing.assert_array_equal(tp.np_(sm), tp.np_(js))

@@ -150,7 +150,7 @@ def test_compact_warp_model_matches_plain_and_jax(P, M, keep):
 def test_bounds_and_slab_tests_match_jax(world, unsorted):
     jfeats = world["feats"][unsorted]
     jb = jcone.bounds_from_feats(jfeats)
-    tb = tcone.bounds_from_feats(tp.to_torch(jfeats))
+    tb = tcone.bounds_from_feats(tp.port_feats(jfeats))
     for got, want in zip(tb, jb):
         np.testing.assert_array_equal(tp.np_(got), tp.np_(want))
     cull_j, cull_t = (x.cull for x in world["tables"]["small"])
@@ -169,7 +169,7 @@ def test_bounds_and_slab_tests_match_jax(world, unsorted):
 @pytest.mark.parametrize("case", sorted(ROW_CASES))
 def test_cone_candidates_rows_match_jax(world, jax_rows, case):
     key, unsorted, mg, mc = ROW_CASES[case]
-    feats = tp.to_torch(world["feats"][unsorted])
+    feats = tp.port_feats(world["feats"][unsorted])
     rows, cones, ovf = tt.cone_candidates(feats, world["tables"][key][1],
                                           mg, mc)
     want_rows, want_ovf, _ = jax_rows[case]
@@ -188,7 +188,7 @@ def test_cone_from_feats_matches_jax(world, jax_rows, case):
     """The port's cones, built as the phase-B path builds them, against
     the cones JAX's cone_candidates returns for the same feature planes."""
     key, unsorted, mg, mc = ROW_CASES[case]
-    feats = tp.to_torch(world["feats"][unsorted])
+    feats = tp.port_feats(world["feats"][unsorted])
     cones = tcone.cone_from_feats(feats, *tcone.bounds_from_feats(feats),
                                   world["tables"][key][1].r_max)
     want = jax_rows[case][2]

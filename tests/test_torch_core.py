@@ -249,7 +249,8 @@ def test_prep_feats_bucketed_matches_jax(with_t_max):
         else torch.as_tensor(tm))
     np.testing.assert_array_equal(tp.np_(dest), tp.np_(jd))
     assert tuple(f.shape) == tuple(jf.shape) and f.dtype == torch.float32
-    np.testing.assert_allclose(tp.np_(f), tp.np_(jf), rtol=1e-6, atol=0)
+    np.testing.assert_allclose(tp.np_(tp.jax_feats(f)), tp.np_(jf),
+                               rtol=1e-6, atol=0)
     np.testing.assert_array_equal(
         tp.np_(tcone.kernel_order_dest(dest, tp.S, tp.SP)),
         tp.np_(jcone.kernel_order_dest(jd, tp.S, tp.SP)))
@@ -322,7 +323,11 @@ def test_pack_ray_features_matches_jax():
     f, g, pad = tt.pack_ray_features(torch.as_tensor(o), torch.as_tensor(d),
                                      tp.S, tp.SP)
     assert (g, pad) == (jg, jpad)
-    np.testing.assert_allclose(tp.np_(f), tp.np_(jf), rtol=1e-6, atol=0)
+    # The port's rows hold o where JAX's hold -2o, o.d and |o|^2.
+    np.testing.assert_array_equal(tp.np_(f[..., 3:6]),
+                                  tp.np_(jf[..., 3:6]) * -0.5)
+    np.testing.assert_allclose(tp.np_(tp.jax_feats(f)), tp.np_(jf),
+                               rtol=1e-6, atol=0)
 
 
 # ---------------------------------------------------------------------------

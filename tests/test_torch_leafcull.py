@@ -58,7 +58,7 @@ def case(request):
     cull = t.cull
     rows = rows.reshape(cull.num_chunks, feats.shape[0], tp.S, -1)
     jt_k, js_k = j_leafcull_call(
-        tp.to_jax(feats), tp.to_jax(rows), jt.cull.entries, tp.S, tp.SP,
+        tp.jfeats(feats), tp.to_jax(rows), jt.cull.entries, tp.S, tp.SP,
         cull.leaf_size, cull.leaves_per_chunk, cull.leaves_per_group,
         interpret=True)
     return dict(name=request.param, scene=tscene, tables=t, feats=feats,
@@ -152,10 +152,10 @@ def _prims(chunks):
     """chunks: list of per-chunk lists of (slot, center x, radius)."""
     lpc = 2
     p = torch.zeros((len(chunks), lpc * LS, 4))
-    p[..., 3] = 1e30                                 # sentinel slots
+    p[..., 3] = -1e30                                 # sentinel slots
     for ci, spheres in enumerate(chunks):
         for slot, x, r in spheres:
-            p[ci, slot] = torch.tensor([x, 0.0, 0.0, x * x - r * r])
+            p[ci, slot] = torch.tensor([x, 0.0, 0.0, r * r])
     return p
 
 

@@ -59,7 +59,7 @@ def case(request):
     rows, _, ovf = tt.cone_candidates(feats, t, 64, mc)
     assert not bool(ovf)
     rows = rows.reshape(t.cull.num_chunks, feats.shape[0], S, -1)
-    jocc, jovf = jcone.occluded_hybrid_feats(tp.to_jax(feats), jt, 64, mc,
+    jocc, jovf = jcone.occluded_hybrid_feats(tp.jfeats(feats), jt, 64, mc,
                                              interpret=True)
     return dict(name=request.param, scene=tscene, tables=t, feats=feats,
                 dest=dest, rows=rows, rays=(o, d), t_max=t_max, mc=mc,
@@ -174,10 +174,10 @@ def _feats(t_max):
 def _prims(chunks):
     """chunks: per-chunk lists of (slot, center x, radius); 2 leaves each."""
     p = torch.zeros((len(chunks), 2 * LS, 4))
-    p[..., 3] = 1e30
+    p[..., 3] = -1e30
     for ci, spheres in enumerate(chunks):
         for slot, x, r in spheres:
-            p[ci, slot] = torch.tensor([x, 0.0, 0.0, x * x - r * r])
+            p[ci, slot] = torch.tensor([x, 0.0, 0.0, r * r])
     return p
 
 

@@ -130,9 +130,13 @@ def test_prim_tiles_match_jax(setup, walk):
     real = np.arange(j.shape[0]) < P
     np.testing.assert_array_equal(tiles.reshape(-1, 4)[real, :3],
                                   j[real, :3])
-    np.testing.assert_allclose(tiles.reshape(-1, 4)[real, 3], j[real, 3],
-                               rtol=1e-6)
-    sent = np.array([0.0, 0.0, 0.0, np.float32(1e30)], np.float32)
+    # The port's tiles hold r^2 where JAX's hold |c|^2 - r^2.
+    np.testing.assert_array_equal(tiles.reshape(-1, 4)[real, 3],
+                                  tp.np_(walk["packed"].prims)[:, 3])
+    np.testing.assert_allclose(
+        tp.np_(tp.jax_prims(tiles)).reshape(-1, 4)[real, 3], j[real, 3],
+        rtol=1e-6)
+    sent = np.array([0.0, 0.0, 0.0, np.float32(-1e30)], np.float32)
     assert (tiles.reshape(-1, 4)[~real] == sent).all()
 
 
@@ -206,7 +210,7 @@ def test_sentinels_never_hit():
     packed = pack_bvh(tscene, tb)
     table = tcull.build_leaf_table(tb)
     prims = pack_prim_tiles(packed)
-    assert float(prims[-1, 0, 3]) == float(np.float32(1e30))
+    assert float(prims[-1, 0, 3]) == float(np.float32(-1e30))
     o = torch.tensor([[5.0, 5.0, 5.0]] * 128 + [[0.0, 0.0, 0.0]] * 128)
     d = torch.nn.functional.normalize(
         torch.cat([-o[:128], torch.randn(128, 3,

@@ -71,10 +71,10 @@ def jax_routed(world):
     (pair_c, pair_gb, per-pair t, per-pair slot, t, slot, overflow)."""
     jt = world["jtables"]
     rows, pc, pg, mp, ovf = jtlas.tlas_candidates(
-        tp.to_jax(world["feats"][30.0][0]), jt, MG, MC, NPAIRS, KC,
+        tp.jfeats(world["feats"][30.0][0]), jt, MG, MC, NPAIRS, KC,
         interpret=True)
     cull = jt.cull
-    t_p, s_p = jtlas._routed_call(pc, pg, rows, tp.to_jax(
+    t_p, s_p = jtlas._routed_call(pc, pg, rows, tp.jfeats(
         world["feats"][30.0][0]), cull.entries, S, SP, cull.leaf_size,
         cull.leaves_per_chunk, cull.leaves_per_group, interpret=True)
     t, slot = jtlas._tlas_merge(t_p, s_p, mp)
@@ -86,7 +86,7 @@ def test_route_pairs_match_jax(world, npairs, kc):
     feats = world["feats"][30.0][0]
     got = ttlas.route_pairs(*bounds_from_feats(feats), world["tables"], S,
                             npairs, kc)
-    jb = jcone.bounds_from_feats(tp.to_jax(feats))
+    jb = jcone.bounds_from_feats(tp.jfeats(feats))
     want = jtlas.route_pairs(*jb, world["jtables"], S, npairs, kc,
                              interpret=True)
     for name, g, w in zip(("pair_c", "pair_gb", "active", "merge_pos",
@@ -101,7 +101,7 @@ def test_tlas_candidates_match_jax(world, mg, mc, pair_block):
     feats = world["feats"][30.0][0]
     rows, pc, pg, mp, ovf = ttlas.tlas_candidates(
         feats, world["tables"], mg, mc, 4096, 32, pair_block)
-    want = jtlas.tlas_candidates(tp.to_jax(feats), world["jtables"], mg, mc,
+    want = jtlas.tlas_candidates(tp.jfeats(feats), world["jtables"], mg, mc,
                                  4096, 32, pair_block=pair_block,
                                  interpret=True)
     np.testing.assert_array_equal(tp.np_(rows),
@@ -208,7 +208,7 @@ def test_group_rows_list_every_group_where_jax_pads_them():
     feats, _, _ = tt.pack_ray_features(torch.as_tensor(o),
                                        torch.as_tensor(d), S, SP)
     rows, _, _, _, ovf = ttlas.tlas_candidates(feats, t, 8, 119, 4096, 32)
-    jrows = tp.np_(jtlas.tlas_candidates(tp.to_jax(feats), jt, 8, 119, 4096,
+    jrows = tp.np_(jtlas.tlas_candidates(tp.jfeats(feats), jt, 8, 119, 4096,
                                          32, interpret=True)[0])
     rows = tp.np_(rows)
     jrows = jrows.reshape(rows.shape)
@@ -262,7 +262,7 @@ def test_routed_skewed_rows_match_jax(world):
     t, slot = ttlas.routed_call(pc, pg, rows, feats, cull.prims,
                                 cull.leaf_size, lpc, lpg)
     jt, js = jtlas._routed_call(tp.to_jax(pc), tp.to_jax(pg),
-                                tp.to_jax(rows[:, None]), tp.to_jax(feats),
+                                tp.to_jax(rows[:, None]), tp.jfeats(feats),
                                 jcull.entries, S, SP, cull.leaf_size, lpc,
                                 lpg, interpret=True)
     np.testing.assert_array_equal(tp.np_(slot), tp.np_(js))

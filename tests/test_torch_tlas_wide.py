@@ -64,7 +64,7 @@ def test_route_pairs_past_256_chunks_match_jax(wide, kc):
     npairs = min(wide["budget"][1], C * feats.shape[0])
     got = ttlas.route_pairs(*bounds_from_feats(feats), wide["tables"], S,
                             npairs, kc)
-    want = jtlas.route_pairs(*jcone.bounds_from_feats(tp.to_jax(feats)),
+    want = jtlas.route_pairs(*jcone.bounds_from_feats(tp.jfeats(feats)),
                              wide["jtables"], S, npairs, kc, interpret=True)
     for name, g, w in zip(("pair_c", "pair_gb", "active", "merge_pos",
                            "overflow"), got, want):
@@ -87,7 +87,7 @@ def test_tlas_query_past_256_chunks_matches_jax_split_and_brute(wide):
     t, slot, ovf = tt.nearest_hit_tlas_feats(feats, tables, mg, 119, npairs,
                                              kc, pair_block)
     jt, js, jovf = jtlas.nearest_hit_tlas_split(
-        tp.to_jax(feats), wide["jtables"], mg, 119, npairs, kc, pair_block,
+        tp.jfeats(feats), wide["jtables"], mg, 119, npairs, kc, pair_block,
         interpret=True)
     assert not bool(ovf) and not bool(jovf)
     js = tp.np_(js)

@@ -285,6 +285,27 @@ def test_checked_drivers_count_rays_and_calls_once(escalating, kind):
     assert counts == {f"{kind}_calls": 1, f"{kind}_escalations": esc}
 
 
+@pytest.mark.parametrize("kind", ["closest", "shadow"])
+def test_escalations_count_the_rays_they_walk_again(escalating, kind):
+    """Each retry of an escalating checked driver, the span
+    ``tracer_torch.escalate``, counts ``escalated_rays``: every ray of the
+    call, which the retry walks again; no other span counts it."""
+    scene, tables, rays, srays = escalating
+    with trace.enabled():
+        if kind == "closest":
+            _, esc = nearest_hit_leafcull_checked(rays, scene, tables, 8, 1,
+                                                  cell_bits=0)
+        else:
+            _, esc = occluded_leafcull_checked(srays, tables, 1.0, 8, 1,
+                                               cell_bits=0)
+    (root,) = trace.records()
+    retries = _spans([root], "tracer_torch.escalate")
+    assert esc >= 1 and [s["arg"] for s in retries] == list(range(1, esc + 1))
+    assert all(s["counters"] == {"escalated_rays": 900} for s in retries)
+    assert sum("escalated_rays" in s["counters"]
+               for s in root["spans"]) == esc
+
+
 @pytest.mark.parametrize("case", CASES)
 def test_outputs_are_bit_equal_with_the_trace_on_and_off(setups, case):
     off = _run(case, setups)

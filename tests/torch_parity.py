@@ -10,6 +10,14 @@ Where the JAX function copies a fault of f32 arithmetic that the port
 repairs (the soft model's perp2 cancels), the reference is the JAX function
 run in float64 (:func:`x64`, :func:`f64`, :func:`scene64`,
 :func:`camera64`) on the same f32-valued inputs.
+
+The port's walks test rays on oc = o - c, as the reference does, where the
+JAX package expands |o|^2 - 2 o.c + (|c|^2 - r^2): its feature rows hold
+-2o, o.d and |o|^2 and its prims |c|^2 - r^2, the port's o and r^2.
+:func:`jax_feats` and :func:`jax_prims` turn the port's into the JAX
+package's, rounded as both packages rounded them before (so a JAX walk
+gets what it always got), and :func:`port_feats` turns JAX feature rows
+back. From the world's origin both tests take the same sums.
 """
 
 import contextlib
@@ -53,6 +61,43 @@ def to_torch(x) -> torch.Tensor:
 
 def to_jax(x):
     return jnp.asarray(np_(x))
+
+
+def jax_feats(feats) -> torch.Tensor:
+    """The port's ray feature rows (..., 16) in the JAX package's layout:
+    columns 3-5 -2o, 8 o.d and 9 |o|^2 in place of o, 0, 0."""
+    f = to_torch(feats).clone()
+    o, d = f[..., 3:6].clone(), f[..., 0:3]
+    f[..., 3:6] = -2.0 * o
+    f[..., 8] = o[..., 0] * d[..., 0] + o[..., 1] * d[..., 1] \
+        + o[..., 2] * d[..., 2]
+    f[..., 9] = o[..., 0] * o[..., 0] + o[..., 1] * o[..., 1] \
+        + o[..., 2] * o[..., 2]
+    return f
+
+
+def jfeats(feats):
+    """:func:`jax_feats` as a JAX array, for the JAX walks."""
+    return to_jax(jax_feats(feats))
+
+
+def port_feats(feats) -> torch.Tensor:
+    """JAX feature rows (..., 16) in the port's layout: o from -2o (exact),
+    columns 8 and 9 zero."""
+    f = to_torch(feats).clone()
+    f[..., 3:6] = f[..., 3:6] * -0.5
+    f[..., 8:10] = 0.0
+    return f
+
+
+def jax_prims(prims) -> torch.Tensor:
+    """The port's prims (..., 4) (cx, cy, cz, r^2) as the JAX package's
+    (cx, cy, cz, |c|^2 - r^2); the port's sentinel r^2 = -1e30 becomes the
+    JAX sentinel 1e30."""
+    p = to_torch(prims).clone()
+    p[..., 3] = p[..., 0] * p[..., 0] + p[..., 1] * p[..., 1] \
+        + p[..., 2] * p[..., 2] - p[..., 3]
+    return p
 
 
 def scene_np(n: int, seed: int = 3, world: float = 60.0,
@@ -149,9 +194,7 @@ def tie_leaves(seed: int, t_max=None, leaf_size: int = 4,
             d[sub] = target - o[sub] + rng.normal(0, 0.5, (64, 3))
     d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
     ct, rt = torch.as_tensor(c), torch.as_tensor(r)
-    ccr = ct[:, 0] * ct[:, 0] + ct[:, 1] * ct[:, 1] + ct[:, 2] * ct[:, 2] \
-        - rt * rt
-    prims = torch.cat([ct, ccr[:, None]], 1).reshape(2, lpc * ls, 4)
+    prims = torch.cat([ct, (rt * rt)[:, None]], 1).reshape(2, lpc * ls, 4)
     tm = None if t_max is None else torch.full((b,), float(t_max))
     feats, _, _ = tt.pack_ray_features(torch.as_tensor(o), torch.as_tensor(d),
                                        2, 64, t_max=tm)
@@ -169,8 +212,9 @@ def tie_leaves(seed: int, t_max=None, leaf_size: int = 4,
 def prims_to_entries(prims, leaf_size: int):
     """The port's slot-major (C, lpc*leaf_size, 4) prim table -> JAX
     pair-packed, lane-replicated entries (C, lpc/2 + 1, 8, 128) with the
-    sentinel entry last: the inverse of :func:`entries_to_prims`."""
-    p = np_(prims)
+    sentinel entry last: the inverse of :func:`entries_to_prims` over
+    :func:`jax_prims`."""
+    p = np_(jax_prims(prims))
     C, n = p.shape[:2]
     E = n // (2 * leaf_size)
     e = p.reshape(C, E, 2, leaf_size, 4).transpose(0, 1, 2, 4, 3) \
@@ -406,16 +450,19 @@ def assert_walk_t_close(t, t_ref, feats, slot, prims, rtol=1e-5):
     below ``rtol`` except on grazing rays (disc < 1e-3 * b'^2), where the
     sqrt amplifies it: there t may also differ by the propagated bound
     2^-20 * b'^2 / (a * sqrt(disc)), i.e. 16 ulps of b'^2 through the root.
-    Off the origin, c' = -2 o.c + (|c|^2 - r^2) + |o|^2 and b' = o.d - c.d
-    cancel terms of size |2 o.c| + |o|^2 and |o.d|: 16 ulps of those
-    propagate as 2^-20 * (|2 o.c| + |o|^2) / (2 a sqrt(disc)) +
-    2^-20 * |o.d| / a, which is zero for rays from the origin.
+    Off the origin, the JAX walks' c' = -2 o.c + (|c|^2 - r^2) + |o|^2 and
+    b' = o.d - c.d cancel terms of size |2 o.c| + |o|^2 and |o.d| (the
+    port's sums on oc = o - c do not): 16 ulps of those propagate as
+    2^-20 * (|2 o.c| + |o|^2) / (2 a sqrt(disc)) + 2^-20 * |o.d| / a, which
+    is zero for rays from the origin. ``feats`` and ``prims`` are the
+    port's.
     """
-    f = np_(feats).transpose(0, 2, 1, 3).reshape(-1, feats.shape[-1])
+    f = np_(jax_feats(feats)).transpose(0, 2, 1, 3).reshape(
+        -1, feats.shape[-1])
     s = np_(slot).reshape(-1)
     hit = s < 2 ** 30
     f = f[hit].astype(np.float64)
-    q = np_(prims).reshape(-1, 4)[s[hit]].astype(np.float64)
+    q = np_(jax_prims(prims)).reshape(-1, 4)[s[hit]].astype(np.float64)
     bp = f[:, 8] - (f[:, 0:3] * q[:, 0:3]).sum(1)
     cq = (f[:, 3:6] * q[:, 0:3]).sum(1) + q[:, 3] + f[:, 9]
     disc = bp * bp - f[:, 10] * cq
@@ -442,8 +489,7 @@ def assert_ray_t_close(t, t_ref, o, d, ids, centers, radii, rtol=1e-5):
     feats, _, _ = tt.pack_ray_features(o, d, 1, 1)
     c = to_torch(centers)[ids.clamp(min=0)]
     r = to_torch(radii)[ids.clamp(min=0)]
-    ccr = c[:, 0] * c[:, 0] + c[:, 1] * c[:, 1] + c[:, 2] * c[:, 2] - r * r
-    prims = torch.cat([c, ccr[:, None]], dim=1)
+    prims = torch.cat([c, (r * r)[:, None]], dim=1)
     slot = torch.where(ids >= 0, torch.arange(ids.shape[0]), 2 ** 30)
     assert_walk_t_close(np_(t).reshape(-1, 1, 1), np_(t_ref).reshape(-1, 1, 1),
                         feats, slot.reshape(-1, 1, 1), prims, rtol=rtol)
@@ -463,7 +509,7 @@ def assert_cone_tables_match(jt, t):
                                       np_(getattr(jc, f)), err_msg=f)
     np.testing.assert_array_equal(np_(t.leaf_boxes), np_(jt.leaf_boxes))
     assert t.r_max == jt.r_max
-    prims = np_(tc.prims)
+    prims = np_(jax_prims(tc.prims))
     real = np_(tc.slot_to_sphere).reshape(prims.shape[:2]) >= 0
     np.testing.assert_array_equal(
         prims[real], entries_to_prims(jc.entries, jc.leaf_size)[real])

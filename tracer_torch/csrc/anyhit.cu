@@ -21,7 +21,7 @@
 //     has not written yet only costs work; the flags do not depend on it
 //     and stay those of anyhit_plain, which walks everything.
 //
-// Bound on this card: operations, as leafcull.cu (16 fp32 operations per
+// Bound on this card: operations, as leafcull.cu (17 fp32 operations per
 // missed test, each its own instruction, prims from L2); the early exit
 // cuts the work to what occlusion needs.
 

@@ -57,7 +57,7 @@
 namespace {
 
 constexpr int kConeFeat = 16;
-constexpr float kSentinelCcr = 1.0e29f;
+constexpr float kSentinelRsq = -1.0e29f;   // r^2 of a slot with no sphere
 
 struct Cone {
   float o0x, o0y, o0z, ux, uy, uz, cth, rho2, sinrho;
@@ -86,7 +86,7 @@ __device__ __forceinline__ bool cone_keep(const Cone& k, float4 p) {
   const float q = __fsub_rn(d2, k.rho2);
   const float sq = __fsqrt_rn(fmaxf(q, 0.0f));
   return (__fadd_rn(uv, k.sinrho) >= __fmul_rn(k.cth, sq) || q <= 0.0f) &&
-         p.w < kSentinelCcr;
+         p.w > kSentinelRsq;
 }
 
 // Items of one CTA's run, with what the walk reads of their row cached.

@@ -3,11 +3,14 @@
 //
 // Replaces the TPU kernel tracer/kernels/leafcull.py:_leafcull_kernel
 // (with _leafcull_step), reached through leafcull._leafcull_call
-// (tracer/kernels/leafcull.py:702). What it computes is the same; how is
-// rethought for Hopper:
+// (tracer/kernels/leafcull.py:702). What it computes is the same, but
+// for the test of a (ray, prim) pair, which takes the reference's sums on
+// oc = o - c (walk.cuh) where the TPU kernel expands |o|^2 - 2 o.c +
+// (|c|^2 - r^2), and so takes the reference's hits on rays from anywhere;
+// how is rethought for Hopper:
 //   * the TPU's lane-quarter leaf assembly, pair-packed entries and
-//     sentinel entry are gone: prims sit slot-major as (cx, cy, cz,
-//     |c|^2 - r^2) float4 and the walk reads exactly the walked leaves;
+//     sentinel entry are gone: prims sit slot-major as (cx, cy, cz, r^2)
+//     float4 and the walk reads exactly the walked leaves;
 //   * the rows (one per (chunk c, packet g, subpacket s); count > 0 lists
 //     leaves, count < 0 groups, 0 nothing) are split into items of at most
 //     W leaves and walked by a persistent grid, one thread per ray, with
@@ -22,10 +25,10 @@
 //     version does, and the slot, or (3e38, 2^30) for a miss, in the
 //     (C, G, SP, S) layout of the outputs.
 //
-// Bound on this card: operations. A missed (ray, prim) test is 16 fp32
-// operations up to disc, each mul and add its own instruction (no FMA, so
-// the kernel rounds like leafcull_plain); prims come from L2 (the 100k
-// table is ~2.2 MB). The recorded bound counts 19 operations per test at
+// Bound on this card: operations. A missed (ray, prim) test is 17 fp32
+// operations up to disc, each mul, add and sub its own instruction (no
+// FMA, so the kernel rounds like leafcull_plain); prims come from L2 (the
+// 100k table is ~2.2 MB). The recorded bound counts 20 operations per test at
 // the 67 TFLOP/s FMA rate, so this design reaches at most about half of it.
 // Before the split, one CTA walked a whole row, which left the longest rows
 // running alone at the end of the launch, took the sqrt on every pair and

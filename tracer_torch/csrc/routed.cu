@@ -20,7 +20,7 @@
 //   * pairs are sorted chunk-major and items follow row order, so the
 //     persistent grid walks the prim table (10M spheres: ~160 MB against
 //     a 50 MB L2) chunk by chunk.
-// Bound on this card: operations, as leafcull.cu (16 fp32 operations per
+// Bound on this card: operations, as leafcull.cu (17 fp32 operations per
 // missed test, each its own instruction); before the split one CTA walked
 // a whole row, and the longest rows ran alone at the end of the launch.
 

@@ -9,8 +9,9 @@
 //   * the rows are split into items of at most W listed tiles and walked by
 //     a persistent grid (tilewalk.cuh), one ray per thread; a row is a
 //     subpacket, [count, tile ids..., padding];
-//   * every thread tests its ray against each staged prim with the u-form
-//     of the leaf walks, split: disc first, then u = b' + sqrt(disc),
+//   * every thread tests its ray against each staged prim with the test
+//     of the leaf walks on oc = o - c, split: disc first, then
+//     u = b' + sqrt(disc),
 //     t = (-u) * (1/a), and the compare, only where disc > 0;
 //   * a prim is taken when disc > 0, t > EPSILON and t < 3e38; the per-ray
 //     key (t, slot) is merged by atomicMin, so the result is the smallest t
@@ -19,12 +20,11 @@
 //     (3e38, 2^30), the key the wrapper initialises.
 //
 // Bound on this card: operations. Each listed tile costs 128 x 128 tests of
-// 16 fp32 operations up to disc, each mul and add its own instruction (no
-// FMA, so the kernel rounds like tilecull_plain); the recorded bound counts
-// 20 operations at the 67 TFLOP/s FMA rate, so this kernel can reach at
-// most about half of it. Prims sit in L2 (2 KB a tile). The SASS of a
-// missed test is 21 issue slots: LDS.128, BSSY, 16 FMUL/FADD, FSETP, BRA,
-// BSYNC (no FFMA; the rounded sqrt's sequence runs only where disc > 0).
+// 17 fp32 operations up to disc, each mul, add and sub its own instruction
+// (no FMA, so the kernel rounds like tilecull_plain); the recorded bound
+// counts 21 operations at the 67 TFLOP/s FMA rate, so this kernel can
+// reach at most about half of it. Prims sit in L2 (2 KB a tile). The
+// rounded sqrt's sequence runs only where disc > 0.
 
 #include "tilewalk.cuh"
 

@@ -1,14 +1,17 @@
 // Pieces shared by the walks over slot-major prims (float4 (cx, cy, cz,
-// |c|^2 - r^2)) and the 16-column ray features: the (ray, prim) tests, and
+// r^2)) and the 16-column ray features: the (ray, prim) tests, and
 // the staging and item-plan helpers of the split walks (leafwalk.cuh for
 // leafcull.cu, routed.cu and anyhit.cu, tilewalk.cuh for tilecull.cu and
 // cull.cu) and of the packet walk (traverse.cu). A row is [count, ids...]:
 // count > 0 lists relative leaf ids, count < 0 lists -count relative group
 // ids whose leaves_per_group member leaves are all walked, 0 means nothing.
 //
-// The (ray, prim) test is spelled with __fmul_rn / __fadd_rn so that nvcc
-// does not contract it into FMAs: each kernel then rounds exactly like its
-// plain PyTorch version, bit for bit.
+// The (ray, prim) test is spelled with __fmul_rn / __fadd_rn / __fsub_rn
+// so that nvcc does not contract it into FMAs: each kernel then rounds
+// exactly like its plain PyTorch version, bit for bit. It works on
+// oc = o - c, as the reference does, and not on |o|^2 - 2 o.c + |c|^2: off
+// the world's origin those terms are of size |c|^2 and, in f32, lose a
+// discriminant of size r^2.
 
 #pragma once
 
@@ -21,51 +24,35 @@ constexpr float kBig = 3.0e38f;
 constexpr int kNoSlot = 1 << 30;
 constexpr int kFeat = 16;
 
-// Ray features (leafcull._feature_rows): d, -2o, 1, 0, o.d, |o|^2, a, 1/a,
-// eps*a, -a*t_max.
+// Ray features (leafcull._feature_rows): d, o, 1, 0, 0, 0, a, 1/a, eps*a,
+// -a*t_max.
 struct Ray {
-  float dx, dy, dz, nox2, noy2, noz2, od, oo, av, inva, epsa, negat;
+  float dx, dy, dz, ox, oy, oz, av, inva, epsa, negat;
 };
 
 static __device__ __forceinline__ Ray load_ray(const float* f) {
   Ray r;
   r.dx = f[0]; r.dy = f[1]; r.dz = f[2];
-  r.nox2 = f[3]; r.noy2 = f[4]; r.noz2 = f[5];
-  r.od = f[8]; r.oo = f[9]; r.av = f[10]; r.inva = f[11]; r.epsa = f[12];
-  r.negat = f[13];
+  r.ox = f[3]; r.oy = f[4]; r.oz = f[5];
+  r.av = f[10]; r.inva = f[11]; r.epsa = f[12]; r.negat = f[13];
   return r;
 }
 
-// u = oc.d + sqrt(max(disc, 0)) of the near root, t = -u / a; disc out.
-static __device__ __forceinline__ float ray_prim_u(const Ray& r, float4 q,
-                                                   float* disc) {
-  const float m1 = __fadd_rn(__fadd_rn(__fmul_rn(r.dx, q.x),
-                                       __fmul_rn(r.dy, q.y)),
-                             __fmul_rn(r.dz, q.z));            // c.d
-  const float m2 = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(r.nox2, q.x),
-                                                 __fmul_rn(r.noy2, q.y)),
-                                       __fmul_rn(r.noz2, q.z)),
-                             q.w);                             // -2o.c + ccr
-  const float bp = __fsub_rn(r.od, m1);                        // oc.d
-  const float cq = __fadd_rn(m2, r.oo);                        // |oc|^2 - r^2
-  *disc = __fsub_rn(__fmul_rn(bp, bp), __fmul_rn(r.av, cq));
-  return __fadd_rn(bp, sqrtf(fmaxf(*disc, 0.0f)));
-}
-
-// ray_prim_u split in two: disc and b' = oc.d here, in the same operations;
-// the near root's u = b' + sqrt(disc) is the caller's, where disc > 0 (there
-// sqrt(max(disc, 0)) is sqrt(disc), so the split changes no bit).
+// The reference's sums (src/hit.c:19-39) on oc = o - c, halved: b' = oc.d,
+// cq = oc.oc - r^2 and disc = b'^2 - a*cq, a quarter of the reference's
+// b^2 - 4ac exactly (b = 2b'). Returns disc, b' out; the near root's
+// u = b' + sqrt(disc) is the caller's, where disc > 0, and t = -u/a.
 static __device__ __forceinline__ float ray_prim_disc(const Ray& r, float4 q,
                                                       float* bp) {
-  const float m1 = __fadd_rn(__fadd_rn(__fmul_rn(r.dx, q.x),
-                                       __fmul_rn(r.dy, q.y)),
-                             __fmul_rn(r.dz, q.z));            // c.d
-  const float m2 = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(r.nox2, q.x),
-                                                 __fmul_rn(r.noy2, q.y)),
-                                       __fmul_rn(r.noz2, q.z)),
-                             q.w);                             // -2o.c + ccr
-  *bp = __fsub_rn(r.od, m1);                                   // oc.d
-  const float cq = __fadd_rn(m2, r.oo);                        // |oc|^2 - r^2
+  const float ocx = __fsub_rn(r.ox, q.x);
+  const float ocy = __fsub_rn(r.oy, q.y);
+  const float ocz = __fsub_rn(r.oz, q.z);
+  *bp = __fadd_rn(__fadd_rn(__fmul_rn(ocx, r.dx), __fmul_rn(ocy, r.dy)),
+                  __fmul_rn(ocz, r.dz));                       // oc.d
+  const float cq = __fsub_rn(
+      __fadd_rn(__fadd_rn(__fmul_rn(ocx, ocx), __fmul_rn(ocy, ocy)),
+                __fmul_rn(ocz, ocz)),
+      q.w);                                                    // |oc|^2 - r^2
   return __fsub_rn(__fmul_rn(*bp, *bp), __fmul_rn(r.av, cq));
 }
 

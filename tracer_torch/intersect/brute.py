@@ -61,27 +61,25 @@ def brute_t_fast(o: Tensor, d: Tensor, centers: Tensor, radii: Tensor,
                  block: int = 8192):
     """(t, idx) closest hit, dense O(B*N) over ``block``-ray slices.
 
-    Per-sphere attributes are rows (cx, cy, cz, |c|^2 - r^2) and per-ray
-    scalars columns; the quadratic is the kernels' u-form (u = oc.d +
-    sqrt(disc), t = -u/a), algebraically the reference's near root
-    (src/hit.c:19-39). Equal t means equal u, and argmax returns the first
-    maximum: the lowest sphere index wins ties. t is +inf and idx -1 on miss.
+    Per-sphere attributes are rows and per-ray scalars columns; the
+    quadratic is the walks' (``leafcull.ray_prim_u``): the reference's sums
+    on oc = o - c (src/hit.c:19-39), halved, so u = oc.d + sqrt(disc) and
+    t = -u/a is its near root in the reference's roundings. Equal t means
+    equal u, and argmax returns the first maximum: the lowest sphere index
+    wins ties. t is +inf and idx -1 on miss.
     """
     cx, cy, cz = centers[:, 0][None], centers[:, 1][None], centers[:, 2][None]
-    ccr = (centers[:, 0] * centers[:, 0] + centers[:, 1] * centers[:, 1]
-           + centers[:, 2] * centers[:, 2] - radii * radii)[None]
+    rsq = (radii * radii)[None]
     ts, idxs = [], []
     for i in range(0, o.shape[0], block):
         ob, db = o[i:i + block], d[i:i + block]
         ox, oy, oz = ob[:, 0:1], ob[:, 1:2], ob[:, 2:3]
         dx, dy, dz = db[:, 0:1], db[:, 1:2], db[:, 2:3]
-        od = ox * dx + oy * dy + oz * dz
-        oo = ox * ox + oy * oy + oz * oz
         a = dx * dx + dy * dy + dz * dz
-        m1 = dx * cx + dy * cy + dz * cz              # c.d     (blk, N)
-        oc = ox * cx + oy * cy + oz * cz              # o.c     (blk, N)
-        bp = od - m1                                  # oc.d
-        cq = oo - 2.0 * oc + ccr                      # |oc|^2 - r^2
+        ocx, ocy, ocz = ox - cx, oy - cy, oz - cz     # oc      (blk, N)
+        bp = ocx * dx + ocy * dy + ocz * dz           # oc.d
+        cq = ocx * ocx + ocy * ocy + ocz * ocz - rsq  # |oc|^2 - r^2
+        del ocx, ocy, ocz
         disc = bp * bp - a * cq
         u = bp + torch.sqrt(torch.clamp(disc, min=0.0))
         ok = (disc > 0.0) & (u < -EPSILON * a)
@@ -98,7 +96,7 @@ def brute_t_fast(o: Tensor, d: Tensor, centers: Tensor, radii: Tensor,
 def nearest_hit_brute_fast(rays: Ray, scene: Scene,
                            block: int = 8192) -> HitRecord:
     """HitRecord over :func:`brute_t_fast`: the dense path the renderer
-    takes at <= 4000 spheres. The winning id comes from the u-form sweep;
+    takes at <= 4000 spheres. The winning id comes from the dense sweep;
     t is recomputed from it with the reference formulation, so autograd
     reaches the sphere centers and radii as in the kernel paths."""
     batch_shape = rays.batch_shape

@@ -19,8 +19,8 @@ is ``compact_cuda`` (``csrc/compact.cu``) on CUDA tensors and
 
 Phase B (``conecull_call``: ``conecull_cuda``, ``csrc/conecull.cu``, on
 CUDA tensors and ``conecull_plain`` on CPU tensors) walks the same rows as
-the leaf walk but cone-tests every walked prim first and runs the u-form
-quadratic only on the survivors. The cone test is conservative, so on the
+the leaf walk but cone-tests every walked prim first and runs the leaf
+walk's test (``leafcull.ray_prim_u``) only on the survivors. The cone test is conservative, so on the
 same rows its (t, slot) equal ``leafcull_call``'s bit for bit. The kernel
 walks the leaf walk's items (``csrc/leafwalk.cuh``): rows cut into items of
 ``CONE_ITEM_PRIMS`` prims, planned on the device by the launch; each
@@ -58,8 +58,8 @@ from tracer_torch.scene.scene import Scene
 _ROW_ALIGN = 128
 CONE_FEAT = 16      # per-subpacket cone columns (11 used)
 CONE_ITEM_PRIMS = 256   # prims per item of the phase-B walk (chip_smoke.py)
-_SENTINEL_CCR = 1.0e29   # prims with |c|^2 - r^2 at or above this are slots
-                         # that hold no sphere; the cone test drops them
+_SENTINEL_RSQ = -1.0e29   # prims with r^2 at or below this are slots that
+                          # hold no sphere; the cone test drops them
 
 
 @dataclass
@@ -107,10 +107,10 @@ def _reduce_feats(feats: Tensor, red) -> Tensor:
 
 def bounds_from_feats(feats: Tensor):
     """Per-subpacket o/d interval bounds (o_lo, o_hi, d_lo, d_hi), each
-    (P, 3), from the feature planes (columns 0-2 = d, 3-5 = -2o)."""
+    (P, 3), from the feature planes (columns 0-2 = d, 3-5 = o)."""
     lo = _reduce_feats(feats, torch.amin)
     hi = _reduce_feats(feats, torch.amax)
-    return hi[:, 3:6] * -0.5, lo[:, 3:6] * -0.5, lo[:, 0:3], hi[:, 0:3]
+    return lo[:, 3:6], hi[:, 3:6], lo[:, 0:3], hi[:, 0:3]
 
 
 def cone_from_feats(feats: Tensor, o_lo, o_hi, d_lo, d_hi, r_max: float,
@@ -542,10 +542,10 @@ def _check_cones(feats: Tensor, cones: Tensor) -> None:
 
 def cone_keep(cone: Tensor, pr: Tensor) -> Tensor:
     """The per-prim cone test, rounded as the kernel rounds it: cone (n,
-    CONE_FEAT) rows, pr (n, K, 4) prims (cx, cy, cz, |c|^2 - r^2) -> (n, K)
+    CONE_FEAT) rows, pr (n, K, 4) prims (cx, cy, cz, r^2) -> (n, K)
     bool. With v = c - o0 and q = |v|^2 - rho^2, a prim is kept when
     u.v + sin*rho >= cos*sqrt(max(q, 0)) or q <= 0, and never when it is a
-    slot that holds no sphere (|c|^2 - r^2 >= 1e29)."""
+    slot that holds no sphere (r^2 <= -1e29)."""
     o0x, o0y, o0z, ux, uy, uz = (cone[:, k:k + 1] for k in range(6))
     cth, rho2, sinrho = cone[:, 7:8], cone[:, 9:10], cone[:, 10:11]
     vx = pr[..., 0] - o0x
@@ -556,7 +556,7 @@ def cone_keep(cone: Tensor, pr: Tensor) -> Tensor:
     q = d2 - rho2
     sq = _sqrt_rn(torch.clamp(q, min=0.0))
     return ((uv + sinrho >= cth * sq) | (q <= 0.0)) \
-        & (pr[..., 3] < _SENTINEL_CCR)
+        & (pr[..., 3] > _SENTINEL_RSQ)
 
 
 @torch.no_grad()
@@ -569,7 +569,7 @@ def conecull_plain(feats: Tensor, cand: Tensor, cones: Tensor, prims: Tensor,
     rows as for ``leafcull_plain``; cones (G, S, CONE_FEAT) f32; prims
     (C, lpc*leaf_size, 4). Every prim of every walked leaf is cone-tested
     (:func:`cone_keep`; leaf ids at or past ``leaves_per_chunk`` hold no
-    prim) and the survivors get the leaf walk's u-form test. Returns
+    prim) and the survivors get the leaf walk's test. Returns
     (t, slot), each (C, G, SP, S): the largest u below -eps*a, lowest
     global slot on ties, t = -u/a; (3e38, 2^30) where nothing hits; and
     kept (C, G, S) i32, the prims that survived the cone test per row.
@@ -842,5 +842,5 @@ def nearest_hit_conecull_checked(rays: Ray, scene: Scene, tables: ConeTables,
     candidate budgets until no subpacket overflows. Returns (HitRecord,
     escalations)."""
     return _escalate(lambda k0, k: nearest_hit_conecull(
-        rays, scene, tables, k0, k, **kw), tables, max_groups,
-        max_candidates)
+        rays, scene, tables, k0, k, **kw), rays.origin.numel() // 3, tables,
+        max_groups, max_candidates)

@@ -46,11 +46,12 @@ MISS_KEY = tilewalk.miss_key(float("inf"), 0xFFFFFFFF)   # (+inf, -1)
 BLOCKS = PACKET // LANES      # 128-ray blocks per packet, rows of the walk
 
 
-def cull_tiles(packed: PackedBVH, num_tiles: int) -> Tensor:
+def cull_tiles(packed: PackedBVH, num_tiles: int | None = None) -> Tensor:
     """The walk's (T+1, 128, 4) f32 prim tiles (centre, r^2) in slot order
     from the packed prims: slots past the packed prims, up to ``num_tiles``
-    tiles, and the trailing tile T (the id that pads candidate lists) hold
-    the sentinel (0, 0, 0, -1e30), which no ray hits."""
+    tiles (by default the fewest that hold them), and the trailing tile T
+    (the id that pads candidate lists) hold the sentinel (0, 0, 0, -1e30),
+    which no ray hits."""
     p = packed.prims
     return prim_tiles(p, p[:, 3], _SENTINEL_RSQ, num_tiles)
 

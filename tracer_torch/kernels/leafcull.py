@@ -20,7 +20,8 @@ persistent grid; the closest hit merges each ray's best by an
 its flags.
 
 Number semantics follow the reference acceptance rule (disc > 0, near root
-only, t > EPSILON; src/hit.c:19-39) in f32, in the kernels' u-form.
+only, t > EPSILON; src/hit.c:19-39) in f32, on the reference's sums over
+oc = o - c (:func:`ray_prim_u`), so rays from anywhere get its answers.
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ FEAT = 16           # per-ray feature columns (14 used)
 # (one 8 x 128 f32 block) so that leaves_per_chunk, and with it every
 # candidate row, matches the JAX package for the same max_chunk_bytes.
 _PAIR_BYTES = 8 * 128 * 4
-_SENTINEL_CCR = 1.0e30
+_SENTINEL_RSQ = -1.0e30   # the w of a slot that holds no sphere
 ITEM_PRIMS = 128    # prims per item of the split walks (chip_smoke.py sweep)
 MISS_KEY = 2 ** 63 - 1   # the closest-hit walk's key of a ray with no hit
 
@@ -54,9 +55,9 @@ MISS_KEY = 2 ** 63 - 1   # the closest-hit walk's key of a ray with no hit
 class CullTables:
     """Device tables for the leaf walk (build once per scene and BVH).
 
-    prims:    (C, lpc*leaf_size, 4) f32, slot-major (cx, cy, cz, |c|^2-r^2)
-              of chunk c's prim slots; sentinel slots hold (0, 0, 0, 1e30),
-              which no ray can hit.
+    prims:    (C, lpc*leaf_size, 4) f32, slot-major (cx, cy, cz, r^2)
+              of chunk c's prim slots; sentinel slots hold (0, 0, 0, -1e30),
+              which no ray can hit (|oc|^2 - w is 1e30).
     leaf_min/leaf_max: (L, 3) f32 leaf AABBs in slot order; padding leaves
               hold inverted boxes and are masked with ``num_real_leaves``.
     group_boxes: (Gc, lpg*8) f32 member-leaf boxes [lo3, hi3, 0, 0] per row.
@@ -149,9 +150,8 @@ def build_cull_tables(scene: Scene, bvh: FlatBVH,
     safe = torch.clamp(sl, max=n - 1)
     c = scene.centers[safe]
     r = scene.radii[safe]
-    ccr = c[:, 0] * c[:, 0] + c[:, 1] * c[:, 1] + c[:, 2] * c[:, 2] - r * r
-    prims = torch.stack([c[:, 0], c[:, 1], c[:, 2], ccr], dim=1)
-    sentinel = torch.tensor([0.0, 0.0, 0.0, _SENTINEL_CCR],
+    prims = torch.stack([c[:, 0], c[:, 1], c[:, 2], r * r], dim=1)
+    sentinel = torch.tensor([0.0, 0.0, 0.0, _SENTINEL_RSQ],
                             dtype=torch.float32, device=dev)
     prims = torch.where(real[:, None], prims, sentinel)
 
@@ -173,20 +173,18 @@ def build_cull_tables(scene: Scene, bvh: FlatBVH,
 
 def _feature_rows(o: Tensor, d: Tensor, t_max: Tensor | None = None) -> Tensor:
     """(B, 3) rays -> (B, FEAT) f32 feature rows:
-    [dx, dy, dz, -2ox, -2oy, -2oz, 1, 0, o.d, |o|^2, a, 1/a, eps*a,
+    [dx, dy, dz, ox, oy, oz, 1, 0, 0, 0, a, 1/a, eps*a,
     -a*t_max (-3e38 without t_max), 0, 0]."""
     ox, oy, oz = o[:, 0], o[:, 1], o[:, 2]
     dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]
     zeros = torch.zeros_like(ox)
     ones = torch.ones_like(ox)
-    od = ox * dx + oy * dy + oz * dz
-    oo = ox * ox + oy * oy + oz * oz
     a = dx * dx + dy * dy + dz * dz
     inva = 1.0 / torch.clamp(a, min=1e-30)
     negat = (torch.full_like(a, -_BIG) if t_max is None
              else -a * t_max.reshape(-1))
-    cols = [dx, dy, dz, -2.0 * ox, -2.0 * oy, -2.0 * oz, ones, zeros,
-            od, oo, a, inva, EPSILON * a, negat]
+    cols = [dx, dy, dz, ox, oy, oz, ones, zeros, zeros, zeros, a, inva,
+            EPSILON * a, negat]
     cols += [zeros] * (FEAT - len(cols))
     return torch.stack(cols, dim=-1).to(torch.float32)
 
@@ -366,18 +364,19 @@ def _pair_slices(f: Tensor, fidx: Tensor, chunk: Tensor, rows: Tensor,
 
 
 def ray_prim_u(fb: Tensor, pr: Tensor):
-    """The u-form test of every ray against every prim, as the kernels
-    round it (``walk::ray_prim_u``): fb (n, R, FEAT) feature rows, pr
-    (n, K, 4) prims (cx, cy, cz, |c|^2 - r^2). Returns (u, disc), each
-    (n, R, K): u = oc.d + sqrt(max(disc, 0)), t = -u/a on the near root."""
-    cx, cy, cz, ccr = (pr[:, None, :, k] for k in range(4))
+    """The test of every ray against every prim, as the kernels round it
+    (``walk::ray_prim_disc``): fb (n, R, FEAT) feature rows, pr (n, K, 4)
+    prims (cx, cy, cz, r^2). The reference's sums on oc = o - c, halved:
+    b' = oc.d, cq = |oc|^2 - r^2, disc = b'^2 - a*cq. Returns (u, disc),
+    each (n, R, K): u = b' + sqrt(max(disc, 0)), t = -u/a on the near
+    root."""
+    cx, cy, cz, rsq = (pr[:, None, :, k] for k in range(4))
     dx, dy, dz = fb[:, :, 0:1], fb[:, :, 1:2], fb[:, :, 2:3]
-    nox2, noy2, noz2 = fb[:, :, 3:4], fb[:, :, 4:5], fb[:, :, 5:6]
-    od, oo, av = fb[:, :, 8:9], fb[:, :, 9:10], fb[:, :, 10:11]
-    m1 = dx * cx + dy * cy + dz * cz                     # c.d
-    m2 = nox2 * cx + noy2 * cy + noz2 * cz + ccr         # -2 o.c + ccr
-    bp = od - m1                                         # oc.d
-    cq = m2 + oo                                         # |oc|^2 - r^2
+    ox, oy, oz, av = fb[:, :, 3:4], fb[:, :, 4:5], fb[:, :, 5:6], \
+        fb[:, :, 10:11]
+    ocx, ocy, ocz = ox - cx, oy - cy, oz - cz
+    bp = ocx * dx + ocy * dy + ocz * dz                  # oc.d
+    cq = ocx * ocx + ocy * ocy + ocz * ocz - rsq         # |oc|^2 - r^2
     disc = bp * bp - av * cq
     return bp + _sqrt_rn(torch.clamp(disc, min=0.0)), disc
 
@@ -673,13 +672,15 @@ def anyhit_call(feats: Tensor, cand: Tensor, prims: Tensor, leaf_size: int,
 # HitRecord and occlusion queries over rays in caller order
 # ---------------------------------------------------------------------------
 
-def _escalate(query, tables, max_groups: int, max_candidates: int,
-              kind: str = "closest"):
-    """Run ``query(mg, mc) -> (result, overflow)``, doubling both budgets
-    until nothing overflows or both cover the whole table; each retry is
-    the span ``tracer_torch.escalate``, its argument the escalation's
-    number. Counts the call in ``trace.checked(kind, ...)``. Returns
-    (result, escalations)."""
+def _escalate(query, rays: int, tables, max_groups: int,
+              max_candidates: int, kind: str = "closest"):
+    """Run ``query(mg, mc) -> (result, overflow)`` over ``rays`` rays,
+    doubling both budgets until nothing overflows or both cover the whole
+    table; each retry is the span ``tracer_torch.escalate``, its argument
+    the escalation's number, its counter ``escalated_rays`` the rays it
+    walks again (all of them: known from the shapes, no sync). Counts the
+    call in ``trace.checked(kind, ...)``. Returns (result,
+    escalations)."""
     cull = tables.cull
     k0, k = max_groups, max_candidates
     escalations = 0
@@ -693,6 +694,7 @@ def _escalate(query, tables, max_groups: int, max_candidates: int,
         k = min(2 * k, cull.leaves_per_chunk)
         escalations += 1
         with trace.span("escalate", escalations):
+            trace.count(escalated_rays=rays)
             out, overflow = query(k0, k)
 
 
@@ -734,9 +736,10 @@ def nearest_hit_leafcull_checked(rays, scene: Scene, tables,
     """Escalating driver over :func:`nearest_hit_leafcull`: doubles both
     candidate budgets until no subpacket overflows. Returns (HitRecord,
     escalations)."""
-    trace.count_outermost(rays=rays.origin.numel() // 3)
+    n = rays.origin.numel() // 3
+    trace.count_outermost(rays=n)
     return _escalate(lambda k0, k: nearest_hit_leafcull(
-        rays, scene, tables, k0, k, **kw), tables, max_groups,
+        rays, scene, tables, k0, k, **kw), n, tables, max_groups,
         max_candidates)
 
 
@@ -746,7 +749,7 @@ def nearest_hit_leafcull_t(rays, tables: CullTables, max_groups: int = 48,
                            subpacket: int = 64):
     """Lite closest hit: (t, sphere id, overflow) straight from the leaf
     walk, without the HitRecord epilogue (no point, normal or t recomputed
-    from the winning sphere); t is the walk's own (the u-form quadratic),
+    from the winning sphere); t is the walk's own (-u/a, :func:`ray_prim_u`),
     +inf on a miss, the id -1. Batch shape kept.
 
     The rays go in the caller's order, packed into subpackets as they come
@@ -805,7 +808,8 @@ def occluded_leafcull_checked(rays, tables, t_max, max_groups: int = 48,
                               max_candidates: int = 119, **kw):
     """Escalating driver over :func:`occluded_leafcull`. Returns
     (occluded, escalations)."""
-    trace.count_outermost(rays=rays.origin.numel() // 3)
+    n = rays.origin.numel() // 3
+    trace.count_outermost(rays=n)
     return _escalate(lambda k0, k: occluded_leafcull(
-        rays, tables, t_max, k0, k, **kw), tables, max_groups,
+        rays, tables, t_max, k0, k, **kw), n, tables, max_groups,
         max_candidates, kind="shadow")

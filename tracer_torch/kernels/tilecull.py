@@ -13,12 +13,12 @@ min t, lowest slot on ties; a miss is (3e38, 2^30).
 The walk is a hand-written CUDA kernel on CUDA tensors (``tilecull_cuda``,
 ``csrc/tilecull.cu``) and a plain PyTorch version with the same contract on
 CPU tensors (``tilecull_plain``); :func:`tilecull_call` picks by device and
-raises for any other. Both round exactly alike (the u-form test of the
-leaf walks, ``leafcull.ray_prim_u``), so they agree bit for bit.
+raises for any other. Both round exactly alike (the test of the leaf
+walks on oc = o - c, ``leafcull.ray_prim_u``), so they agree bit for bit.
 
 Per-ray features are the leaf walk's 16-column rows (``leafcull.
-pack_ray_features``): d, -2o, o.d, |o|^2, a and 1/max(a, 1e-30) are the
-columns the JAX kernel's three feature planes hold.
+pack_ray_features``): d, o, a and 1/max(a, 1e-30) are the columns it
+reads.
 """
 
 from __future__ import annotations
@@ -29,10 +29,10 @@ from torch import Tensor
 from tracer_torch import trace
 from tracer_torch.core.types import Ray
 from tracer_torch.intersect.brute import record_from_ids
-from tracer_torch.intersect.cull import (LANES, LeafTable, prim_tiles,
-                                         tile_candidates)
+from tracer_torch.intersect.cull import LANES, LeafTable, tile_candidates
 from tracer_torch.intersect.sphere import EPSILON
 from tracer_torch.kernels import _lib, tilewalk
+from tracer_torch.kernels.cull import cull_tiles
 from tracer_torch.kernels.leafcull import (FEAT, _BIG, _NOSLOT, _pad_edge,
                                            pack_ray_features as _pack_feats,
                                            ray_prim_u)
@@ -40,21 +40,18 @@ from tracer_torch.kernels.traverse import PackedBVH
 from tracer_torch.scene.scene import Scene
 
 SUBPACKET = 128          # rays per frustum / candidate row (one CTA)
-_SENTINEL_CCR = 1.0e30   # (0, 0, 0, 1e30): a prim nothing can hit
 MISS_KEY = tilewalk.miss_key(_BIG, _NOSLOT)   # (3e38, 2^30)
 
 
 def pack_prim_tiles(packed: PackedBVH) -> Tensor:
-    """(T+1, 128, 4) f32 prim tiles (cx, cy, cz, |c|^2 - r^2) in slot order
-    from the packed prims (center, r^2); ccr = cx*cx + cy*cy + cz*cz - r^2
-    in that order. T = ceil(prim slots / 128), the leaf table's tile count.
-    Slots past the packed prims (the last tile's tail) and the trailing
-    tile T hold the sentinel (0, 0, 0, 1e30): its discriminant is
-    (o.d)^2 - a(|o|^2 + 1e30) < 0, so it never hits. (The JAX table leaves
-    that tail at zero, a radius-0 sphere at the origin.)"""
-    p = packed.prims
-    ccr = p[:, 0] * p[:, 0] + p[:, 1] * p[:, 1] + p[:, 2] * p[:, 2] - p[:, 3]
-    return prim_tiles(p, ccr, _SENTINEL_CCR)
+    """(T+1, 128, 4) f32 prim tiles (cx, cy, cz, r^2) in slot order: the
+    packed prims (center, r^2), as the packet cull's
+    (``cull.cull_tiles``). T = ceil(prim slots / 128), the leaf table's
+    tile count. Slots past the packed prims (the last tile's tail) and the
+    trailing tile T hold the sentinel (0, 0, 0, -1e30): its discriminant
+    is (o.d)^2 - a(|o|^2 + 1e30) < 0, so it never hits. (The JAX table
+    leaves that tail at zero, a radius-0 sphere at the origin.)"""
+    return cull_tiles(packed)
 
 
 def pack_ray_features(o: Tensor, d: Tensor, subpackets: int):
