@@ -65,6 +65,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
    the 10M tables over random chunks, the last included, every fifth pair
    inactive, at 119 and 7 leaves); kernel vs plain on its rows, their
    walked-leaf distribution, the item sweep and the keys' bytes;
+7a. phase A at several chunks (``render_phase_a``): the ``path_100k``
+   cell's tables (``render_100k``: 100k spheres, leaf 16, three chunks)
+   and the CLI render's (three chunks); one frame each with
+   ``cone_candidates``' calls recorded and the trace on, each call
+   launching ``phase_a_cuda`` once and its ``phase_a`` span reading
+   ``phase_a_kernel`` 1; the kernel against the torch operations, rows
+   and flag bit for bit, on every call's bounds at its budgets; on the
+   cell's tables also the camera rays and the rays leaving the first hit
+   points at every rung of ``leafcull._escalate``'s ladder up to (G,
+   lpc), timed beside them and its bound;
 7. the render slice at full size: 100k spheres in the 1000-unit world,
    the default camera, 800x600, through ``tracer_torch.cli``'s own code
    path, in path mode (depth 5) and direct mode, both with compaction,
@@ -154,7 +164,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
    query, launching ``phase_a_cuda`` and ``leafcull_cuda`` once each
    (counters set to 0 just before, read just after); ``measure_scaling``
    with one rank; ``render_sharded`` path frames at 800x600, 100k spheres,
-   ``--impl auto`` (leaf walk and compactor launched) and ``pallas``
+   ``--impl auto`` (leaf walk and phase A kernel launched) and ``pallas``
    (packet walk launched), bitwise ``render`` on the same noise; the ring
    at 100,352 spheres x 1,024 rays, brute force and through a one-shard
    ``build_sharded_bvh`` tree, against ``nearest_hit_brute`` (ties and
@@ -206,7 +216,8 @@ kernel equals its plain version exactly.
 the differentiable path (phase 7c): the headline query no longer calls
 it; every other kernel's is its own path's count. ``phase_a_cuda``'s
 ``ms``, ``plain_ms`` and ``bound_ms`` are the headline's (phase 4), with
-the 10M rows' beside them (``*_10m``).
+the 10M rows' (``*_10m``) and the render's three-chunk camera rows at the
+render's budgets (``*_chunks``, phase 7a) beside them.
 
 Each kernel's ``ms`` in the per-kernel line is its wrapper's call timed
 on CUDA events over back-to-back calls; ``compact_cuda``'s is summed over
@@ -228,8 +239,9 @@ walk 20 per (ray, prim) test over the listed tiles (sum of counts x 128 x
 128); phase B 22 per cone test of a walked prim and 19 per (ray,
 survivor) test; the packet cull 25 per b-form test over the walked tiles
 (sum of min(count, K) x 1024 x 128); phase A 85 per interval slab test of
-a box, over every group of an active row's chunk and the member leaves of
-the groups of rows that meet at most k0 (its bytes: the rows written, the
+a box, over every group of an active row's chunk (every chunk's, for the
+rows of tables of several chunks) and the member leaves of the groups of
+rows that meet at most k0 (its bytes: the rows written, the
 bounds, group boxes, leaf boxes and pair tables read once).
 """
 
@@ -1396,8 +1408,8 @@ def phase_a(feats, tables, mg=None, mc=None):
 
 def phase_a_plain(bounds, tables, S, budgets, pairs=()):
     """The torch operations ``phase_a_cuda`` replaces, on its arguments:
-    ``candidate_rows`` (no pairs) or ``tlas._pair_block_rows``. Returns
-    (rows (nrows, rowlen), overflow)."""
+    ``candidate_rows`` (no pairs: every chunk's rows, chunk-major) or
+    ``tlas._pair_block_rows``. Returns (rows (nrows, rowlen), overflow)."""
     from tracer_torch.kernels.conecull import candidate_rows
     from tracer_torch.kernels.tlas import _pair_block_rows
     k0, k, kg, keep_l, gkeep, rowlen = budgets
@@ -1407,7 +1419,7 @@ def phase_a_plain(bounds, tables, S, budgets, pairs=()):
                                          for i in range(0, 12, 3)), cull,
                                    tables.leaf_boxes, k0, k, rowlen,
                                    exact=False)
-        return rows[0], ovf
+        return rows.reshape(-1, rowlen), ovf
     C, gpc = cull.num_chunks, cull.leaves_per_chunk // cull.leaves_per_group
     rows, ovf = _pair_block_rows(
         bounds.reshape(-1, S * 12), cull.group_min.reshape(C, gpc, 3),
@@ -1418,15 +1430,15 @@ def phase_a_plain(bounds, tables, S, budgets, pairs=()):
 
 def phase_a_tests(bounds, tables, S, k0, pairs=()):
     """(group-box tests, leaf-box tests) the rows need: every group of a
-    row's chunk (of active rows), and the member leaves of its first
-    groups where it has at most k0."""
+    row's chunk (of active rows; without pairs, of every chunk), and the
+    member leaves of its first groups where it has at most k0."""
     import torch
     from tracer_torch.kernels.conecull import _slab_hit_cols
     cull = tables.cull
     lpg = cull.leaves_per_group
     gpc = cull.leaves_per_chunk // lpg
     b = tuple(bounds[:, i:i + 3] for i in range(0, 12, 3))
-    g = torch.arange(gpc, device=bounds.device)
+    g = torch.arange(gpc if pairs else cull.num_groups, device=bounds.device)
     if pairs:
         pc, pg, act = (x.long() for x in pairs)
         q = (pg[:, None] * S + torch.arange(S, device=bounds.device)) \
@@ -1447,7 +1459,7 @@ def phase_a_tests(bounds, tables, S, k0, pairs=()):
         counts.append((hit & (ids * lpg < cull.num_real_leaves)).sum(1))
     gtotal = torch.cat(counts)
     refined = torch.where(live & (gtotal <= k0), gtotal, 0)
-    return int(live.sum()) * gpc, int(refined.sum()) * lpg
+    return int(live.sum()) * g.shape[0], int(refined.sum()) * lpg
 
 
 def phase_a_check(name, bounds, tables, S, budgets, pairs=(), timed=True):
@@ -1488,6 +1500,118 @@ def phase_a_check(name, bounds, tables, S, budgets, pairs=(), timed=True):
     log(msg)
     phase_a_cuda.launches = launches
     return out
+
+
+def phase_a_calls(name, frame, tables):
+    """One frame (``frame()``) with ``cone_candidates``' calls recorded and
+    the trace on; each call must launch ``phase_a_cuda`` once, and each
+    ``phase_a`` span read ``phase_a_kernel`` 1; the kernel held to the
+    torch operations, rows and flag bit for bit, on every call's bounds
+    at that call's budgets. Returns each bounce's feature planes (its
+    first call, at the render's budgets) and those budgets."""
+    import torch
+    from tracer_torch import trace
+    from tracer_torch.kernels import conecull as kcone
+    from tracer_torch.kernels.conecull import (bounds_from_feats,
+                                               cone_budgets, phase_a_cuda)
+    cull = tables.cull
+    calls = []
+    launches = phase_a_cuda.launches
+    trace.reset()
+    with recording(kcone, "cone_candidates", calls), trace.enabled():
+        frame()
+    torch.cuda.synchronize()
+    kernel = [s["counters"].get("phase_a_kernel") for r in trace.records()
+              for s in r["spans"] if s["name"] == "tracer_torch.phase_a"]
+    trace.reset()
+    if phase_a_cuda.launches - launches != len(calls):
+        raise AssertionError(f"{name}: {len(calls)} phase A calls, "
+                             f"{phase_a_cuda.launches - launches} "
+                             f"phase_a_cuda launches")
+    if kernel != [1] * len(calls):
+        raise AssertionError(f"{name}: phase_a spans read phase_a_kernel "
+                             f"{kernel}")
+    log(f"{name}: {cull.num_chunks} chunks of "
+        f"{cull.num_groups // cull.num_chunks} groups, {len(calls)} phase A "
+        f"calls a frame, each one phase_a_cuda launch and a phase_a span "
+        f"reading phase_a_kernel 1")
+    bounces = []
+    for i, (feats, _, mg, mc) in enumerate(calls):
+        if (mg, mc) == tuple(calls[0][2:4]):
+            bounces.append(feats)
+        phase_a_check(f"{name}, call {i} (bounce {len(bounces) - 1}, MG "
+                      f"{mg} / MC {mc})",
+                      torch.cat(bounds_from_feats(feats), dim=1), tables,
+                      feats.shape[1], cone_budgets(cull, mg, mc),
+                      timed=False)
+    phase_a_cuda.launches = launches
+    return bounces, tuple(calls[0][2:4])
+
+
+def render_phase_a(dev):
+    """Phase 7a: ``phase_a_cuda`` at several chunks. On the ``path_100k``
+    cell's deployment (``benchmark/``: ``render_100k``, 100k spheres
+    uniform in the 1000-unit cube, leaf 16: three chunks of 185 groups)
+    one frame of its
+    traffic with every phase A call checked (:func:`phase_a_calls`), then
+    the camera rays and the rays leaving the first hit points at every
+    rung of ``leafcull._escalate``'s ladder from the render's budgets to
+    (G, lpc), each checked and timed beside the torch operations and its
+    bound; then one path/auto frame of the CLI's benchmark scene (three
+    chunks too), every call checked. Returns the camera rays' first-rung
+    results row."""
+    import torch
+    from pathlib import Path
+    from benchmark.harness import Bench
+    from tracer_torch import cli
+    from tracer_torch.bench import render as brender
+    from tracer_torch.integrator.wavefront import bounce_noise
+    from tracer_torch.kernels.conecull import (bounds_from_feats,
+                                               cone_budgets, phase_a_cuda)
+    bench = Bench(Path("BENCHMARK.json"))
+    cell = bench.cell("path_100k")
+    drv = bench.driver("frame")
+    st = drv.setup(bench.config(cell["config"]),
+                   bench.traffic(cell["traffic"]), 2 ** 31 + 2121, dev)
+    tables = st.tables["cone"]
+    cull = tables.cull
+    C, G, lpc = cull.num_chunks, cull.num_groups, cull.leaves_per_chunk
+    if C < 2:
+        raise AssertionError(f"the path_100k tables have {C} chunk")
+    bounces, (mg, mc) = phase_a_calls(
+        "path_100k frame", lambda: drv._frame(st, 0, drv._noise(st, 100)),
+        tables)
+    rungs = []
+    while True:
+        rungs.append((mg, mc))
+        if mg >= G and mc >= lpc:
+            break
+        mg, mc = min(2 * mg, G), min(2 * mc, lpc)
+    launches = phase_a_cuda.launches
+    first = None
+    for which, feats in (("camera rays", bounces[0]),
+                         ("rays leaving hit points", bounces[1])):
+        bounds = torch.cat(bounds_from_feats(feats), dim=1)
+        for mg, mc in rungs:
+            row = phase_a_check(
+                f"phase A C = {C}, path_100k {which}, {bounds.shape[0]} "
+                f"subpackets, MG {mg} / MC {mc}", bounds, tables,
+                feats.shape[1], cone_budgets(cull, mg, mc))
+            first = first or row
+    phase_a_cuda.launches = launches
+    del st, bounces, tables, cull
+    torch.cuda.empty_cache()
+
+    sess = cli.prepare(cli.build_parser().parse_args(
+        brender.argv("path", "auto") + ["--frames", "1"]))
+    cfg = sess.config
+    noise = bounce_noise(torch.Generator(device=dev).manual_seed(3),
+                         (cfg.height, cfg.width), cfg.max_depth, dev)
+    phase_a_calls("CLI path/auto frame",
+                  lambda: sess.frame(sess.camera, noise),
+                  sess.tables["cone"])
+    log(f"CLI path/auto frame escalations: {sess.counts}")
+    return first
 
 
 def synthetic_bounds(n, widths, gen, device):
@@ -1783,14 +1907,14 @@ def cull_slice(dev, scene, o, d, results, comp):
     return bvh
 
 
-def phase_b_slice(dev, scene, tables, bvh16, o, d, t_ref, sid_ref, results,
-                  comp):
+def phase_b_slice(dev, scene, tables, bvh16, o, d, t_ref, sid_ref, results):
     """Phase 5c: the phase-B query at full size, 100k x 512k, on the
     headline tables (leaf 32) and on 16-prim leaves: prep_rays_bucketed,
     phase A with cones and the cone-cull walk through
     ``nearest_hit_conecull_t`` with the checked queries' budget doubling;
-    counters reset just before and read just after, the compactor's planes
-    recorded and checked (``comp``, a Compactions). At leaf 32 the slots
+    counters reset just before and read just after; phase A is
+    ``phase_a_cuda`` at both sizes (one chunk at leaf 32, three at leaf
+    16), and the compactor must not run. At leaf 32 the slots
     and t must equal the headline leaf-walk query's (``t_ref``,
     ``sid_ref``, ray order) exactly; at both sizes the walk must equal
     conecull_plain and leafcull_cuda on its rows, and the ids brute
@@ -1810,21 +1934,22 @@ def phase_b_slice(dev, scene, tables, bvh16, o, d, t_ref, sid_ref, results,
                                                pack_ray_features, _escalate)
     S, SP = headline.S, headline.SP
     for leaf, tb in ((32, tables), (16, build_cone_tables(scene, bvh16))):
-        # One chunk: phase A is phase_a_cuda; more: the torch operations
-        # and the compactor.
-        rows_by = phase_a_cuda if tb.cull.num_chunks == 1 else compact_cuda
-        conecull_cuda.launches = rows_by.launches = 0
+        # Phase A is phase_a_cuda at one chunk (leaf 32) and at three
+        # (leaf 16); the compactor is not called.
+        conecull_cuda.launches = phase_a_cuda.launches = 0
+        compact_cuda.launches = 0
         padded, pdest = prep_rays_bucketed(Ray(o, d), SP,
                                            cell_bits=headline.CELL_BITS)
-        with comp.record():
-            (t, sid, ovf), esc = _escalate(
-                lambda k0, k: (lambda r: (r, r[2]))(nearest_hit_conecull_t(
-                    padded, tb, k0, k, S, SP)), padded.origin.shape[0], tb,
-                headline.MG, headline.MC)
+        (t, sid, ovf), esc = _escalate(
+            lambda k0, k: (lambda r: (r, r[2]))(nearest_hit_conecull_t(
+                padded, tb, k0, k, S, SP)), padded.origin.shape[0], tb,
+            headline.MG, headline.MC)
         torch.cuda.synchronize()
         launches = {"conecull_cuda": conecull_cuda.launches,
-                    rows_by.__name__: rows_by.launches}
-        comp.check(f"phase B leaf {leaf}")
+                    "phase_a_cuda": phase_a_cuda.launches}
+        if compact_cuda.launches:
+            raise AssertionError(f"phase B leaf {leaf}: the compactor ran "
+                                 f"{compact_cuda.launches} time(s)")
         mg = min(headline.MG << esc, tb.cull.num_groups)
         mc = min(headline.MC << esc, tb.cull.leaves_per_chunk)
         log(f"phase B slice, leaf {leaf}: launches {launches}; {esc} "
@@ -2706,7 +2831,7 @@ def dist_slice(dev, scene, tables, o, d):
     log(f"dist measure_scaling: {json.dumps(rows)}")
 
     # -- the sharded path frames ----------------------------------------------
-    for impl, kernels in (("auto", ("leafcull_cuda", "compact_cuda")),
+    for impl, kernels in (("auto", ("leafcull_cuda", "phase_a_cuda")),
                           ("pallas", ("traverse_cuda",))):
         args = [a for a in brender.argv("path", impl) if a != "--compact"]
         sess = cli.prepare(cli.build_parser().parse_args(args))
@@ -3156,7 +3281,7 @@ def main(argv=None) -> int:
 
     # -- 5b, 5c. the packet cull and phase B at full size -------------------
     bvh16 = cull_slice(dev, scene, o, d, results, comp)
-    phase_b_slice(dev, scene, tables, bvh16, o, d, tr, sid, results, comp)
+    phase_b_slice(dev, scene, tables, bvh16, o, d, tr, sid, results)
 
     # -- 6. the 10M TLAS slice at full size ---------------------------------
     big, btables, bo, bd, lbvh_ms, tables_ms = large.benchmark_inputs(dev)
@@ -3250,6 +3375,11 @@ def main(argv=None) -> int:
         f"{time_cuda(routed_cuda, *oargs):.4f} ms")
     del boo, bod, ofeats, otrows, oargs
 
+    # -- 7a. phase A at several chunks on the render's tables ------------------
+    rows = render_phase_a(dev)
+    results["phase_a_cuda"].update(
+        {f"{k}_chunks": rows[k] for k in ("ms", "plain_ms", "bound_ms")})
+
     # -- 7. the render slice at full size -------------------------------------
     render_slice(dev, results, comp)
 
@@ -3301,7 +3431,9 @@ def main(argv=None) -> int:
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         **{k: results[name][k] for k in keys}}
+         **{k: results[name][k] for k in keys},
+         **{k: v for k, v in results[name].items()
+            if k.endswith(("_10m", "_chunks"))}}
         for name, (src, rep) in meta.items()]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,11 @@
 """Phase A's rows as one kernel (``conecull.phase_a_cuda``,
 ``csrc/phase_a.cu``): a row-at-a-time model of the kernel's algorithm
 (``torch_parity.phase_a_row_model``: ascending 32-lane sweeps, ballot-order
-appends, the keep budgets, raw counts, both fallback rules) against the
-torch operations it replaces, ``candidate_rows`` (one chunk, not exact)
-and ``tlas._pair_block_rows`` (routed pairs), bit for bit; and the
-dispatch, which gives CPU tensors the torch operations.
+appends, the keep budgets, raw counts, both fallback rules; at several
+chunks one sweep over every group, per-chunk runs of its lists) against
+the torch operations it replaces, ``candidate_rows`` (one chunk and
+several, not exact) and ``tlas._pair_block_rows`` (routed pairs), bit for
+bit; and the dispatch, which gives CPU tensors the torch operations.
 
 The kernel itself runs only on the card; ``chip_smoke.py`` holds it to the
 same torch operations there.
@@ -44,6 +45,9 @@ def world():
         "wide": _tables(10000, 1, 64 << 20, 6),
         # Four chunks of 157 groups, the last one partial: routed pairs.
         "routed": _tables(10000, 1, 5 << 20, 6),
+        # Two chunks of 157 groups, the last one partial: tables of a few
+        # chunks, as the render's leaf-16 tables at 100k (three of 185).
+        "two": _tables(5000, 1, 5 << 20, 6),
         "feats": feats,
     }
 
@@ -206,6 +210,137 @@ def test_model_equals_routed_rows(world, case):
         assert movf == ovf and ovf
     else:
         assert not movf and (rows[:, 0] > 0).any()
+
+
+def escalation_ladder(cull, mg=48, mc=119):
+    """The (max_groups, max_candidates) rungs ``leafcull._escalate``
+    climbs from the render's budgets up to (G, lpc)."""
+    rungs = [(mg, mc)]
+    while not (mg >= cull.num_groups and mc >= cull.leaves_per_chunk):
+        mg = min(2 * mg, cull.num_groups)
+        mc = min(2 * mc, cull.leaves_per_chunk)
+        rungs.append((mg, mc))
+    return rungs
+
+
+MULTI_CHUNK = ["sorted", "crossing", "leaf_budget", "keep_l", "past_k0",
+               "overflow", "empty_chunk", "free"] + \
+    [f"rung{i}" for i in range(6)]
+
+
+@pytest.mark.parametrize("case", MULTI_CHUNK)
+@pytest.mark.parametrize("chunks", ["two", "four"])
+def test_model_equals_multi_chunk_rows(world, chunks, case):
+    """The model of the multi-chunk kernel against ``candidate_rows`` at
+    C > 1 (not exact), rows (C, P, rowlen) and overflow bit for bit, on
+    two and four chunks, the last partial; each case's rows show what it
+    exercises."""
+    tables = world["two" if chunks == "two" else "routed"]
+    cull = tables.cull
+    C, G, lpc = cull.num_chunks, cull.num_groups, cull.leaves_per_chunk
+    gpc = lpc // cull.leaves_per_group
+    assert C == (2 if chunks == "two" else 4) and cull.num_real_leaves < G \
+        * cull.leaves_per_group
+    mg, mc = 64, 119
+    if case == "sorted":
+        bounds = torch.cat(tc.bounds_from_feats(world["feats"]), dim=1)
+    elif case in ("crossing", "empty_chunk"):
+        bounds = synthetic_bounds(64, (0.1,), 1)
+    elif case == "leaf_budget":
+        bounds, mc = synthetic_bounds(64, (0.1,), 1), 16
+    elif case == "keep_l":
+        bounds, mg, mc = synthetic_bounds(64, (0.02, 0.1, 0.2, 0.3), 1), \
+            256, 1024
+    elif case == "past_k0":
+        bounds, mg = synthetic_bounds(64, (0.3, 0.5, 1.0), 1), 8
+    elif case == "overflow":
+        bounds, mc = synthetic_bounds(64, (0.3, 0.7, 1.2, 2.0), 1), 100
+    elif case == "free":
+        bounds = synthetic_bounds(32, (1.2, 2.0), 4)
+    else:
+        rungs = escalation_ladder(cull)
+        assert len(rungs) == 6 and rungs[-1] == (G, lpc)
+        mg, mc = rungs[int(case[4:])]
+        bounds = synthetic_bounds(64, (0.005, 0.05, 0.1, 0.3, 2.0), 9)
+    k0, k, kg, K_l, K0, rowlen = tc.cone_budgets(cull, mg, mc)
+    rows, ovf = tc.candidate_rows(tuple(bounds[:, i:i + 3]
+                                        for i in range(0, 12, 3)),
+                                  cull, tables.leaf_boxes, k0, k, rowlen,
+                                  exact=False)
+    mrows, movf = tp.phase_a_row_model(bounds, tables, tp.S, k0, k, kg, K_l,
+                                       K0, rowlen)
+    rows, ovf = tp.np_(rows), bool(ovf)
+    np.testing.assert_array_equal(mrows.reshape(rows.shape), rows)
+    assert movf == ovf
+    cnt = rows[:, :, 0]                                   # (C, P)
+    shown = np.abs(np.minimum(cnt, 0))                    # groups listed
+    leaf_rows, group_rows = (cnt > 0).any(0), (cnt < 0).any(0)
+    if case == "sorted":
+        assert leaf_rows.any() and not ovf
+    elif case == "crossing":
+        # The refine's groups in two chunks or more: leaf rows in both.
+        assert ((cnt >= 0).all(0) & ((cnt > 0).sum(0) >= 2)).any()
+    elif case == "leaf_budget":
+        # One chunk's leaves past k, another's listed.
+        assert (leaf_rows & group_rows).any()
+    elif case == "keep_l":
+        # Every group refined (at most k0 of them, each chunk's count
+        # exact at kg = gpc) and every chunk in group mode: past K_l.
+        assert kg == gpc and K_l < k
+        assert ((cnt < 0).all(0) & (shown.sum(0) <= k0)).any()
+    elif case == "past_k0":
+        assert ((cnt < 0).all(0) & (shown.sum(0) > k0)).any()
+    elif case == "overflow":
+        # One chunk's groups past kg, the others' below; its groups and
+        # theirs within K0, so the chunk's own count raised the flag.
+        one = ((shown == kg).sum(0) == 1) & (cnt < 0).all(0)
+        assert kg < gpc and ovf and one.any()
+        assert (gpc + shown.sum(0) - kg <= K0)[one].any()
+    elif case == "empty_chunk":
+        assert ((cnt == 0).any(0) & (cnt != 0).any(0)).any()
+    elif case == "free":
+        # Every real group met: each chunk lists all of its own.
+        real = -(-cull.num_real_leaves // cull.leaves_per_group)
+        per_chunk = np.minimum(np.clip(real - np.arange(C) * gpc, 0, gpc),
+                               kg)
+        assert (shown == per_chunk[:, None]).all(0).any()
+
+
+@pytest.mark.parametrize("shape", ["small_chunks", "many_groups"])
+def test_model_equals_rows_of_any_table_size(shape):
+    """The model against ``candidate_rows`` at C > 1 where the kernel's
+    sweep meets what the render's tables do not: chunks of 16 groups, so
+    one 32-lane step holds the end of one chunk and the start of the
+    next (20 chunks), and 1,256 groups, past the 1,024 group boxes the
+    kernel stages at a time (8 chunks); the kernel takes tables of any
+    size, since its shared memory holds no list of groups."""
+    if shape == "small_chunks":
+        tables = _tables(5000, 1, 1 << 19, 6)
+    else:
+        tables = _tables(20000, 1, 5 << 20, 6)
+    cull = tables.cull
+    C, G = cull.num_chunks, cull.num_groups
+    gpc = cull.leaves_per_chunk // cull.leaves_per_group
+    assert (C, gpc) == ((20, 16) if shape == "small_chunks" else (8, 157))
+    bounds = synthetic_bounds(48, (0.02, 0.1, 0.3, 1.2), 3)
+    for mg, mc in ((64, 119), (G, cull.leaves_per_chunk)):
+        k0, k, kg, K_l, K0, rowlen = tc.cone_budgets(cull, mg, mc)
+        rows, ovf = tc.candidate_rows(tuple(bounds[:, i:i + 3]
+                                            for i in range(0, 12, 3)),
+                                      cull, tables.leaf_boxes, k0, k,
+                                      rowlen, exact=False)
+        mrows, movf = tp.phase_a_row_model(bounds, tables, tp.S, k0, k, kg,
+                                           K_l, K0, rowlen)
+        rows = tp.np_(rows)
+        np.testing.assert_array_equal(mrows.reshape(rows.shape), rows)
+        assert movf == bool(ovf)
+        cnt = rows[:, :, 0]                               # (C, P)
+        assert (cnt > 0).any() and (cnt < 0).any()
+        # Chunks that start inside a step, or past the first 1,024
+        # groups, list ids too.
+        start = np.arange(C) * gpc
+        late = start % 32 != 0 if shape == "small_chunks" else start >= 1024
+        assert (cnt[late] != 0).any()
 
 
 def test_cpu_tensors_take_the_torch_operations(world):

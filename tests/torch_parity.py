@@ -311,8 +311,13 @@ def phase_a_row_model(bounds, tables, S: int, k0: int, k: int, kg: int,
     bounds (Pb, 12) f32 [o_lo | o_hi | d_lo | d_hi]; without pair tables
     row r reads bounds r in chunk 0, with them row (p, s) reads bounds
     pair_gb[p] * S + s in chunk pair_c[p], empty unless pair_active[p].
-    Returns (rows (nrows, rowlen) int32, overflow bool)."""
+    Tables of several chunks without pair tables take
+    :func:`phase_a_chunk_model`. Returns (rows (nrows, rowlen) int32,
+    overflow bool)."""
     cull = tables.cull
+    if pair_c is None and cull.num_chunks > 1:
+        return phase_a_chunk_model(bounds, tables, k0, k, kg, keep_l, gkeep,
+                                   rowlen)
     lpg, lpc, nrl = (cull.leaves_per_group, cull.leaves_per_chunk,
                      cull.num_real_leaves)
     gpc = lpc // lpg
@@ -370,6 +375,111 @@ def phase_a_row_model(bounds, tables, S: int, k0: int, k: int, kg: int,
             row[1:ltotal + 1] = ll
         rows[r] = row
     return rows, overflow
+
+
+def _refine(b, boxes, groups, lpg, nrl, keep_l, ll, ltotal):
+    """csrc/phase_a.cu ``refine_groups``: the member leaves of ``groups``
+    in 32-lane steps, the first keep_l appended to ``ll`` in ballot order,
+    stopped once the count passes keep_l. Returns the count."""
+    m = np.arange(len(groups) * lpg)
+    for base in range(0, m.shape[0], 32):
+        if ltotal > keep_l:
+            break
+        mm = m[base:base + 32]
+        grp = np.asarray(groups, np.int64)[mm // lpg]
+        leaf = grp * lpg + mm % lpg
+        bx = boxes[grp, :, mm % lpg].T                          # (6, n)
+        hit = (leaf < nrl) & _slab_lanes(b, bx[:3], bx[3:])
+        ll += leaf[hit][:max(keep_l - ltotal, 0)].tolist()
+        ltotal += int(hit.sum())
+    return ltotal
+
+
+def phase_a_chunk_model(bounds, tables, k0: int, k: int, kg: int,
+                        keep_l: int, gkeep: int, rowlen: int):
+    """``phase_a_cuda`` over tables of C > 1 chunks (csrc/phase_a.cu
+    ``phase_a_chunk_rows``) one subpacket at a time, as its warp runs it:
+    every group of every chunk in ascending 32-lane steps; a survivor's
+    rank in its chunk (reset at each gpc boundary; ballot order) writes
+    its chunk-relative id into the chunk's row while below kg, and the
+    lane of a chunk's last group writes the chunk's count into the count
+    column; while the survivors total at most k0 and the leaves at most
+    keep_l, the survivors wait, and once 32 wait (and at the end) their
+    member leaves are refined in 32-lane steps, the first keep_l appended
+    to one list of global ids, the refine stopped once the count passes
+    keep_l. Then per chunk c the count read back and its run of the leaf
+    list (a binary search for the next chunk's first id), and its row
+    finished: group mode (groups past k0, leaves past keep_l, or the
+    chunk's own past k) keeps min(count, kg) groups, padded with gpc to
+    max(k, kg), leaf mode writes its chunk-relative leaves; lpc after;
+    overflow where a group-mode row's groups pass kg or all the groups
+    pass gkeep.
+
+    bounds (P, 12) f32. Returns (rows (C * P, rowlen) int32, chunk-major,
+    overflow bool)."""
+    cull = tables.cull
+    C = cull.num_chunks
+    lpg, lpc, nrl = (cull.leaves_per_group, cull.leaves_per_chunk,
+                     cull.num_real_leaves)
+    gpc = lpc // lpg
+    G = C * gpc
+    bounds = np_(bounds)
+    P = bounds.shape[0]
+    gmin, gmax = np_(cull.group_min).T, np_(cull.group_max).T   # (3, G)
+    boxes = np_(tables.leaf_boxes).reshape(-1, 6, lpg)
+    # The kernel writes into uninitialised rows: a value never written
+    # shows as this.
+    rows = np.full((C, P, rowlen), -(1 << 30), np.int32)
+    overflow = False
+    for p in range(P):
+        o = rows[:, p]
+        gtotal = ltotal = cc = 0
+        ll, wait = [], []
+        for s0 in range(0, G, 32):
+            g = np.arange(s0, s0 + 32)
+            ok = g < G
+            hit = np.zeros(32, bool)
+            hit[ok] = (g[ok] * lpg < nrl) & _slab_lanes(
+                bounds[p], gmin[:, g[ok]], gmax[:, g[ok]])
+            c = g // gpc
+            first = np.maximum(c * gpc - s0, 0)
+            rank = np.where(first == 0, cc, 0) + np.array(
+                [hit[f:i].sum() for i, f in enumerate(first)])
+            for i in np.flatnonzero(hit & (rank < kg)):
+                o[c[i], 1 + rank[i]] = g[i] - c[i] * gpc
+            for i in np.flatnonzero(ok & (g % gpc == gpc - 1)):
+                o[c[i], 0] = rank[i] + hit[i]
+            cc = 0 if (s0 + 32) % gpc == 0 else int(rank[31] + hit[31])
+            gtotal += int(hit.sum())
+            if gtotal > k0 or ltotal > keep_l:
+                continue
+            wait += g[hit].tolist()
+            if len(wait) >= 32:
+                ltotal = _refine(bounds[p], boxes, wait, lpg, nrl, keep_l,
+                                 ll, ltotal)
+                wait = []
+        if gtotal <= k0:
+            ltotal = _refine(bounds[p], boxes, wait, lpg, nrl, keep_l, ll,
+                             ltotal)
+        all_g = gtotal > k0 or ltotal > keep_l
+        ll = np.asarray(ll, np.int64)
+        lcut = np.searchsorted(ll, np.arange(C + 1) * lpc)
+        for c in range(C):
+            gcnt = int(o[c, 0])
+            ls, le = lcut[c], lcut[c + 1]
+            lcnt = int(le - ls)
+            use_g = all_g or lcnt > k
+            if use_g:
+                gshow = min(gcnt, kg)
+                o[c, 0] = -gshow
+                o[c, gshow + 1:max(k, kg) + 1] = gpc
+                o[c, max(k, kg) + 1:] = lpc
+                overflow |= gcnt > kg or gtotal > gkeep
+            else:
+                o[c, 0] = lcnt
+                o[c, 1:lcnt + 1] = ll[ls:le] - c * lpc
+                o[c, lcnt + 1:] = lpc
+    return rows.reshape(C * P, rowlen), overflow
 
 
 def leaf_item_rows(cand, leaves_per_group: int, chunk: int):

@@ -84,6 +84,8 @@ def load() -> ctypes.CDLL:
             lib.tracer_cull_grid.argtypes = []
             lib.tracer_phase_a.restype = i
             lib.tracer_phase_a.argtypes = [vp] * 9 + [i] * 12 + [vp]
+            lib.tracer_phase_a_chunks.restype = i
+            lib.tracer_phase_a_chunks.argtypes = [vp] * 6 + [i] * 12 + [vp]
             lib.tracer_cuda_error_string.restype = ctypes.c_char_p
             lib.tracer_cuda_error_string.argtypes = [i]
             _lib = lib

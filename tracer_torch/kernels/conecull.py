@@ -9,13 +9,13 @@ overflow flag. Rows, counts and overflow equal the JAX package's for the
 same tables and features. The per-subpacket bounding cones that phase B
 reads (``cone_from_feats``) match JAX's to rounding.
 
-On one-chunk tables on a CUDA device the rows come from one kernel,
-``phase_a_cuda`` (hand-written CUDA, ``csrc/phase_a.cu``), whose plain
-version is :func:`candidate_rows`: the torch operations that CPU tensors,
-tables of several chunks and the exact mode run. The compactor they call
-is ``compact_cuda`` (``csrc/compact.cu``) on CUDA tensors and
-``compact_ascending_rows_plain`` on CPU tensors;
-:func:`compact_ascending_rows` picks by device and raises for any other.
+On a CUDA device the rows come from one kernel, ``phase_a_cuda``
+(hand-written CUDA, ``csrc/phase_a.cu``), for tables of one chunk and of
+several; its plain version is :func:`candidate_rows`: the torch
+operations that CPU tensors and the exact mode run. The compactor they call is ``compact_cuda``
+(``csrc/compact.cu``) on CUDA tensors and ``compact_ascending_rows_plain``
+on CPU tensors; :func:`compact_ascending_rows` picks by device and raises
+for any other.
 
 Phase B (``conecull_call``: ``conecull_cuda``, ``csrc/conecull.cu``, on
 CUDA tensors and ``conecull_plain`` on CPU tensors) walks the same rows as
@@ -211,20 +211,21 @@ def cone_candidates(feats: Tensor, tables: ConeTables, max_groups: int,
     :func:`cone_from_feats`, so the leaf walk's phase A does not pay for
     them. No host sync.
 
-    One-chunk tables on a CUDA device take :func:`phase_a_cuda`, whose rows
-    and flag equal :func:`candidate_rows`'; the trace counts which ran as
-    ``phase_a_kernel`` (1 the kernel, 0 the torch operations).
+    On a CUDA device the tables, of one chunk or of several (the render's
+    leaf-16 tables at 100k have three), take :func:`phase_a_cuda`, whose
+    rows and flag equal :func:`candidate_rows`'; the trace counts which
+    ran as ``phase_a_kernel`` (1 the kernel, 0 the torch operations).
     """
     cull = tables.cull
     k0, k, kg, K_l, K0, rowlen = cone_budgets(cull, max_groups,
                                               max_candidates)
     bounds = bounds_from_feats(feats)
-    kernel = cull.num_chunks == 1 and feats.device.type != "cpu"
+    kernel = feats.device.type != "cpu"
     if kernel:
         rows, overflow = phase_a_cuda(torch.cat(bounds, dim=1), tables,
                                       feats.shape[1], k0, k, kg, K_l, K0,
                                       rowlen)
-        rows = rows[None]
+        rows = rows.reshape(cull.num_chunks, -1, rowlen)
     else:
         rows, overflow = candidate_rows(bounds, cull, tables.leaf_boxes, k0,
                                         k, rowlen, exact=False)
@@ -412,46 +413,58 @@ def phase_a_cuda(bounds: Tensor, tables: ConeTables, S: int, k0: int,
                  pair_c: Tensor | None = None, pair_gb: Tensor | None = None,
                  pair_active: Tensor | None = None):
     """Phase A's candidate rows as the hand-written CUDA kernel
-    (``csrc/phase_a.cu``): one warp a row tests its chunk's group boxes,
+    (``csrc/phase_a.cu``): one warp a subpacket tests the group boxes,
     keeps and counts the survivors in ascending order, refines the first
     ``k0`` groups to their leaves, keeps and counts those, and writes the
-    finished row; nothing between the levels goes to device memory.
+    finished rows; nothing between the levels goes to device memory.
 
     bounds: (Pb, 12) f32 subpacket bounds [o_lo | o_hi | d_lo | d_hi]. The
     group prefix keeps ``gkeep`` ids and the leaf prefix ``keep_l``; a row
-    lists at most ``k`` leaves, else in group mode min(count, gkeep, kg)
-    groups; overflow is set where a group-mode row's groups pass kg or
-    gkeep. Without pair tables row r reads bounds r in chunk 0, as
-    :func:`candidate_rows` (C == 1, not exact) with gkeep = K0; with them
-    row (p, s) reads bounds pair_gb[p] * S + s in chunk pair_c[p] and is
-    empty unless pair_active[p], as ``tlas._pair_block_rows``. Returns
-    (rows (npairs * S, rowlen) i32, overflow 0-d bool), bit for bit those
-    versions'. Raises for tensors that are not on one CUDA device. Reads
-    no device value on the host. Adds one to ``phase_a_cuda.launches`` per
-    launch.
+    lists at most ``k`` leaves, else in group mode at most kg groups;
+    overflow is set where a group-mode row's groups pass kg or gkeep.
+    Without pair tables, the rows of every (chunk, subpacket), chunk-major:
+    (C * Pb, rowlen), as :func:`candidate_rows` (not exact) with gkeep =
+    K0 gives them; tables of several chunks take the kernel's own sweep
+    over every group, for ``keep_l`` at most 512 (the not exact mode's
+    leaf prefix). With pair tables row (p, s) reads bounds
+    pair_gb[p] * S + s in chunk pair_c[p] and is empty unless
+    pair_active[p], as ``tlas._pair_block_rows``.
+    Returns (rows (nrows, rowlen) i32, overflow 0-d bool), bit for bit
+    those versions'. Raises for tensors that are not on one CUDA device.
+    Reads no device value on the host. Adds one to
+    ``phase_a_cuda.launches`` per launch.
     """
     cull = tables.cull
     given = [x for x in (pair_c, pair_gb, pair_active) if x is not None]
     dev = _lib.require_cuda("phase_a_cuda", bounds, cull.group_min,
                             cull.group_max, tables.leaf_boxes, *given)
     _check_phase_a_args(bounds, pair_c, pair_gb, pair_active, S)
-    nrows = bounds.shape[0] if pair_c is None else pair_c.shape[0] * S
+    chunks = pair_c is None and cull.num_chunks > 1
+    nrows = (bounds.shape[0] * cull.num_chunks if pair_c is None
+             else pair_c.shape[0] * S)
     bounds, gmin, gmax, boxes = (x.contiguous() for x in (
         bounds, cull.group_min, cull.group_max, tables.leaf_boxes))
     rows = torch.empty((nrows, rowlen), dtype=torch.int32, device=dev)
     overflow = torch.empty((), dtype=torch.bool, device=dev)
-    pairs = [None if x is None else x.contiguous()
-             for x in (pair_c, pair_gb, pair_active)]
+    sizes = (cull.leaves_per_chunk // cull.leaves_per_group,
+             cull.leaves_per_group, cull.leaves_per_chunk,
+             cull.num_real_leaves, k0, k, kg, keep_l, gkeep, rowlen)
     lib = _lib.load()
     with torch.cuda.device(dev):
-        rc = lib.tracer_phase_a(
-            _lib.ptr(bounds), _lib.ptr(gmin), _lib.ptr(gmax), _lib.ptr(boxes),
-            *(None if x is None else _lib.ptr(x) for x in pairs),
-            _lib.ptr(rows), _lib.ptr(overflow), nrows, S,
-            cull.leaves_per_chunk // cull.leaves_per_group,
-            cull.leaves_per_group, cull.leaves_per_chunk,
-            cull.num_real_leaves, k0, k, kg, keep_l, gkeep, rowlen,
-            _lib.stream(dev))
+        if chunks:
+            rc = lib.tracer_phase_a_chunks(
+                _lib.ptr(bounds), _lib.ptr(gmin), _lib.ptr(gmax),
+                _lib.ptr(boxes), _lib.ptr(rows), _lib.ptr(overflow),
+                bounds.shape[0], cull.num_chunks, *sizes, _lib.stream(dev))
+        else:
+            pairs = [None if x is None else x.contiguous()
+                     for x in (pair_c, pair_gb, pair_active)]
+            rc = lib.tracer_phase_a(
+                _lib.ptr(bounds), _lib.ptr(gmin), _lib.ptr(gmax),
+                _lib.ptr(boxes),
+                *(None if x is None else _lib.ptr(x) for x in pairs),
+                _lib.ptr(rows), _lib.ptr(overflow), nrows, S, *sizes,
+                _lib.stream(dev))
     _lib.check(lib, rc, "phase_a_cuda")
     phase_a_cuda.launches += 1
     return rows, overflow
