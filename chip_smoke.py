@@ -26,36 +26,36 @@ Phases, each of which raises on failure (the script then exits non-zero):
    multi-chunk one, and on skewed routed rows (the first row of each
    chunk's first pair walks every group, the others 1-2 leaves);
 4. the closest-hit slice at full size: 100k spheres x 512k origin rays
-   through prep, phase A and the leaf walk, with launch counters reset
-   just before and read just after; overflow, hit fraction, and agreement
+   through prep, phase A and the leaf walk, its kernel launches counted
+   (``_lib.launches``) from just before to just after; overflow, hit
+   fraction, and agreement
    with the brute-force oracle on the first 16k rays; ``phase_a_cuda``
    against the torch operations it replaces on the slice's subpacket
    bounds, bit for bit, timed beside them and its bound; kernel vs plain
-   on its rows, their walked-leaf distribution and the split walk's
-   sweep;
+   on its rows and their walked-leaf distribution;
 5. the shadow slice at full size: the same rays with t_max = 500 through
-   prep, phase A and the any-hit walk, counters reset and read the same
-   way; overflow, agreement with "closest-hit t < 500" from phase 4 on
-   every ray and with ``any_hit_brute`` on the first 16k rays;
+   prep, phase A and the any-hit walk, launches counted the same way;
+   overflow, agreement with "closest-hit t < 500" from phase 4 on every
+   ray and with ``any_hit_brute`` on the first 16k rays;
    ``phase_a_cuda`` against the torch operations on its bounds; kernel vs
-   plain on its rows, their walked-leaf distribution and the sweep;
+   plain on its rows and their walked-leaf distribution;
 5b. the packet cull at full size: 100k spheres in 16-prim leaves, the
    512k rays sorted by direction, through ``nearest_hit_cull_checked`` from
-   K = 128, counters reset and read the same way; no overflow at the budget
+   K = 128, launches counted the same way; no overflow at the budget
    it settles on, agreement with a b-form brute force (its own rounding)
    and with ``nearest_hit_brute_fast`` on the first 16k rays; kernel vs
    plain on its candidates;
 5c. phase B at full size: the same rays through ``prep_rays_bucketed``,
    phase A with cones and ``conecull_cuda`` (``nearest_hit_conecull_t``
    with budget doubling), on the headline tables (leaf 32) and on 16-prim
-   leaves, counters reset and read the same way; no overflow; at leaf 32
+   leaves, launches counted the same way; no overflow; at leaf 32
    ids and t equal the headline leaf-walk query's on every ray; agreement
    with brute force on the first 16k rays; kernel vs plain and vs
    ``leafcull_cuda`` on its rows, all bit for bit; its rows' walked
-   leaves and its split swept over 128, 256 and 512 prims per item;
+   leaves;
 6. the 10M TLAS slice at full size: 10M spheres, device LBVH, 131k origin
    rays through prep, routing, routed phase A, the routed walk and the
-   merge, counters reset and read the same way; overflow, slots equal to
+   merge, launches counted the same way; overflow, slots equal to
    the dense multi-chunk query on every ray, agreement with brute force on
    the first 4096 rays; ``phase_a_cuda`` against the torch operations on
    every routed pair, timed beside them and its bound, then on skewed
@@ -64,7 +64,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
    budget and at 16 leaves, in group mode and overflowing; routed rows on
    the 10M tables over random chunks, the last included, every fifth pair
    inactive, at 119 and 7 leaves); kernel vs plain on its rows, their
-   walked-leaf distribution, the item sweep and the keys' bytes;
+   walked-leaf distribution and the keys' bytes;
 7a. phase A at several chunks (``render_phase_a``): the ``path_100k``
    cell's tables (``render_100k``: 100k spheres, leaf 16, three chunks)
    and the CLI render's (three chunks); one frame each with
@@ -79,21 +79,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
    the default camera, 800x600, through ``tracer_torch.cli``'s own code
    path, in path mode (depth 5) and direct mode, both with compaction,
    each with ``--impl auto``, ``pallas`` and ``tilecull`` on one shared
-   noise tensor; counters reset before the six frames and read after; the
-   images held against each other and the primary ids against brute
-   force; ``traverse_cuda`` and ``tilecull_cuda`` held against their plain
+   noise tensor; launches counted over the six frames; the images held
+   against each other and the primary ids against brute force;
+   ``traverse_cuda`` and ``tilecull_cuda`` held against their plain
    versions on the frame's primary rays; the walks on the arguments the
    frames gave them (every leaf walk of the path/auto frame with its rows,
-   time and bound, the heaviest also against its plain version and swept;
-   the direct/auto any-hit walk; every packet walk of the path/pallas
+   time and bound, the heaviest also against its plain version; the
+   direct/auto any-hit walk; every packet walk of the path/pallas
    frame against its plain version, with its steps per packet, time, time
-   per step of its longest packet and bound, then the packet walk's split
-   swept over the five; the direct/pallas packet walk against its plain
-   version); one metrics JSON line per (mode, impl);
+   per step of its longest packet and bound; the direct/pallas packet
+   walk against its plain version); one metrics JSON line per (mode,
+   impl);
 7b. the compactor on the planes each main path of phases 4-7 gave it
-   (its calls recorded while the counters ran, checked as soon as the
-   path's counts are read, then dropped): ``compact_cuda`` equal to its
-   plain version on every plane; timed on the headline's two phase-A
+   (its calls recorded while the launches were counted, checked as soon
+   as the path's counts are read, then dropped): ``compact_cuda`` equal
+   to its plain version on every plane; timed on the headline's two phase-A
    planes, the ``tile_candidates`` planes of the packet cull (ragged:
    1102 tiles) and the render, and the 10M routing planes; per path the
    launches' (P, M, keep) shapes and their summed device time
@@ -104,8 +104,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
 7c. the differentiable path on the 100k scene (``diff_slice``): the
    bench extra's fwd+bwd (131,072 rays, 2,304 subpackets of 64, the
    leaf-order sparse soft image at 16 leaves a subpacket, the gradient of
-   its mean with respect to the centres) once with the counters reset just
-   before and read just after, its compactions checked as in 7b;
+   its mean with respect to the centres) once with its launches counted,
+   its compactions checked as in 7b;
    ``leaf_candidates`` at that shape equal with ``compact_cuda`` and with
    the plain compactor, and timed; on tables from radii inflated by
    ``soft_radius_scale``, 1,024 sorted rays at 64 leaves: the sparse soft
@@ -130,7 +130,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
    (``tracer_torch.bench.large``), one JSON line each;
 8b. the sweep (``sweep_slice``): ``cli bench`` at 1k, 10k, 100k, 1M, 10M
    and 100M spheres x 131,072 origin rays in a temporary directory, every
-   kernel counter set to 0 just before and read just after; per row its
+   kernel's launches counted from just before to just after; per row its
    path, build, brute and BVH times, Mrays/s, table chunks, settled
    budgets, escalations, scene and table times, peak memory, seconds of
    run and the kernels its query launches (dense: none; single chunk:
@@ -162,7 +162,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
    query timed beside its unsharded twin, the group's start timed:
    ``nearest_hit_sharded`` on the headline query bitwise the unsharded
    query, launching ``phase_a_cuda`` and ``leafcull_cuda`` once each
-   (counters set to 0 just before, read just after); ``measure_scaling``
+   (launches counted from just before to just after); ``measure_scaling``
    with one rank; ``render_sharded`` path frames at 800x600, 100k spheres,
    ``--impl auto`` (leaf walk and phase A kernel launched) and ``pallas``
    (packet walk launched), bitwise ``render`` on the same noise; the ring
@@ -185,9 +185,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
 Phase 3 also holds ``traverse_cuda`` and ``tilecull_cuda`` against their
 plain versions at 20k spheres x 64k rays: a ragged tail, divergent packets
 (one of live rays spread through the scene, one half parked, six parked,
-a live tail; the packet walk's split swept there too: one launch, and
-every step cap of SWEEP_CAPS with every cluster size, each equal to the
-wrapper's), a 2-D batch through the wrappers, a tile budget of one
+a live tail), a 2-D batch through the wrappers, a tile budget of one
 (overflowing rows), rows that list the sentinel tile and skewed rows (one
 lists every tile, the others 1-2); t, slots and steps must be equal
 exactly. And ``cull_cuda`` against
@@ -195,13 +193,9 @@ its plain version at 20k spheres x (64k + 37) direction-sorted rays: the
 full budget, an overflowing budget of 8 tiles (the walk stops at K), skewed
 rows, and the sentinel tile listed after every packet's own tiles. Beside
 the two timed tile walks (phases 5b and 7) it logs the row-length
-distribution, the split (W, the persistent grid, the device operations of
-one call: the walk and its glue) and the walk's time at W = 4, 8 and 16,
-each result equal to the wrapper's. Beside the timed leaf walks (phases 4,
-5 and 7) it logs the walked leaves per row (mean, p99, max, total) and the
-share of rows in group mode, and the split (prims per item, items, the
-persistent grid, the device operations of one call) with the walk's time
-at 128, 256 and 512 prims per item, each result equal to the wrapper's.
+distribution, and beside the timed leaf walks (phases 4, 5 and 7) the
+walked leaves per row (mean, p99, max, total) and the share of rows in
+group mode.
 
 Closest-hit disagreements with an oracle are allowed only as ties (both t
 within 1e-5 relative) or grazes (for the prim one side chose, the
@@ -296,9 +290,6 @@ PLAIN_ELEMS = 1 << 26   # slice size of the plain walks on the card
 # own rounding.
 MIN_AGREE_OTHER_ROUNDING = 0.99
 WALK_SPHERES, WALK_RAYS = 20_000, 65_536   # packet and tile walk settings
-LEAF_ITEM_PRIMS = (128, 256, 512)   # prims per item in the leaf walks' sweep
-CONE_ITEM_PRIMS = (128, 256, 512)   # and in the phase-B walk's
-SWEEP_CAPS = (64, 256, 1024)        # the packet walk's step caps swept
 LONG_WALK = 1000        # packets over this many steps are logged
 RENDER_FRAMES = 3       # timed frames per (mode, impl); the first dropped
 OFF_ORIGIN_RAYS = 131_072   # rays of the off-origin walk checks
@@ -313,6 +304,26 @@ PIXEL_ATOL = 1e-5       # two renders of a pixel agree within this
 
 def log(*a):
     print(*a, flush=True)
+
+
+def launches_since(before, *names):
+    """{name: launches} of the kernel wrappers ``names`` since ``before``,
+    a copy of ``_lib.launches``."""
+    from tracer_torch.kernels import _lib
+    return {k: _lib.launches[k] - before[k] for k in names}
+
+
+@contextlib.contextmanager
+def uncounted():
+    """The block's kernel launches left out of ``_lib.launches``: a check's
+    own launches are not the path's."""
+    from tracer_torch.kernels import _lib
+    saved = _lib.launches.copy()
+    try:
+        yield
+    finally:
+        _lib.launches.clear()
+        _lib.launches.update(saved)
 
 
 def grazing(o, d, c, ccr):
@@ -621,59 +632,6 @@ def skewed_leaf_rows(C, R, lpc, lpg, gen):
     return rows
 
 
-def device_ops(fn, args, kernels):
-    """"N device operations per call (K kernel(s) + N - K glue)" for one
-    call of ``fn(*args)`` launching ``kernels`` kernels, by torch.profiler;
-    "not measured" where the profiler saw no device time."""
-    from tracer_torch.bench.profile import profile_calls
-    ops = profile_calls(fn, *args, iters=1)["launches"]
-    if ops is None:
-        return "device operations per call not measured"
-    return (f"{ops} device operations per call ({kernels} kernel(s) + "
-            f"{ops - kernels} glue)")
-
-
-def leaf_launch_log(name, walk, args):
-    """Log a leaf walk's split (``walk``: "leafcull", "anyhit" or
-    "routed"): the items of the rows at the wrapper's prims per item, the
-    persistent grid, the device operations one call launches (the walk, for
-    the closest hits their epilogue, and the glue: item plan, key or flag
-    init), and the walk's time at each of LEAF_ITEM_PRIMS prims per item,
-    each result equal to the wrapper's bit for bit. Returns {prims per
-    item: ms}."""
-    import torch
-    from tracer_torch.bench.timing import time_cuda
-    from tracer_torch.kernels import leafcull as lc, tlas
-    from tracer_torch.kernels.tilewalk import plan_items
-    if walk == "routed":
-        mod, prims0 = tlas, tlas.ROUTED_ITEM_PRIMS
-        _, _, rows, feats, _, ls, _, lpg = args
-    else:
-        mod, prims0 = lc, lc.ITEM_PRIMS
-        feats, rows, _, ls, _, lpg = args
-    fn, launch = getattr(mod, f"{walk}_cuda"), getattr(mod, f"_{walk}_launch")
-    sp, w = feats.shape[2], lc.item_leaves(ls, prims0)
-    items = int(plan_items(lc.walked_leaves(rows, lpg), w)[-1])
-    ops = device_ops(fn, args, 1 if walk == "anyhit" else 2)
-    want = fn(*args)
-    times = {}
-    for prims in LEAF_ITEM_PRIMS:
-        got = launch(*args, lc.item_leaves(ls, prims))
-        torch.cuda.synchronize()
-        if not all(torch.equal(x, y) for x, y in
-                   zip(*((v,) if torch.is_tensor(v) else v
-                         for v in (got, want)))):
-            raise AssertionError(f"{name}: {prims} prims per item changed "
-                                 f"a result")
-        times[prims] = time_cuda(launch, *args, lc.item_leaves(ls, prims))
-    log(f"{name}: {prims0} prims ({w} leaves of {ls}) per item, "
-        f"{items} items over {rows[..., 0].numel()} rows of {sp} rays, grid "
-        f"{lc.leaf_grid(walk, sp, ls, w, feats.device)} CTAs of {sp} "
-        f"threads, {ops}; ms by prims per item "
-        + ", ".join(f"{p}: {ms:.4f}" for p, ms in times.items()))
-    return times
-
-
 def skewed_routed_rows(pair_c, S, rowlen, lpc, lpg, gen):
     """(Np, S, rowlen) int32 routed rows for chunk-major pairs ``pair_c``:
     the first row of each chunk's first pair walks every group of the
@@ -707,30 +665,6 @@ def skewed_lists(rows, T, gen):
     lists[rows // 2] = torch.arange(T, dtype=torch.int32)
     counts[rows // 2] = T
     return lists, counts
-
-
-def walk_launch_log(name, fn, launch, args, walked, grid):
-    """Log the tile walks' split: W, the items of rows that walk ``walked``
-    tiles each, the persistent grid, the device operations one call
-    launches (the walk and its glue: key init, item plan, unpack), and the
-    walk's time at W = 4, 8, 16, each result equal to the wrapper's bit for
-    bit."""
-    import torch
-    from tracer_torch.bench.timing import time_cuda
-    from tracer_torch.kernels.tilewalk import CHUNK, plan_items
-    items = int(plan_items(walked, CHUNK)[-1])
-    ops = device_ops(fn, args, 1)
-    want = fn(*args)
-    times = {}
-    for w in (4, 8, 16):
-        got = launch(*args, w)
-        torch.cuda.synchronize()
-        if not all(torch.equal(x, y) for x, y in zip(got, want)):
-            raise AssertionError(f"{name}: W = {w} changed a result")
-        times[w] = time_cuda(launch, *args, w)
-    log(f"{name}: W = {CHUNK}, {items} items over {walked.numel()} rows of "
-        f"128 rays, grid {grid} CTAs of 128 threads, {ops}; ms by W "
-        + ", ".join(f"{w}: {ms:.4f}" for w, ms in times.items()))
 
 
 def tilecull_bound(name, feats, cand, prims):
@@ -772,46 +706,6 @@ def packet_steps(name, steps):
         f"{c.mean().item():.2f}, p99 {torch.quantile(c, 0.99).item():.0f}, "
         f"max {int(c.max())}, sum {int(c.sum())}, "
         f"{int((steps > LONG_WALK).sum())} over {LONG_WALK}")
-
-
-def traverse_sweep(name, calls):
-    """The packet walk's split on ``calls`` ((rays, packed) each): one
-    launch walking every packet to its end, and every step cap of
-    SWEEP_CAPS with every cluster size of ``traverse.CLUSTERS``; each
-    result equal to the wrapper's bit for bit. Logs the resume grids (the
-    occupancy query) and each setting's ms per call and in all. Returns
-    {(cap, cluster): [ms per call]}."""
-    import torch
-    from tracer_torch.bench.timing import time_cuda
-    from tracer_torch.kernels import traverse as tv
-    dev = calls[0][0].device
-    ls = calls[0][1].leaf_size
-    log(f"{name}: resume clusters resident by cluster size " + ", ".join(
-        f"{k}: {tv.resume_clusters(k, ls, dev)}" for k in tv.CLUSTERS))
-    want = [tv.traverse_cuda(*a) for a in calls]
-    settings = [(0, 1)] + [(cap, k) for cap in SWEEP_CAPS
-                           for k in tv.CLUSTERS]
-    mine = (tv.STEP_CAP, tv.CLUSTER) if tv.STEP_CAP else (0, 1)
-    if mine not in settings:
-        settings.append(mine)
-    out = {}
-    for cap, k in settings:
-        for a, w in zip(calls, want):
-            got = tv._traverse_launch(*a, k, cap)
-            torch.cuda.synchronize()
-            if not all(torch.equal(x, y) for x, y in zip(got, w)):
-                raise AssertionError(f"{name}: cap {cap}, cluster {k} "
-                                     f"changed a result")
-        ms = [time_cuda(tv._traverse_launch, *a, k, cap, warmup=1, iters=3)
-              for a in calls]
-        out[cap, k] = ms
-        what = "one launch" if cap == 0 else f"cap {cap}, cluster {k}"
-        log(f"{name} sweep, {what}: ms " + ", ".join(f"{m:.4f}" for m in ms)
-            + f"; {sum(ms):.4f} in all")
-    best = min(out, key=lambda key: sum(out[key]))
-    log(f"{name} sweep: fastest in all (cap, cluster) {best}, "
-        f"{sum(out[best]):.4f} ms; the wrapper's {mine} {sum(out[mine]):.4f}")
-    return out
 
 
 def divergent_rays(n_packets, tail, world, gen, device):
@@ -968,7 +862,6 @@ def packet_and_tile_walks(dev):
             f"packets)")
     steps, _ = compare_traverse(name, drays, packed)
     packet_steps(name, steps)
-    traverse_sweep(name, [(drays, packed)])
     # A 2-D batch through the wrapper, against the plain walk's slots.
     o2, d2 = o.reshape(-1, 256, 3), d.reshape(-1, 256, 3)
     rec, steps = nearest_hit_bvh_packets(Ray(o2, d2), scene, packed,
@@ -1090,30 +983,29 @@ class Compactions:
         path ``name`` gave it; the first ``timed`` planes timed, one per
         shape (``time_compactor``); the path's launches, (P, M, keep)
         shapes and summed device time logged (bench.compact.report); the
-        planes dropped. The launches made here are not the path's: the
-        count is restored."""
+        planes dropped. The launches made here are not the path's: they
+        are not counted."""
         import torch
         from tracer_torch.bench.compact import report
         from tracer_torch.kernels.conecull import (
             compact_ascending_rows_plain, compact_cuda)
         calls, self.calls = self.calls, []
-        launches = compact_cuda.launches
-        for ids, sentinel, keep in calls:
-            ok, ck = compact_cuda(ids, sentinel, keep)
-            op, cp = compact_ascending_rows_plain(ids, sentinel, keep)
-            torch.cuda.synchronize()
-            if not (torch.equal(ok, op) and torch.equal(ck, cp)):
-                raise AssertionError(f"{name}: compact_cuda != plain on a "
-                                     f"{tuple(ids.shape)} plane")
-        seen = set()
-        for call in calls[:timed]:
-            shape = tuple(call[0].shape)
-            if shape not in seen:
-                seen.add(shape)
-                ragged = " (ragged)" if shape[1] % 4 else ""
-                time_compactor(f"compact, {name} {shape}{ragged}", *call)
-        self.paths.update(report({name: calls}, self.base, log))
-        compact_cuda.launches = launches
+        with uncounted():
+            for ids, sentinel, keep in calls:
+                ok, ck = compact_cuda(ids, sentinel, keep)
+                op, cp = compact_ascending_rows_plain(ids, sentinel, keep)
+                torch.cuda.synchronize()
+                if not (torch.equal(ok, op) and torch.equal(ck, cp)):
+                    raise AssertionError(f"{name}: compact_cuda != plain on "
+                                         f"a {tuple(ids.shape)} plane")
+            seen = set()
+            for call in calls[:timed]:
+                shape = tuple(call[0].shape)
+                if shape not in seen:
+                    seen.add(shape)
+                    ragged = " (ragged)" if shape[1] % 4 else ""
+                    time_compactor(f"compact, {name} {shape}{ragged}", *call)
+            self.paths.update(report({name: calls}, self.base, log))
         del calls
         torch.cuda.empty_cache()
 
@@ -1209,7 +1101,6 @@ def frame_walks(captured):
         a = calls[heaviest[1]]
         compare_walk(f"path/auto leaf walk {heaviest[1]}", a[0], a[1],
                      tables(a))
-        leaf_launch_log(f"path/auto leaf walk {heaviest[1]}", "leafcull", a)
 
     for a in captured["anyhit"]:
         sfeats, srows = a[0], a[1]
@@ -1239,7 +1130,6 @@ def frame_walks(captured):
     for rays, packed in captured["traverse_direct"]:
         compare_traverse("direct/pallas packet walk (primary rays)", rays,
                          packed)
-    traverse_sweep("path/pallas packet walks", calls)
     for v in captured.values():
         v.clear()
 
@@ -1254,19 +1144,15 @@ def render_slice(dev, results, comp):
     from tracer_torch.core.types import Ray
     from tracer_torch.intersect.brute import nearest_hit_brute_fast
     from tracer_torch.integrator.wavefront import bounce_noise
-    from tracer_torch.kernels.conecull import compact_cuda
-    from tracer_torch.kernels.leafcull import anyhit_cuda, leafcull_cuda
-    from tracer_torch.kernels.tilecull import (_tilecull_launch,
-                                               pack_prim_tiles, tilecull_cuda,
-                                               tilecull_plain, walked_tiles)
-    from tracer_torch.kernels.tilewalk import grid
+    from tracer_torch.kernels import _lib
+    from tracer_torch.kernels.tilecull import (pack_prim_tiles, tilecull_cuda,
+                                               tilecull_plain)
     from tracer_torch.kernels.traverse import (pack_rays, traverse_cuda,
                                                traverse_plain)
     from tracer_torch.bench.timing import time_cuda
     from tracer_torch.scene.camera import camera_rays
-    counters = {"traverse_cuda": traverse_cuda, "tilecull_cuda": tilecull_cuda,
-                "leafcull_cuda": leafcull_cuda, "compact_cuda": compact_cuda,
-                "anyhit_cuda": anyhit_cuda}
+    counted = ("traverse_cuda", "tilecull_cuda", "leafcull_cuda",
+               "compact_cuda", "anyhit_cuda")
 
     from tracer_torch.kernels import conecull as kcone, traverse as ktrav
     # The walks' arguments as the frames ran them: every leaf walk of the
@@ -1288,19 +1174,18 @@ def render_slice(dev, results, comp):
     cfg = s0.config
     noise = bounce_noise(torch.Generator(device=dev).manual_seed(1),
                          (cfg.height, cfg.width), cfg.max_depth, dev)
-    for c in counters.values():
-        c.launches = 0
+    start = _lib.launches.copy()
     per = {}
     for key, sess in sessions.items():
-        before = {k: c.launches for k, c in counters.items()}
+        before = _lib.launches.copy()
         module, fn, walk = hooks.get(key, (None, None, None))
         with recording(module, fn, captured.get(walk)), comp.record():
             images[key] = sess.frame(sess.camera, noise)
         torch.cuda.synchronize()
-        per[key] = {k: c.launches - before[k] for k, c in counters.items()}
+        per[key] = launches_since(before, *counted)
         comp.check(f"render {key[0]}/{key[1]}",
                    timed=1 if key == ("path", "tilecull") else 0)
-    launches = {k: c.launches for k, c in counters.items()}
+    launches = launches_since(start, *counted)
     log(f"render slice launches: {launches}")
     for key, n in per.items():
         log(f"  {key}: {n}; escalations {sessions[key].counts}")
@@ -1374,9 +1259,6 @@ def render_slice(dev, results, comp):
     compare_tilecull(f"tile walk, primary rays of the frame (budget {k})",
                      feats, cand, tiles)
     row_lengths("tile walk frame rows", cand[..., 0])
-    walk_launch_log("tile walk frame", tilecull_cuda, _tilecull_launch,
-                    (feats, cand, tiles), walked_tiles(cand),
-                    grid("tilecull", dev))
     ms = time_cuda(tilecull_cuda, feats, cand, tiles)
     pms = time_cuda(lambda *a: tilecull_plain(*a, pair_elems=PLAIN_ELEMS),
                     feats, cand, tiles, warmup=0, iters=1)
@@ -1462,6 +1344,7 @@ def phase_a_tests(bounds, tables, S, k0, pairs=()):
     return int(live.sum()) * g.shape[0], int(refined.sum()) * lpg
 
 
+@uncounted()
 def phase_a_check(name, bounds, tables, S, budgets, pairs=(), timed=True):
     """``phase_a_cuda`` against :func:`phase_a_plain` on the same
     arguments, rows and overflow flag bit for bit; with ``timed`` the
@@ -1470,7 +1353,6 @@ def phase_a_check(name, bounds, tables, S, budgets, pairs=(), timed=True):
     import torch
     from tracer_torch.bench.timing import time_cuda, time_graph
     from tracer_torch.kernels.conecull import phase_a_cuda
-    launches = phase_a_cuda.launches
     rows, ovf = phase_a_cuda(bounds, tables, S, *budgets, *pairs)
     prow, povf = phase_a_plain(bounds, tables, S, budgets, pairs)
     torch.cuda.synchronize()
@@ -1498,10 +1380,10 @@ def phase_a_check(name, bounds, tables, S, budgets, pairs=(), timed=True):
                 f"{n_g} group and {n_l} leaf box tests)")
         out.update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bby)
     log(msg)
-    phase_a_cuda.launches = launches
     return out
 
 
+@uncounted()
 def phase_a_calls(name, frame, tables):
     """One frame (``frame()``) with ``cone_candidates``' calls recorded and
     the trace on; each call must launch ``phase_a_cuda`` once, and each
@@ -1511,12 +1393,11 @@ def phase_a_calls(name, frame, tables):
     first call, at the render's budgets) and those budgets."""
     import torch
     from tracer_torch import trace
-    from tracer_torch.kernels import conecull as kcone
-    from tracer_torch.kernels.conecull import (bounds_from_feats,
-                                               cone_budgets, phase_a_cuda)
+    from tracer_torch.kernels import _lib, conecull as kcone
+    from tracer_torch.kernels.conecull import bounds_from_feats, cone_budgets
     cull = tables.cull
     calls = []
-    launches = phase_a_cuda.launches
+    before = _lib.launches.copy()
     trace.reset()
     with recording(kcone, "cone_candidates", calls), trace.enabled():
         frame()
@@ -1524,10 +1405,10 @@ def phase_a_calls(name, frame, tables):
     kernel = [s["counters"].get("phase_a_kernel") for r in trace.records()
               for s in r["spans"] if s["name"] == "tracer_torch.phase_a"]
     trace.reset()
-    if phase_a_cuda.launches - launches != len(calls):
+    launched = _lib.launches["phase_a_cuda"] - before["phase_a_cuda"]
+    if launched != len(calls):
         raise AssertionError(f"{name}: {len(calls)} phase A calls, "
-                             f"{phase_a_cuda.launches - launches} "
-                             f"phase_a_cuda launches")
+                             f"{launched} phase_a_cuda launches")
     if kernel != [1] * len(calls):
         raise AssertionError(f"{name}: phase_a spans read phase_a_kernel "
                              f"{kernel}")
@@ -1544,7 +1425,6 @@ def phase_a_calls(name, frame, tables):
                       torch.cat(bounds_from_feats(feats), dim=1), tables,
                       feats.shape[1], cone_budgets(cull, mg, mc),
                       timed=False)
-    phase_a_cuda.launches = launches
     return bounces, tuple(calls[0][2:4])
 
 
@@ -1566,8 +1446,7 @@ def render_phase_a(dev):
     from tracer_torch import cli
     from tracer_torch.bench import render as brender
     from tracer_torch.integrator.wavefront import bounce_noise
-    from tracer_torch.kernels.conecull import (bounds_from_feats,
-                                               cone_budgets, phase_a_cuda)
+    from tracer_torch.kernels.conecull import bounds_from_feats, cone_budgets
     bench = Bench(Path("BENCHMARK.json"))
     cell = bench.cell("path_100k")
     drv = bench.driver("frame")
@@ -1587,7 +1466,6 @@ def render_phase_a(dev):
         if mg >= G and mc >= lpc:
             break
         mg, mc = min(2 * mg, G), min(2 * mc, lpc)
-    launches = phase_a_cuda.launches
     first = None
     for which, feats in (("camera rays", bounces[0]),
                          ("rays leaving hit points", bounces[1])):
@@ -1598,7 +1476,6 @@ def render_phase_a(dev):
                 f"subpackets, MG {mg} / MC {mc}", bounds, tables,
                 feats.shape[1], cone_budgets(cull, mg, mc))
             first = first or row
-    phase_a_cuda.launches = launches
     del st, bounces, tables, cull
     torch.cuda.empty_cache()
 
@@ -1700,35 +1577,6 @@ def conecull_bound(name, feats, rows, cones, cull, kept, walked):
     log(f"{name}: {walked} cone tests, {quads} (ray, survivor) tests, "
         f"{n_bytes} bytes")
     return bound(n_bytes, walked * OPS_PER_CONE + quads * OPS_PER_TEST)
-
-
-def cone_sweep(name, args):
-    """Log the phase-B walk's split: items at the wrapper's prims per item,
-    and the walk's time (CUDA events for the call,
-    torch.profiler for the walk kernel) at each of CONE_ITEM_PRIMS prims
-    per item, each result equal to the wrapper's bit for bit."""
-    import torch
-    from tracer_torch.bench.timing import time_cuda
-    from tracer_torch.kernels import conecull as kc, leafcull as lc
-    from tracer_torch.kernels.tilewalk import plan_items
-    feats, rows, _, _, ls, _, lpg = args
-    w = lc.item_leaves(ls, kc.CONE_ITEM_PRIMS)
-    items = int(plan_items(lc.walked_leaves(rows, lpg), w)[-1])
-    want = kc.conecull_cuda(*args)
-    times = []
-    for prims in CONE_ITEM_PRIMS:
-        wp = lc.item_leaves(ls, prims)
-        got = kc._conecull_launch(*args, wp)
-        torch.cuda.synchronize()
-        if not all(torch.equal(x, y) for x, y in zip(got, want)):
-            raise AssertionError(f"{name}: {prims} prims per item changed "
-                                 f"a result")
-        ms = time_cuda(kc._conecull_launch, *args, wp)
-        walk = kernel_ms(kc._conecull_launch, (*args, wp), "cone_items")
-        times.append(f"{prims}: {ms:.4f} ms (walk {fmt_ms(walk)})")
-    log(f"{name}: {kc.CONE_ITEM_PRIMS} prims ({w} leaves of {ls}) per item, "
-        f"{items} items over {rows[..., 0].numel()} rows of "
-        f"{feats.shape[2]} rays; by prims per item " + ", ".join(times))
 
 
 def compare_cull(name, rays, tiles, cand, counts):
@@ -1837,12 +1685,10 @@ def cull_slice(dev, scene, o, d, results, comp):
     from tracer_torch.core.types import Ray
     from tracer_torch.intersect.brute import nearest_hit_brute_fast
     from tracer_torch.intersect.cull import build_leaf_table
-    from tracer_torch.kernels.conecull import compact_cuda
-    from tracer_torch.kernels.cull import (_cull_launch, cull_cuda,
-                                           cull_plain, cull_tiles,
-                                           nearest_hit_cull_checked,
-                                           walked_tiles)
-    from tracer_torch.kernels.tilewalk import grid
+    from tracer_torch.kernels import _lib
+    from tracer_torch.kernels.cull import (cull_cuda, cull_plain,
+                                           cull_tiles,
+                                           nearest_hit_cull_checked)
     from tracer_torch.kernels.traverse import pack_bvh
     bvh = build_bvh(scene.centers, scene.radii, leaf_size=16,
                     backend="native", device=dev)
@@ -1851,13 +1697,12 @@ def cull_slice(dev, scene, o, d, results, comp):
     T = table.num_tiles
     rs, _ = sort_rays_by_direction(Ray(o, d))
     so, sd = rs.origin, rs.direction
-    cull_cuda.launches = compact_cuda.launches = 0
+    before = _lib.launches.copy()
     with comp.record():
         rec, esc = nearest_hit_cull_checked(rs, scene, packed, table,
                                             CULL_K)
     torch.cuda.synchronize()
-    launches = {"cull_cuda": cull_cuda.launches,
-                "compact_cuda": compact_cuda.launches}
+    launches = launches_since(before, "cull_cuda", "compact_cuda")
     comp.check("packet cull", timed=1)
     k = min(CULL_K, T)
     for _ in range(esc):
@@ -1892,9 +1737,6 @@ def cull_slice(dev, scene, o, d, results, comp):
         ladder.append(min(2 * ladder[-1], T))
     log("packet cull escalation: listed tiles walked at K = " + ", ".join(
         f"{kk}: {int(counts.clamp(0, kk).sum())}" for kk in ladder))
-    walk_launch_log("packet cull 100k x 512k", cull_cuda, _cull_launch,
-                    (rays, tiles, cand, counts), walked_tiles(counts, k),
-                    grid("cull", dev))
     ms = time_cuda(cull_cuda, rays, tiles, cand, counts)
     pms = time_cuda(cull_plain, rays, tiles, cand, counts, warmup=0, iters=1)
     bms, bby = cull_bound("packet cull 100k x 512k", rays, tiles, cand,
@@ -1912,44 +1754,43 @@ def phase_b_slice(dev, scene, tables, bvh16, o, d, t_ref, sid_ref, results):
     headline tables (leaf 32) and on 16-prim leaves: prep_rays_bucketed,
     phase A with cones and the cone-cull walk through
     ``nearest_hit_conecull_t`` with the checked queries' budget doubling;
-    counters reset just before and read just after; phase A is
+    launches counted from just before to just after; phase A is
     ``phase_a_cuda`` at both sizes (one chunk at leaf 32, three at leaf
     16), and the compactor must not run. At leaf 32 the slots
     and t must equal the headline leaf-walk query's (``t_ref``,
     ``sid_ref``, ray order) exactly; at both sizes the walk must equal
     conecull_plain and leafcull_cuda on its rows, and the ids brute
-    force. The walk's rows are logged and its split swept over
-    CONE_ITEM_PRIMS prims per item, each result equal to the wrapper's."""
+    force. The walk's rows are logged."""
     import torch
     from tracer_torch.bench import headline
     from tracer_torch.bench.timing import time_cuda, time_graph
     from tracer_torch.core.sort import prep_rays_bucketed
     from tracer_torch.core.types import Ray
     from tracer_torch.intersect.brute import brute_t_fast
-    from tracer_torch.kernels.conecull import (build_cone_tables, compact_cuda,
+    from tracer_torch.kernels import _lib
+    from tracer_torch.kernels.conecull import (build_cone_tables,
                                                conecull_cuda, conecull_plain,
-                                               nearest_hit_conecull_t,
-                                               phase_a_cuda)
+                                               nearest_hit_conecull_t)
     from tracer_torch.kernels.leafcull import (leafcull_cuda,
-                                               pack_ray_features, _escalate)
+                                               pack_ray_features,
+                                               _doubled_budgets, _escalate)
     S, SP = headline.S, headline.SP
     for leaf, tb in ((32, tables), (16, build_cone_tables(scene, bvh16))):
         # Phase A is phase_a_cuda at one chunk (leaf 32) and at three
         # (leaf 16); the compactor is not called.
-        conecull_cuda.launches = phase_a_cuda.launches = 0
-        compact_cuda.launches = 0
+        before = _lib.launches.copy()
         padded, pdest = prep_rays_bucketed(Ray(o, d), SP,
                                            cell_bits=headline.CELL_BITS)
         (t, sid, ovf), esc = _escalate(
             lambda k0, k: (lambda r: (r, r[2]))(nearest_hit_conecull_t(
-                padded, tb, k0, k, S, SP)), padded.origin.shape[0], tb,
-            headline.MG, headline.MC)
+                padded, tb, k0, k, S, SP)), padded.origin.shape[0],
+            (headline.MG, headline.MC), _doubled_budgets(tb))
         torch.cuda.synchronize()
-        launches = {"conecull_cuda": conecull_cuda.launches,
-                    "phase_a_cuda": phase_a_cuda.launches}
-        if compact_cuda.launches:
+        launches = launches_since(before, "conecull_cuda", "phase_a_cuda")
+        compacted = _lib.launches["compact_cuda"] - before["compact_cuda"]
+        if compacted:
             raise AssertionError(f"phase B leaf {leaf}: the compactor ran "
-                                 f"{compact_cuda.launches} time(s)")
+                                 f"{compacted} time(s)")
         mg = min(headline.MG << esc, tb.cull.num_groups)
         mc = min(headline.MC << esc, tb.cull.leaves_per_chunk)
         log(f"phase B slice, leaf {leaf}: launches {launches}; {esc} "
@@ -1985,7 +1826,6 @@ def phase_b_slice(dev, scene, tables, bvh16, o, d, t_ref, sid_ref, results):
         args = walk_args(feats, rows, cull)[2:]
         name = f"phase B walk, leaf {leaf}"
         leaf_rows(f"{name} rows", rows, cull.leaves_per_group)
-        cone_sweep(name, (feats, rows, cones, *args))
         ms = time_cuda(conecull_cuda, feats, rows, cones, *args)
         gms = time_graph(conecull_cuda, feats, rows, cones, *args)
         lms = time_cuda(leafcull_cuda, feats, rows, *args)
@@ -2043,8 +1883,8 @@ def diff_slice(dev, scene, tables, o, d, comp):
     The bench extra's fwd+bwd once (131,072 rays through
     prep_rays_bucketed at subpacket 64, the leaf-order sparse soft image
     over the single-chunk headline tables at 16 leaves a subpacket, the
-    gradient of its mean with respect to the centres) with the counters
-    reset just before and read just after, and its compactions checked
+    gradient of its mean with respect to the centres) with its launches
+    counted, and its compactions checked
     (``comp``); leaf_candidates at that shape equal with compact_cuda and
     with the plain compactor, and timed; on tables from radii inflated by
     soft_radius_scale, 1,024 of the sorted rays at 64 leaves a subpacket:
@@ -2081,7 +1921,7 @@ def diff_slice(dev, scene, tables, o, d, comp):
                                           soft_render_sparse,
                                           soft_render_sparse_leaforder,
                                           soft_render_sparse_packets)
-    from tracer_torch.kernels.conecull import compact_cuda
+    from tracer_torch.kernels import _lib
     from tracer_torch.kernels.leafcull import (build_cull_tables,
                                                leaf_candidates)
     cull = tables.cull
@@ -2090,12 +1930,12 @@ def diff_slice(dev, scene, tables, o, d, comp):
     po, pd = headline.diff_rays(o, d)
     sp, ml = headline.DIFF_SP, headline.DIFF_LEAVES
 
-    # The main path, once, with the counters.
-    compact_cuda.launches = 0
+    # The main path, once, with its launches counted.
+    before = _lib.launches.copy()
     with comp.record():
         grad, overflow = headline.diff_fwd_bwd(scene, cull, po, pd)
     torch.cuda.synchronize()
-    launches = compact_cuda.launches
+    launches = _lib.launches["compact_cuda"] - before["compact_cuda"]
     log(f"diff path launches: {{'compact_cuda': {launches}}}; "
         f"{po.shape[0] // sp} subpackets, overflow {bool(overflow)}")
     comp.check("diff", timed=2)
@@ -2366,21 +2206,6 @@ TOOLS_RENDER = ["render", "--scene", "benchmark", "--spheres", "100000",
 DEBUG_RAYS = 4096       # rays of the checked per-ray walk at 100k spheres
 
 
-def kernel_counters():
-    """Every kernel wrapper of the port, by name (each has ``launches``)."""
-    from tracer_torch.kernels.conecull import (compact_cuda, conecull_cuda,
-                                               phase_a_cuda)
-    from tracer_torch.kernels.cull import cull_cuda
-    from tracer_torch.kernels.leafcull import anyhit_cuda, leafcull_cuda
-    from tracer_torch.kernels.tilecull import tilecull_cuda
-    from tracer_torch.kernels.tlas import routed_cuda
-    from tracer_torch.kernels.traverse import traverse_cuda
-    return {f.__name__: f for f in (
-        leafcull_cuda, compact_cuda, anyhit_cuda, routed_cuda,
-        traverse_cuda, tilecull_cuda, conecull_cuda, cull_cuda,
-        phase_a_cuda)}
-
-
 def check_sweep_row(name, o, d, scene, ta, ia, tb, ib):
     """A sweep row's (t, sphere id) against brute force's on the same
     rays: ids equal on >= MIN_AGREE of rays, every other ray a tie or a
@@ -2426,12 +2251,11 @@ def routed_row(n, tables, o, d, budgets, comp):
     import torch
     from tracer_torch.bench import harness, large
     from tracer_torch.bench.timing import time_cuda
-    from tracer_torch.kernels.conecull import (bounds_from_feats,
-                                               compact_cuda, phase_a_cuda)
+    from tracer_torch.kernels import _lib
+    from tracer_torch.kernels.conecull import bounds_from_feats, phase_a_cuda
     from tracer_torch.kernels.tlas import (pair_row_budgets, route_pairs,
-                                           routed_call, routed_cuda,
-                                           routed_plain, tlas_candidates,
-                                           tlas_merge)
+                                           routed_call, routed_plain,
+                                           tlas_candidates, tlas_merge)
     cull = tables.cull
     mg, mc, npairs, kc = budgets
     name = f"routed n={n} x {o.shape[0]} rays"
@@ -2458,21 +2282,18 @@ def routed_row(n, tables, o, d, budgets, comp):
     if not torch.equal(first, rows[:pblk].reshape(first.shape)):
         raise AssertionError(f"{name}: phase_a_cuda's rows of the first "
                              f"block differ from its launch over every pair")
-    phase_a_cuda.launches -= 1
     args = (pc, pg, rows, feats, cull.prims, cull.leaf_size,
             cull.leaves_per_chunk, cull.leaves_per_group)
     walk_ms = time_cuda(routed_call, *args, warmup=1, iters=3)
     t_p, s_p = routed_call(*args)
     merge_ms = time_cuda(tlas_merge, t_p, s_p, merge_pos)
-    before = (routed_cuda.launches, compact_cuda.launches,
-              phase_a_cuda.launches)
+    before = _lib.launches.copy()
     with comp.record():
         harness._prep_query(harness.nearest_hit_tlas_feats, o, d, tables,
                             mg, mc, npairs, kc, pblk)
     torch.cuda.synchronize()
-    launches = {"routed_cuda": routed_cuda.launches - before[0],
-                "compact_cuda": compact_cuda.launches - before[1],
-                "phase_a_cuda": phase_a_cuda.launches - before[2]}
+    launches = launches_since(before, "routed_cuda", "compact_cuda",
+                              "phase_a_cuda")
     comp.check(name, timed=3)
     k = min(PAIR_SLICE, pc.shape[0])
     sl = (pc[:k], pg[:k], rows[:k], *args[3:])
@@ -2497,7 +2318,7 @@ def routed_row(n, tables, o, d, budgets, comp):
 
 def sweep_slice(comp):
     """Phase 8b: ``cli bench`` over the published decades in a temporary
-    directory, every kernel counter set to 0 just before and read just
+    directory, every kernel's launches counted from just before to just
     after. Each row's query calls are counted on their own (the kernels
     they launch, per call) and their last result held against the last
     brute-force result of the row on the rays brute force timed, or, where
@@ -2510,7 +2331,7 @@ def sweep_slice(comp):
     from tracer_torch import cli
     from tracer_torch.bench import harness
     from tracer_torch.bench.timing import time_cuda
-    counters = kernel_counters()
+    from tracer_torch.kernels import _lib
     rows, brutes, starts = {}, {}, {}
     real_row_query, real_brute_t = harness.row_query, harness.brute_t
     real_scene = harness.sweep_scene
@@ -2527,11 +2348,10 @@ def sweep_slice(comp):
                          "scene": scene, "tables": tables, "o": o, "d": d}
 
         def counted():
-            before = {k: f.launches for k, f in counters.items()}
+            before = _lib.launches.copy()
             out = query()
             rec["calls"] += 1
-            rec["launches"].update({k: f.launches - before[k]
-                                    for k, f in counters.items()})
+            rec["launches"].update(_lib.launches - before)
             rec["out"] = out
             return out
         return counted, path, esc, budgets
@@ -2541,8 +2361,7 @@ def sweep_slice(comp):
         return out
 
     t0 = time.perf_counter()
-    for f in counters.values():
-        f.launches = 0
+    start = _lib.launches.copy()
     harness.row_query, harness.brute_t = row_query, brute_t
     harness.sweep_scene = sweep_scene
     try:
@@ -2559,7 +2378,7 @@ def sweep_slice(comp):
     finally:
         harness.row_query, harness.brute_t = real_row_query, real_brute_t
         harness.sweep_scene = real_scene
-    launches = {k: f.launches for k, f in counters.items() if f.launches}
+    launches = dict(_lib.launches - start)
     t_end = time.perf_counter()
     sweep_s = t_end - t0
     log(f"sweep ({len(rec['sizes'])} sizes x {rec['num_rays']} rays, "
@@ -2749,7 +2568,7 @@ def dist_slice(dev, scene, tables, o, d):
     pallas), the ring (brute and one-shard BVH), the sharded training step
     and the sharded fit (T = 1 and T = 4), each against its unsharded twin
     and timed beside it; then ``nearest_hit_leafcull_t`` on the headline.
-    Counters are set to 0 just before each query and read just after."""
+    Launches are counted from just before each query to just after."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -2768,20 +2587,18 @@ def dist_slice(dev, scene, tables, o, d):
                                    render_sharded, scene_mesh)
     from tracer_torch.integrator.wavefront import bounce_noise, render
     from tracer_torch.intersect.brute import nearest_hit_brute
+    from tracer_torch.kernels import _lib
     from tracer_torch.kernels.leafcull import (nearest_hit_leafcull,
                                                nearest_hit_leafcull_t)
     from tracer_torch.scene.camera import camera_rays
     from tracer_torch.scene.scene import benchmark_scene
-    counters = kernel_counters()
     t_phase = time.perf_counter()
 
     def run_counted(fn, *a):
-        for c in counters.values():
-            c.launches = 0
+        before = _lib.launches.copy()
         out = fn(*a)
         torch.cuda.synchronize()
-        return out, {k: c.launches for k, c in counters.items()
-                     if c.launches}
+        return out, dict(_lib.launches - before)
 
     def timed(name, sharded, twin, iters=5, labels=("sharded", "unsharded")):
         ms = time_cuda(sharded, warmup=1, iters=iters)
@@ -3056,9 +2873,8 @@ def main(argv=None) -> int:
     from tracer_torch.intersect.brute import any_hit_brute, brute_t_fast
     from tracer_torch.core.types import Ray
     from tracer_torch.kernels.conecull import (bounds_from_feats,
-                                               compact_cuda, cone_budgets,
-                                               nearest_hit_hybrid_feats,
-                                               phase_a_cuda)
+                                               cone_budgets,
+                                               nearest_hit_hybrid_feats)
     from tracer_torch.kernels.leafcull import (
         anyhit_cuda, anyhit_plain, leafcull_cuda, leafcull_plain,
         pack_ray_features, prep_feats_bucketed)
@@ -3166,12 +2982,11 @@ def main(argv=None) -> int:
     cull = tables.cull
     log(f"100k scene: bvh build {build_ms:.1f} ms, {cull.num_chunks} "
         f"chunk(s), {cull.num_real_leaves} leaves")
-    leafcull_cuda.launches = phase_a_cuda.launches = 0
+    before = _lib.launches.copy()
     with comp.record():
         t, slot, dest, overflow = headline.query(o, d, tables)
     torch.cuda.synchronize()
-    launches = {"leafcull_cuda": leafcull_cuda.launches,
-                "phase_a_cuda": phase_a_cuda.launches}
+    launches = launches_since(before, "leafcull_cuda", "phase_a_cuda")
     log(f"closest-hit slice launches: {launches}")
     comp.check("headline", timed=2)
     if min(launches.values()) < 1:
@@ -3202,7 +3017,6 @@ def main(argv=None) -> int:
     compare_walk("walk 100k x 512k", feats, rows, cull)
     leaf_rows("walk 100k x 512k rows", rows, cull.leaves_per_group)
     args = walk_args(feats, rows, cull)
-    leaf_launch_log("walk 100k x 512k", "leafcull", args)
     walk_ms = time_cuda(leafcull_cuda, *args)
     walk_plain_ms = time_cuda(leafcull_plain, *args, warmup=1, iters=3)
     wb, wby = walk_bound("walk 100k x 512k", feats, rows, cull,
@@ -3218,12 +3032,11 @@ def main(argv=None) -> int:
     results["compact_cuda"]["launches"] = 0    # phase A is one kernel
 
     # -- 5. the shadow slice at full size ----------------------------------
-    anyhit_cuda.launches = phase_a_cuda.launches = 0
+    before = _lib.launches.copy()
     with comp.record():
         occ, sdest, s_overflow = headline.shadow_query(o, d, tables)
     torch.cuda.synchronize()
-    s_launches = {"anyhit_cuda": anyhit_cuda.launches,
-                  "phase_a_cuda": phase_a_cuda.launches}
+    s_launches = launches_since(before, "anyhit_cuda", "phase_a_cuda")
     log(f"shadow slice launches: {s_launches}")
     comp.check("shadow")
     if min(s_launches.values()) < 1:
@@ -3248,7 +3061,6 @@ def main(argv=None) -> int:
     compare_anyhit("any-hit 100k x 512k", sfeats, srows, cull)
     leaf_rows("any-hit 100k x 512k rows", srows, cull.leaves_per_group)
     sargs = walk_args(sfeats, srows, cull)
-    leaf_launch_log("any-hit 100k x 512k", "anyhit", sargs)
     any_ms = time_cuda(anyhit_cuda, *sargs)
     any_plain_ms = time_cuda(anyhit_plain, *sargs, warmup=1, iters=3)
     ab, aby = walk_bound("any-hit 100k x 512k", sfeats, srows, cull,
@@ -3290,14 +3102,12 @@ def main(argv=None) -> int:
     log(f"10M scene: device LBVH {lbvh_ms:.1f} ms, tables {tables_ms:.1f} "
         f"ms, {bcull.num_chunks} chunks; budgets (mg, npairs, kc, block) "
         f"{budget}")
-    routed_cuda.launches = compact_cuda.launches = 0
-    phase_a_cuda.launches = 0
+    before = _lib.launches.copy()
     with comp.record():
         bt, bslot, bdest, b_overflow = large.query(bo, bd, btables, budget)
     torch.cuda.synchronize()
-    b_launches = {"routed_cuda": routed_cuda.launches,
-                  "compact_cuda": compact_cuda.launches,
-                  "phase_a_cuda": phase_a_cuda.launches}
+    b_launches = launches_since(before, "routed_cuda", "compact_cuda",
+                                "phase_a_cuda")
     log(f"TLAS slice launches: {b_launches}")
     comp.check("10M TLAS", timed=3)
     if min(b_launches.values()) < 1:
@@ -3345,7 +3155,6 @@ def main(argv=None) -> int:
              bcull.leaves_per_chunk, bcull.leaves_per_group)
     compare_routed("routed 10M", rargs)
     leaf_rows("routed 10M rows", trows, bcull.leaves_per_group)
-    leaf_launch_log("routed 10M", "routed", rargs)
     npr, nsub = trows.shape[:2]
     log(f"routed 10M: keys {npr * nsub * bfeats.shape[2] * 8} bytes ({npr} "
         f"pairs x {nsub} subpackets x {bfeats.shape[2]} rays x 8)")

@@ -39,7 +39,7 @@ from tests import torch_parity as tp
 from tests.torch_parity import one_thread  # noqa: F401
 from tracer.core.types import Ray as JRay
 from tracer.kernels import conecull as jcone
-from tracer_torch.kernels import conecull as tcone, tilewalk as tw
+from tracer_torch.kernels import _lib, conecull as tcone, tilewalk as tw
 from tracer_torch.kernels.leafcull import (MISS_KEY, leafcull_call,
                                            leafcull_plain, pack_ray_features,
                                            ray_prim_u, _min_merge_chunks,
@@ -228,7 +228,7 @@ def test_conecull_checked_equals_brute(world):
 
 
 def test_conecull_wrappers_run_plain_on_cpu_and_refuse_others(world):
-    tcone.conecull_cuda.launches = 0
+    _lib.launches.clear()
     feats, rows, cones, cull = _rows(world, "default")
     args = (cull.prims, cull.leaf_size, cull.leaves_per_chunk,
             cull.leaves_per_group)
@@ -243,7 +243,7 @@ def test_conecull_wrappers_run_plain_on_cpu_and_refuse_others(world):
         tcone.conecull_cuda(feats, rows, cones, *args)
     with pytest.raises(ValueError, match="cones"):
         tt.conecull_call(feats, rows, cones[:, :1], *args)
-    assert tcone.conecull_cuda.launches == 0
+    assert not _lib.launches
 
 
 # ---------------------------------------------------------------------------

@@ -33,6 +33,7 @@ from tracer.kernels import leafcull as jleaf
 from tracer_torch.core import sort as tsort
 from tracer_torch.core import vecmath as tvec
 from tracer_torch.core.sort import octahedral_codes, plan_bucket_pad
+from tracer_torch.kernels import _lib
 from tracer_torch.kernels import conecull as tcone
 from tracer_torch.kernels import leafcull as tleaf
 from tracer_torch.kernels import tlas as ttlas
@@ -431,10 +432,7 @@ def test_port_stands_alone():
 
 
 def test_cpu_wrappers_run_plain_and_leave_counters_at_zero():
-    tleaf.leafcull_cuda.launches = 0
-    tleaf.anyhit_cuda.launches = 0
-    ttlas.routed_cuda.launches = 0
-    tcone.compact_cuda.launches = 0
+    _lib.launches.clear()
     rng = np.random.default_rng(0)
     ids = np.sort(rng.integers(0, 500, (16, 256)), axis=1).astype(np.int32)
     ids[rng.random((16, 256)) < 0.5] = 1000
@@ -473,16 +471,12 @@ def test_cpu_wrappers_run_plain_and_leave_counters_at_zero():
     assert torch.equal(sr, s) and torch.equal(tr, t)
     t2, s2, _ = tt.nearest_hit_tlas_feats(feats, tables)
     assert torch.equal(s2, tt.nearest_hit_hybrid_feats(feats, tables)[1])
-    for counter in (tleaf.leafcull_cuda, tleaf.anyhit_cuda,
-                    ttlas.routed_cuda):
-        assert counter.launches == 0
-    assert tcone.compact_cuda.launches == 0
+    assert not _lib.launches
 
     # The packet and tile walks: CPU tensors take the plain versions.
     from tracer_torch.intersect.cull import build_leaf_table
     from tracer_torch.kernels import tilecull as ttile
     from tracer_torch.kernels import traverse as ttrav
-    ttrav.traverse_cuda.launches = ttile.tilecull_cuda.launches = 0
     bvh = tt.build_bvh(c, r, leaf_size=16, device="cpu")
     packed = ttrav.pack_bvh(tscene, bvh)
     prays, _, _ = ttrav.pack_rays(torch.as_tensor(o), torch.as_tensor(d))
@@ -498,7 +492,7 @@ def test_cpu_wrappers_run_plain_and_leave_counters_at_zero():
     got = ttile.tilecull_call(tf, cand, prims)
     want = ttile.tilecull_plain(tf, cand, prims)
     assert all(torch.equal(x, y) for x, y in zip(got, want))
-    assert ttrav.traverse_cuda.launches == ttile.tilecull_cuda.launches == 0
+    assert not _lib.launches
 
 
 def test_wrappers_refuse_tensors_off_cpu_and_cuda():
@@ -528,8 +522,7 @@ def test_wrappers_refuse_tensors_off_cpu_and_cuda():
     with pytest.raises(ValueError, match="CUDA"):
         ttlas.routed_cuda(*(torch.zeros_like(x, device="cpu") for x in (
             pair, pair, cand[0], feats, prims)), 8, 4, 16)
-    assert tleaf.leafcull_cuda.launches == 0
-    assert tleaf.anyhit_cuda.launches == ttlas.routed_cuda.launches == 0
+    assert not _lib.launches
 
     from tracer_torch.kernels import tilecull as ttile
     from tracer_torch.kernels import traverse as ttrav
@@ -553,7 +546,7 @@ def test_wrappers_refuse_tensors_off_cpu_and_cuda():
                             tprims.to("meta"))
     with pytest.raises(ValueError, match="CUDA"):
         ttile.tilecull_cuda(tfeats, tcand, tprims)
-    assert ttrav.traverse_cuda.launches == ttile.tilecull_cuda.launches == 0
+    assert not _lib.launches
 
 
 def test_device_timing_and_bench_refuse_without_cuda(monkeypatch):

@@ -38,6 +38,7 @@ from tracer.kernels.cull_pallas import (_cull_packets as j_cull_packets,
 from tracer.kernels.traverse_pallas import pack_bvh as j_pack_bvh
 from tracer_torch.core.sort import direction_morton_codes
 from tracer_torch.intersect import cull as tcull
+from tracer_torch.kernels import _lib
 from tracer_torch.kernels import cull as tkcull
 from tracer_torch.kernels import tilewalk as tw
 from tracer_torch.kernels.leafcull import _pad_edge
@@ -194,7 +195,7 @@ def test_walk_stops_at_min_count_and_budget(setup):
 
 
 def test_cull_plain_slicing_and_wrappers(setup):
-    tkcull.cull_cuda.launches = 0
+    _lib.launches.clear()
     T = setup["table"].num_tiles
     cand, counts, _ = tt.tile_candidates(setup["op"], setup["dp"],
                                          setup["table"], T)
@@ -209,7 +210,7 @@ def test_cull_plain_slicing_and_wrappers(setup):
         tkcull.cull_cuda(*args)
     with pytest.raises(ValueError, match="counts"):
         tt.cull_call(setup["prays"], setup["tiles"], cand, counts[:1])
-    assert tkcull.cull_cuda.launches == 0
+    assert not _lib.launches
 
 
 # -- the split walk: item plan, packed keys, split-and-merge model ----------

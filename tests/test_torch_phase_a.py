@@ -21,6 +21,7 @@ import tracer_torch as tt
 from tests import torch_parity as tp
 from tests.torch_parity import one_thread  # noqa: F401
 from tracer_torch import trace
+from tracer_torch.kernels import _lib
 from tracer_torch.kernels import conecull as tc
 from tracer_torch.kernels import tlas as ttlas
 
@@ -348,7 +349,7 @@ def test_cpu_tensors_take_the_torch_operations(world):
     ``phase_a_kernel`` reads 0, and the rows are the same with the trace
     on and off."""
     feats = world["feats"]
-    launches = tc.phase_a_cuda.launches
+    launches = _lib.launches["phase_a_cuda"]
     one, routed = world["one"], world["routed"]
     C = routed.cull.num_chunks
     calls = (lambda: tc.cone_candidates(feats, one, 64, 119),
@@ -364,7 +365,7 @@ def test_cpu_tensors_take_the_torch_operations(world):
         assert a["counters"]["phase_a_kernel"] == 0
         assert torch.equal(off[0], on[0]) and bool(off[-1]) == bool(on[-1])
     trace.reset()
-    assert tc.phase_a_cuda.launches == launches
+    assert _lib.launches["phase_a_cuda"] == launches
 
 
 def test_phase_a_cuda_refuses_cpu_tensors(world):

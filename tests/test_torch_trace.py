@@ -25,13 +25,16 @@ import tracer_torch as tt
 from tests import torch_parity as tp
 from tracer_torch import cli, trace
 from tracer_torch.integrator import wavefront as wf
+from tracer_torch.intersect.cull import build_leaf_table
 from tracer_torch.kernels import tlas as ttlas
 from tracer_torch.kernels import traverse as ktrav
 from tracer_torch.kernels.conecull import (bounds_from_feats,
                                            cone_candidates,
                                            nearest_hit_hybrid_feats)
+from tracer_torch.kernels.cull import nearest_hit_cull_checked
 from tracer_torch.kernels.leafcull import (nearest_hit_leafcull_checked,
                                            occluded_leafcull_checked)
+from tracer_torch.kernels.tilecull import nearest_hit_tilecull_checked
 
 S, SP, CELL_BITS = 8, 64, 4
 QUERY = dict(spheres=2000, world=80.0, leaf=32, rays=2048, mg=64, mc=8)
@@ -256,48 +259,68 @@ def escalating():
     return scene, tables, rays, srays
 
 
-@pytest.mark.parametrize("kind", ["closest", "shadow"])
-def test_checked_drivers_count_rays_and_calls_once(escalating, kind):
+@pytest.fixture(scope="module")
+def escalating_tiles(escalating):
+    """The packed tree and leaf table of the tile and packet culls over the
+    ``escalating`` scene in two-sphere leaves: a budget of one tile
+    overflows."""
+    scene = escalating[0]
+    bvh = tt.build_bvh(scene.centers, scene.radii, leaf_size=2, device="cpu")
+    return ktrav.pack_bvh(scene, bvh), build_leaf_table(bvh)
+
+
+# kind -> (root span of its checked driver, the kind it tallies)
+CHECKED = {"closest": ("tracer_torch.nearest", "closest"),
+           "shadow": ("tracer_torch.occluded", "shadow"),
+           "tilecull": ("tracer_torch.nearest", "closest"),
+           "cull": ("tracer_torch.nearest", "closest")}
+
+
+def _checked_driver(kind, escalating, escalating_tiles):
+    """The checked driver of ``kind`` over the escalating tables from a
+    budget that overflows: a call returning (result, escalations)."""
+    scene, tables, rays, srays = escalating
+    packed, table = escalating_tiles
+    return {"closest": lambda: nearest_hit_leafcull_checked(
+                rays, scene, tables, 8, 1, cell_bits=0),
+            "shadow": lambda: occluded_leafcull_checked(
+                srays, tables, 1.0, 8, 1, cell_bits=0),
+            "tilecull": lambda: nearest_hit_tilecull_checked(
+                rays, scene, packed, table, max_candidates=1),
+            "cull": lambda: nearest_hit_cull_checked(
+                rays, scene, packed, table, max_candidates=1)}[kind]
+
+
+@pytest.mark.parametrize("kind", list(CHECKED))
+def test_checked_drivers_count_rays_and_calls_once(escalating,
+                                                   escalating_tiles, kind):
     """A checked driver that escalates counts, in its root, the caller's
     rays once (not the padded rays of each try), one call and its
     escalations; ``trace.tallied`` tallies the same with the trace off.
     The shadow driver is its own span, ``tracer_torch.occluded``."""
-    scene, tables, rays, srays = escalating
-    if kind == "closest":
-        def driver():
-            return nearest_hit_leafcull_checked(rays, scene, tables, 8, 1,
-                                                cell_bits=0)
-    else:
-        def driver():
-            return occluded_leafcull_checked(srays, tables, 1.0, 8, 1,
-                                             cell_bits=0)
+    driver = _checked_driver(kind, escalating, escalating_tiles)
+    root_name, tally = CHECKED[kind]
     with trace.enabled():
         _, esc = driver()
     (root,) = trace.records()
-    assert root["name"] == ("tracer_torch.nearest" if kind == "closest"
-                            else "tracer_torch.occluded")
+    assert root["name"] == root_name
     assert esc >= 1
     assert root["counters"] == {"rays": 900, "calls": 1, "escalations": esc}
     assert len(_spans([root], "tracer_torch.escalate")) == esc
     assert all("rays" not in s["counters"] for s in root["spans"][1:])
     counts = {}
     trace.tallied(counts, driver)()
-    assert counts == {f"{kind}_calls": 1, f"{kind}_escalations": esc}
+    assert counts == {f"{tally}_calls": 1, f"{tally}_escalations": esc}
 
 
-@pytest.mark.parametrize("kind", ["closest", "shadow"])
-def test_escalations_count_the_rays_they_walk_again(escalating, kind):
+@pytest.mark.parametrize("kind", list(CHECKED))
+def test_escalations_count_the_rays_they_walk_again(escalating,
+                                                    escalating_tiles, kind):
     """Each retry of an escalating checked driver, the span
     ``tracer_torch.escalate``, counts ``escalated_rays``: every ray of the
     call, which the retry walks again; no other span counts it."""
-    scene, tables, rays, srays = escalating
     with trace.enabled():
-        if kind == "closest":
-            _, esc = nearest_hit_leafcull_checked(rays, scene, tables, 8, 1,
-                                                  cell_bits=0)
-        else:
-            _, esc = occluded_leafcull_checked(srays, tables, 1.0, 8, 1,
-                                               cell_bits=0)
+        _, esc = _checked_driver(kind, escalating, escalating_tiles)()
     (root,) = trace.records()
     retries = _spans([root], "tracer_torch.escalate")
     assert esc >= 1 and [s["arg"] for s in retries] == list(range(1, esc + 1))

@@ -33,13 +33,14 @@ import torch
 from tracer_torch.bench.profile import profile_calls
 from tracer_torch.bench.timing import time_cuda
 from tracer_torch.bvh.device import build_bvh_device
+from tracer_torch.kernels import _lib
 from tracer_torch.kernels.conecull import (bounds_from_feats,
-                                           build_cone_tables, compact_cuda,
+                                           build_cone_tables,
                                            kernel_order_dest)
 from tracer_torch.kernels.leafcull import prep_feats_bucketed
 from tracer_torch.kernels.tlas import (nearest_hit_tlas_feats, route_pairs,
-                                       routed_call, routed_cuda,
-                                       tlas_candidates, tlas_merge)
+                                       routed_call, tlas_candidates,
+                                       tlas_merge)
 from tracer_torch.scene.scene import benchmark_scene
 
 METRIC = "lbvh_10m_tlas_mrays"
@@ -131,12 +132,12 @@ def measure(tables, o, d, build_ms: float, tables_ms: float,
     torch.cuda.synchronize(o.device)
     torch.cuda.reset_peak_memory_stats(o.device)
     resident = torch.cuda.memory_allocated(o.device)
-    routed_cuda.launches = compact_cuda.launches = 0
+    before = _lib.launches.copy()
     t, _, dest, overflow = query(o, d, tables, budget)
     torch.cuda.synchronize(o.device)
     peak = torch.cuda.max_memory_allocated(o.device)
-    launches = {"routed_cuda": routed_cuda.launches,
-                "compact_cuda": compact_cuda.launches}
+    launches = {k: _lib.launches[k] - before[k]
+                for k in ("routed_cuda", "compact_cuda")}
     hit_fraction = torch.isfinite(t[dest]).float().mean().item()
 
     feats, _ = prep(o, d)

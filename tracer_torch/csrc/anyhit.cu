@@ -77,10 +77,3 @@ extern "C" int tracer_anyhit(const void* feats, const void* cand,
   return leafwalk::launch(AnyhitWalk{{G * S}, (int32_t*)occ, S}, rows, SP,
                           (cudaStream_t)stream);
 }
-
-// The persistent grid of tracer_anyhit for SP-ray subpackets and items of
-// W leaves of leaf_size prims, on the current device.
-extern "C" int tracer_anyhit_grid(int SP, int leaf_size, int W) {
-  return leafwalk::grid_size<AnyhitWalk>(
-      SP, leafwalk::smem_bytes(leaf_size, W));
-}

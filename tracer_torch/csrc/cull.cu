@@ -110,6 +110,3 @@ extern "C" int tracer_cull(const void* rays, const void* tiles,
   return tilewalk::launch(w, (const int32_t*)starts, g * kBlocks, W,
                           (unsigned long long*)keys, (cudaStream_t)stream);
 }
-
-// The persistent grid of tracer_cull on the current device.
-extern "C" int tracer_cull_grid() { return tilewalk::grid_size<CullWalk>(); }

@@ -52,10 +52,3 @@ extern "C" int tracer_leafcull(const void* feats, const void* cand,
   return leafwalk::closest(leafwalk::GridRows{G * S}, rows, keys, t, slot, S,
                            SP, (cudaStream_t)stream);
 }
-
-// The persistent grid of tracer_leafcull for SP-ray subpackets and items of
-// W leaves of leaf_size prims, on the current device.
-extern "C" int tracer_leafcull_grid(int SP, int leaf_size, int W) {
-  return leafwalk::grid_size<leafwalk::ClosestWalk<leafwalk::GridRows>>(
-      SP, leafwalk::smem_bytes(leaf_size, W));
-}

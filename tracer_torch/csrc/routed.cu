@@ -45,10 +45,3 @@ extern "C" int tracer_routed(const void* pair_c, const void* pair_gb,
   return leafwalk::closest(map, rows, keys, t, slot, S, SP,
                            (cudaStream_t)stream);
 }
-
-// The persistent grid of tracer_routed for SP-ray subpackets and items of
-// W leaves of leaf_size prims, on the current device.
-extern "C" int tracer_routed_grid(int SP, int leaf_size, int W) {
-  return leafwalk::grid_size<leafwalk::ClosestWalk<leafwalk::PairRows>>(
-      SP, leafwalk::smem_bytes(leaf_size, W));
-}

@@ -81,8 +81,3 @@ extern "C" int tracer_tilecull(const void* feats, const void* cand,
   return tilewalk::launch(w, (const int32_t*)starts, rows, W,
                           (unsigned long long*)keys, (cudaStream_t)stream);
 }
-
-// The persistent grid of tracer_tilecull on the current device.
-extern "C" int tracer_tilecull_grid() {
-  return tilewalk::grid_size<TileWalk>();
-}

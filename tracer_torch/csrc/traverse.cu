@@ -372,18 +372,6 @@ int run(const Walk& w, int g, int cluster, int cap, cudaStream_t stream) {
   }
 }
 
-template <int LS>
-int clusters(int cluster) {
-  switch (cluster) {
-    case 1: return max_clusters<1, LS>();
-    case 2: return max_clusters<2, LS>();
-    case 4: return max_clusters<4, LS>();
-    case 8: return max_clusters<8, LS>();
-    case 16: return max_clusters<16, LS>();
-    default: return -(int)cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
 // rays (g, 1024, 8) f32 [ox oy oz dx dy dz 0 0]; nodes (M, 8) f32; links
@@ -412,17 +400,5 @@ extern "C" int tracer_traverse(const void* rays, const void* nodes,
     case 16: return run<16>(w, g, cluster, cap, st);
     case 32: return run<32>(w, g, cluster, cap, st);
     default: return run<0>(w, g, cluster, cap, st);
-  }
-}
-
-// Clusters of ``cluster`` CTAs the resume launch keeps resident for
-// ``leaf_size`` (its persistent grid, before the cut to g packets); a
-// negative CUDA error code on failure.
-extern "C" int tracer_traverse_clusters(int cluster, int leaf_size) {
-  switch (leaf_size) {
-    case 4: return clusters<4>(cluster);
-    case 16: return clusters<16>(cluster);
-    case 32: return clusters<32>(cluster);
-    default: return clusters<0>(cluster);
   }
 }

@@ -3,14 +3,16 @@
 Each source is compiled with nvcc for Hopper (``sm_90a``), one nvcc process
 per source, all started together, and the objects are linked into one shared
 library with a plain C interface, ``build/tracer_torch/libtracer_torch_cuda.so``,
-on first use, and loaded with ctypes. Pointers and the CUDA stream go in as
-``c_void_p``; every entry point returns ``cudaGetLastError()`` after its
-launch, and :func:`check` raises on a non-zero code. Nothing here runs when
-the module is imported.
+on first use, and loaded with ctypes. Every kernel wrapper launches through
+:func:`launch`: pointers and the CUDA stream go in as ``c_void_p``, every
+entry point returns ``cudaGetLastError()`` after its launch, :func:`check`
+raises on a non-zero code, and ``launches`` counts the launches by wrapper.
+Nothing here runs when the module is imported.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import os
 import shutil
@@ -31,6 +33,9 @@ _lock = threading.Lock()
 _lib = None
 build_seconds = 0.0
 build_log = ""
+# Launches by kernel wrapper ("leafcull_cuda", ...), one per call of
+# :func:`launch`, for the CPU guards and the on-card checks.
+launches: collections.Counter = collections.Counter()
 
 
 def nvcc() -> str:
@@ -56,32 +61,20 @@ def load() -> ctypes.CDLL:
             vp, i = ctypes.c_void_p, ctypes.c_int
             lib.tracer_leafcull.restype = i
             lib.tracer_leafcull.argtypes = [vp] * 7 + [i] * 9 + [vp]
-            lib.tracer_leafcull_grid.restype = i
-            lib.tracer_leafcull_grid.argtypes = [i] * 3
             lib.tracer_compact_rows.restype = i
             lib.tracer_compact_rows.argtypes = [vp] * 3 + [i] * 4 + [vp]
             lib.tracer_anyhit.restype = i
             lib.tracer_anyhit.argtypes = [vp] * 5 + [i] * 9 + [vp]
-            lib.tracer_anyhit_grid.restype = i
-            lib.tracer_anyhit_grid.argtypes = [i] * 3
             lib.tracer_routed.restype = i
             lib.tracer_routed.argtypes = [vp] * 9 + [i] * 8 + [vp]
-            lib.tracer_routed_grid.restype = i
-            lib.tracer_routed_grid.argtypes = [i] * 3
             lib.tracer_traverse.restype = i
             lib.tracer_traverse.argtypes = [vp] * 8 + [i] * 5 + [vp]
-            lib.tracer_traverse_clusters.restype = i
-            lib.tracer_traverse_clusters.argtypes = [i] * 2
             lib.tracer_tilecull.restype = i
             lib.tracer_tilecull.argtypes = [vp] * 5 + [i] * 3 + [vp]
-            lib.tracer_tilecull_grid.restype = i
-            lib.tracer_tilecull_grid.argtypes = []
             lib.tracer_conecull.restype = i
             lib.tracer_conecull.argtypes = [vp] * 9 + [i] * 9 + [vp]
             lib.tracer_cull.restype = i
             lib.tracer_cull.argtypes = [vp] * 6 + [i] * 3 + [vp]
-            lib.tracer_cull_grid.restype = i
-            lib.tracer_cull_grid.argtypes = []
             lib.tracer_phase_a.restype = i
             lib.tracer_phase_a.argtypes = [vp] * 9 + [i] * 12 + [vp]
             lib.tracer_phase_a_chunks.restype = i
@@ -104,6 +97,20 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
 
 def stream(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def launch(name: str, entry: str, device: torch.device, *args) -> None:
+    """Call the library's ``entry`` on ``device`` with ``args`` (tensors as
+    their pointers, ``None`` as a null pointer, ints as they are) and the
+    device's current stream; raise on a non-zero code, else add one to
+    ``launches[name]``."""
+    lib = load()
+    with torch.cuda.device(device):
+        rc = getattr(lib, entry)(
+            *(ptr(a) if isinstance(a, torch.Tensor) else a for a in args),
+            stream(device))
+    check(lib, rc, name)
+    launches[name] += 1
 
 
 def require_cuda(what: str, *tensors: torch.Tensor) -> torch.device:

@@ -47,8 +47,8 @@ from tracer_torch.kernels.leafcull import (CullTables, FEAT, anyhit_call,
                                            build_cull_tables, item_leaves,
                                            leafcull_call, pack_ray_features,
                                            ray_prim_u, _check_walk_args,
-                                           _closest_t, _escalate,
-                                           _merge_best, _min_merge_chunks,
+                                           _closest_t, _doubled_budgets,
+                                           _escalate, _merge_best, _min_merge_chunks,
                                            _sqrt_rn, _walk_pairs, _BIG,
                                            _NOSLOT)
 from tracer_torch.scene.scene import Scene
@@ -57,7 +57,9 @@ from tracer_torch.scene.scene import Scene
 # package, so that every row has the same length and padding on both sides.
 _ROW_ALIGN = 128
 CONE_FEAT = 16      # per-subpacket cone columns (11 used)
-CONE_ITEM_PRIMS = 256   # prims per item of the phase-B walk (chip_smoke.py)
+# Prims per item of the phase-B walk: the fastest of 128/256/512 in an
+# on-card sweep.
+CONE_ITEM_PRIMS = 256
 _SENTINEL_RSQ = -1.0e29   # prims with r^2 at or below this are slots that
                           # hold no sphere; the cone test drops them
 
@@ -431,8 +433,7 @@ def phase_a_cuda(bounds: Tensor, tables: ConeTables, S: int, k0: int,
     pair_active[p], as ``tlas._pair_block_rows``.
     Returns (rows (nrows, rowlen) i32, overflow 0-d bool), bit for bit
     those versions'. Raises for tensors that are not on one CUDA device.
-    Reads no device value on the host. Adds one to
-    ``phase_a_cuda.launches`` per launch.
+    Reads no device value on the host.
     """
     cull = tables.cull
     given = [x for x in (pair_c, pair_gb, pair_active) if x is not None]
@@ -449,28 +450,16 @@ def phase_a_cuda(bounds: Tensor, tables: ConeTables, S: int, k0: int,
     sizes = (cull.leaves_per_chunk // cull.leaves_per_group,
              cull.leaves_per_group, cull.leaves_per_chunk,
              cull.num_real_leaves, k0, k, kg, keep_l, gkeep, rowlen)
-    lib = _lib.load()
-    with torch.cuda.device(dev):
-        if chunks:
-            rc = lib.tracer_phase_a_chunks(
-                _lib.ptr(bounds), _lib.ptr(gmin), _lib.ptr(gmax),
-                _lib.ptr(boxes), _lib.ptr(rows), _lib.ptr(overflow),
-                bounds.shape[0], cull.num_chunks, *sizes, _lib.stream(dev))
-        else:
-            pairs = [None if x is None else x.contiguous()
-                     for x in (pair_c, pair_gb, pair_active)]
-            rc = lib.tracer_phase_a(
-                _lib.ptr(bounds), _lib.ptr(gmin), _lib.ptr(gmax),
-                _lib.ptr(boxes),
-                *(None if x is None else _lib.ptr(x) for x in pairs),
-                _lib.ptr(rows), _lib.ptr(overflow), nrows, S, *sizes,
-                _lib.stream(dev))
-    _lib.check(lib, rc, "phase_a_cuda")
-    phase_a_cuda.launches += 1
+    if chunks:
+        _lib.launch("phase_a_cuda", "tracer_phase_a_chunks", dev, bounds,
+                    gmin, gmax, boxes, rows, overflow, bounds.shape[0],
+                    cull.num_chunks, *sizes)
+    else:
+        pairs = [None if x is None else x.contiguous()
+                 for x in (pair_c, pair_gb, pair_active)]
+        _lib.launch("phase_a_cuda", "tracer_phase_a", dev, bounds, gmin,
+                    gmax, boxes, *pairs, rows, overflow, nrows, S, *sizes)
     return rows, overflow
-
-
-phase_a_cuda.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -509,8 +498,7 @@ def compact_cuda(masked_ids: Tensor, sentinel: int, keep: int):
     """Row compaction as the hand-written CUDA kernel (``csrc/compact.cu``).
 
     Same arguments and outputs as :func:`compact_ascending_rows_plain`.
-    Raises for a tensor that is not on a CUDA device. Adds one to
-    ``compact_cuda.launches`` per launch.
+    Raises for a tensor that is not on a CUDA device.
     """
     dev = _lib.require_cuda("compact_cuda", masked_ids)
     _check_compact_args(masked_ids)
@@ -519,17 +507,9 @@ def compact_cuda(masked_ids: Tensor, sentinel: int, keep: int):
     masked_ids = masked_ids.contiguous()
     out = torch.empty((P, keep), dtype=torch.int32, device=dev)
     counts = torch.empty((P,), dtype=torch.int32, device=dev)
-    lib = _lib.load()
-    with torch.cuda.device(dev):
-        rc = lib.tracer_compact_rows(
-            _lib.ptr(masked_ids), _lib.ptr(out), _lib.ptr(counts), P, M,
-            keep, sentinel, _lib.stream(dev))
-    _lib.check(lib, rc, "compact_cuda")
-    compact_cuda.launches += 1
+    _lib.launch("compact_cuda", "tracer_compact_rows", dev, masked_ids, out,
+                counts, P, M, keep, sentinel)
     return out, counts
-
-
-compact_cuda.launches = 0
 
 
 @trace.spanned("compact")
@@ -639,26 +619,15 @@ def conecull_cuda(feats: Tensor, cand: Tensor, cones: Tensor, prims: Tensor,
 
     Same arguments and (t, slot, kept) outputs as :func:`conecull_plain`.
     Raises for tensors that are not on one CUDA device. Reads no device
-    value on the host. Adds one to ``conecull_cuda.launches`` per launch.
+    value on the host.
     """
-    _lib.require_cuda("conecull_cuda", feats, cand, cones, prims)
+    dev = _lib.require_cuda("conecull_cuda", feats, cand, cones, prims)
     _check_walk_args(feats, cand, prims, leaf_size, leaves_per_chunk)
     _check_cones(feats, cones)
-    SP = feats.shape[2]
+    G, S, SP, _ = feats.shape
     if SP % 32 or not 32 <= SP <= 1024:
         raise ValueError(f"subpacket {SP} is not a whole number of warps "
                          f"in one CTA")
-    return _conecull_launch(feats, cand, cones, prims, leaf_size,
-                            leaves_per_chunk, leaves_per_group,
-                            item_leaves(leaf_size, CONE_ITEM_PRIMS))
-
-
-def _conecull_launch(feats: Tensor, cand: Tensor, cones: Tensor,
-                     prims: Tensor, leaf_size: int, leaves_per_chunk: int,
-                     leaves_per_group: int, chunk: int):
-    """:func:`conecull_cuda` with items of ``chunk`` walked leaves."""
-    dev = feats.device
-    G, S, SP, _ = feats.shape
     C, _, _, rowlen = cand.shape
     feats, cand, cones, prims = (x.contiguous()
                                  for x in (feats, cand, cones, prims))
@@ -670,19 +639,11 @@ def _conecull_launch(feats: Tensor, cand: Tensor, cones: Tensor,
     t = torch.empty((C, G, SP, S), dtype=torch.float32, device=dev)
     slot = torch.empty((C, G, SP, S), dtype=torch.int32, device=dev)
     kept = torch.empty((C, G, S), dtype=torch.int32, device=dev)
-    lib = _lib.load()
-    with torch.cuda.device(dev):
-        rc = lib.tracer_conecull(
-            _lib.ptr(feats), _lib.ptr(cand), _lib.ptr(cones), _lib.ptr(prims),
-            _lib.ptr(starts), _lib.ptr(keys), _lib.ptr(t), _lib.ptr(slot),
-            _lib.ptr(kept), C, G, S, SP, rowlen, leaf_size, leaves_per_chunk,
-            leaves_per_group, chunk, _lib.stream(dev))
-    _lib.check(lib, rc, "conecull_cuda")
-    conecull_cuda.launches += 1
+    _lib.launch("conecull_cuda", "tracer_conecull", dev, feats, cand, cones,
+                prims, starts, keys, t, slot, kept, C, G, S, SP, rowlen,
+                leaf_size, leaves_per_chunk, leaves_per_group,
+                item_leaves(leaf_size, CONE_ITEM_PRIMS))
     return t, slot, kept
-
-
-conecull_cuda.launches = 0
 
 
 @trace.spanned("walk")
@@ -855,5 +816,5 @@ def nearest_hit_conecull_checked(rays: Ray, scene: Scene, tables: ConeTables,
     candidate budgets until no subpacket overflows. Returns (HitRecord,
     escalations)."""
     return _escalate(lambda k0, k: nearest_hit_conecull(
-        rays, scene, tables, k0, k, **kw), rays.origin.numel() // 3, tables,
-        max_groups, max_candidates)
+        rays, scene, tables, k0, k, **kw), rays.origin.numel() // 3,
+        (max_groups, max_candidates), _doubled_budgets(tables))

@@ -34,7 +34,7 @@ from tracer_torch.intersect.cull import (LANES, LeafTable, prim_tiles,
                                          tile_candidates)
 from tracer_torch.intersect.sphere import EPSILON
 from tracer_torch.kernels import _lib, tilewalk
-from tracer_torch.kernels.leafcull import _pad_edge, _sqrt_rn
+from tracer_torch.kernels.leafcull import _escalate, _pad_edge, _sqrt_rn
 from tracer_torch.kernels.traverse import (PACKET, RAY_COLS, PackedBVH,
                                            pack_rays)
 from tracer_torch.scene.scene import Scene
@@ -147,29 +147,18 @@ def cull_cuda(rays: Tensor, tiles: Tensor, cand: Tensor, counts: Tensor):
 
     Same arguments and (t, slot) outputs as :func:`cull_plain`. Raises for
     tensors that are not on one CUDA device. Reads no device value on the
-    host. Adds one to ``cull_cuda.launches`` per launch.
+    host.
     """
-    _lib.require_cuda("cull_cuda", rays, tiles, cand, counts)
+    dev = _lib.require_cuda("cull_cuda", rays, tiles, cand, counts)
     _check_args(rays, tiles, cand, counts)
-    return _cull_launch(rays, tiles, cand, counts, tilewalk.CHUNK)
-
-
-def _cull_launch(rays: Tensor, tiles: Tensor, cand: Tensor, counts: Tensor,
-                 chunk: int):
-    """:func:`cull_cuda` with items of ``chunk`` listed tiles."""
-    dev = rays.device
     g, K = cand.shape
+    chunk = tilewalk.CHUNK
     rays, tiles, cand, counts = (x.contiguous()
                                  for x in (rays, tiles, cand, counts))
     starts = tilewalk.plan_items(walked_tiles(counts, K), chunk)
     keys = torch.full((g * PACKET,), MISS_KEY, dtype=torch.int64, device=dev)
-    lib = _lib.load()
-    with torch.cuda.device(dev):
-        rc = lib.tracer_cull(_lib.ptr(rays), _lib.ptr(tiles), _lib.ptr(cand),
-                             _lib.ptr(counts), _lib.ptr(starts),
-                             _lib.ptr(keys), g, K, chunk, _lib.stream(dev))
-    _lib.check(lib, rc, "cull_cuda")
-    cull_cuda.launches += 1
+    _lib.launch("cull_cuda", "tracer_cull", dev, rays, tiles, cand, counts,
+                starts, keys, g, K, chunk)
     return slots_from_keys(keys.reshape(g, PACKET), cand)
 
 
@@ -191,9 +180,6 @@ def slots_from_keys(keys: Tensor, cand: Tensor):
     k = torch.where(hit, idx // LANES, 0)
     slot = cand.gather(1, k).to(torch.int64) * LANES + idx % LANES
     return t, torch.where(hit, slot, -1).to(torch.int32)
-
-
-cull_cuda.launches = 0
 
 
 @trace.spanned("walk")
@@ -236,17 +222,18 @@ def nearest_hit_cull(rays: Ray, scene: Scene, packed: PackedBVH,
     return rec, overflow
 
 
+@trace.spanned("nearest")
 def nearest_hit_cull_checked(rays: Ray, scene: Scene, packed: PackedBVH,
                              table: LeafTable, max_candidates: int = 128):
     """Escalating query: doubles the tile budget until no packet
     overflows or it covers every tile, as the JAX version does. Returns
     (HitRecord, escalations)."""
-    k = max_candidates
-    escalations = 0
-    while True:
-        rec, overflow = nearest_hit_cull(rays, scene, packed, table, k)
-        if not bool(overflow) or k >= table.num_tiles:
-            trace.checked("closest", escalations)
-            return rec, escalations
-        k = min(2 * k, table.num_tiles)
-        escalations += 1
+    n = rays.origin.numel() // 3
+    trace.count_outermost(rays=n)
+    T = table.num_tiles
+
+    def grow(budgets):
+        (k,) = budgets
+        return None if k >= T else (min(2 * k, T),)
+    return _escalate(lambda k: nearest_hit_cull(rays, scene, packed, table,
+                                                k), n, (max_candidates,), grow)

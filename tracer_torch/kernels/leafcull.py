@@ -47,7 +47,9 @@ FEAT = 16           # per-ray feature columns (14 used)
 # candidate row, matches the JAX package for the same max_chunk_bytes.
 _PAIR_BYTES = 8 * 128 * 4
 _SENTINEL_RSQ = -1.0e30   # the w of a slot that holds no sphere
-ITEM_PRIMS = 128    # prims per item of the split walks (chip_smoke.py sweep)
+# Prims per item of the split walks: the fastest of 128/256/512 in an
+# on-card sweep of the leaf walks.
+ITEM_PRIMS = 128
 MISS_KEY = 2 ** 63 - 1   # the closest-hit walk's key of a ray with no hit
 
 
@@ -471,39 +473,22 @@ def leafcull_cuda(feats: Tensor, cand: Tensor, prims: Tensor,
 
     Same arguments and per-chunk (t, slot) outputs as :func:`leafcull_plain`.
     Raises for tensors that are not on one CUDA device. Reads no device
-    value on the host. Adds one to ``leafcull_cuda.launches`` per launch.
+    value on the host.
     """
-    _lib.require_cuda("leafcull_cuda", feats, cand, prims)
+    dev = _lib.require_cuda("leafcull_cuda", feats, cand, prims)
     _check_walk_args(feats, cand, prims, leaf_size, leaves_per_chunk)
-    return _leafcull_launch(feats, cand, prims, leaf_size, leaves_per_chunk,
-                            leaves_per_group, item_leaves(leaf_size))
-
-
-def _leafcull_launch(feats: Tensor, cand: Tensor, prims: Tensor,
-                     leaf_size: int, leaves_per_chunk: int,
-                     leaves_per_group: int, chunk: int):
-    """:func:`leafcull_cuda` with items of ``chunk`` walked leaves."""
-    dev = feats.device
     G, S, SP, _ = _walk_shape(feats)
     C, _, _, rowlen = cand.shape
+    chunk = item_leaves(leaf_size)
     feats, cand, prims = (x.contiguous() for x in (feats, cand, prims))
     starts = tilewalk.plan_items(walked_leaves(cand, leaves_per_group), chunk)
     keys = torch.full((C, G, S, SP), MISS_KEY, dtype=torch.int64, device=dev)
     t = torch.empty((C, G, SP, S), dtype=torch.float32, device=dev)
     slot = torch.empty((C, G, SP, S), dtype=torch.int32, device=dev)
-    lib = _lib.load()
-    with torch.cuda.device(dev):
-        rc = lib.tracer_leafcull(
-            _lib.ptr(feats), _lib.ptr(cand), _lib.ptr(prims), _lib.ptr(starts),
-            _lib.ptr(keys), _lib.ptr(t), _lib.ptr(slot), C, G, S, SP, rowlen,
-            leaf_size, leaves_per_chunk, leaves_per_group, chunk,
-            _lib.stream(dev))
-    _lib.check(lib, rc, "leafcull_cuda")
-    leafcull_cuda.launches += 1
+    _lib.launch("leafcull_cuda", "tracer_leafcull", dev, feats, cand, prims,
+                starts, keys, t, slot, C, G, S, SP, rowlen, leaf_size,
+                leaves_per_chunk, leaves_per_group, chunk)
     return t, slot
-
-
-leafcull_cuda.launches = 0
 
 
 def _walk_shape(feats: Tensor):
@@ -526,17 +511,6 @@ def item_leaves(leaf_size: int, prims: int = ITEM_PRIMS) -> int:
     """W, the walked leaves of one item of the split walks: ``prims``
     prims' worth, at least one leaf."""
     return max(1, prims // leaf_size)
-
-
-def leaf_grid(walk: str, subpacket: int, leaf_size: int, chunk: int,
-              device: torch.device) -> int:
-    """The persistent grid the ``walk`` kernel ("leafcull", "anyhit" or
-    "routed") launches on ``device`` for ``subpacket``-ray rows and items
-    of ``chunk`` leaves: SMs x resident CTAs."""
-    lib = _lib.load()
-    with torch.cuda.device(device):
-        return getattr(lib, f"tracer_{walk}_grid")(subpacket, leaf_size,
-                                                    chunk)
 
 
 @trace.spanned("walk")
@@ -624,36 +598,20 @@ def anyhit_cuda(feats: Tensor, cand: Tensor, prims: Tensor, leaf_size: int,
 
     Same arguments and (G, SP, S) i32 output as :func:`anyhit_plain`.
     Raises for tensors that are not on one CUDA device. Reads no device
-    value on the host. Adds one to ``anyhit_cuda.launches`` per launch.
+    value on the host.
     """
-    _lib.require_cuda("anyhit_cuda", feats, cand, prims)
+    dev = _lib.require_cuda("anyhit_cuda", feats, cand, prims)
     _check_walk_args(feats, cand, prims, leaf_size, leaves_per_chunk)
-    return _anyhit_launch(feats, cand, prims, leaf_size, leaves_per_chunk,
-                          leaves_per_group, item_leaves(leaf_size))
-
-
-def _anyhit_launch(feats: Tensor, cand: Tensor, prims: Tensor,
-                   leaf_size: int, leaves_per_chunk: int,
-                   leaves_per_group: int, chunk: int) -> Tensor:
-    """:func:`anyhit_cuda` with items of ``chunk`` walked leaves."""
-    dev = feats.device
     G, S, SP, _ = _walk_shape(feats)
     C, _, _, rowlen = cand.shape
+    chunk = item_leaves(leaf_size)
     feats, cand, prims = (x.contiguous() for x in (feats, cand, prims))
     starts = tilewalk.plan_items(walked_leaves(cand, leaves_per_group), chunk)
     occ = torch.zeros((G, SP, S), dtype=torch.int32, device=dev)
-    lib = _lib.load()
-    with torch.cuda.device(dev):
-        rc = lib.tracer_anyhit(
-            _lib.ptr(feats), _lib.ptr(cand), _lib.ptr(prims), _lib.ptr(starts),
-            _lib.ptr(occ), C, G, S, SP, rowlen, leaf_size, leaves_per_chunk,
-            leaves_per_group, chunk, _lib.stream(dev))
-    _lib.check(lib, rc, "anyhit_cuda")
-    anyhit_cuda.launches += 1
+    _lib.launch("anyhit_cuda", "tracer_anyhit", dev, feats, cand, prims,
+                starts, occ, C, G, S, SP, rowlen, leaf_size,
+                leaves_per_chunk, leaves_per_group, chunk)
     return occ
-
-
-anyhit_cuda.launches = 0
 
 
 @trace.spanned("walk")
@@ -672,30 +630,42 @@ def anyhit_call(feats: Tensor, cand: Tensor, prims: Tensor, leaf_size: int,
 # HitRecord and occlusion queries over rays in caller order
 # ---------------------------------------------------------------------------
 
-def _escalate(query, rays: int, tables, max_groups: int,
-              max_candidates: int, kind: str = "closest"):
-    """Run ``query(mg, mc) -> (result, overflow)`` over ``rays`` rays,
-    doubling both budgets until nothing overflows or both cover the whole
-    table; each retry is the span ``tracer_torch.escalate``, its argument
+def _escalate(query, rays: int, budgets: tuple, grow,
+              kind: str = "closest"):
+    """Run ``query(*budgets) -> (result, overflow)`` over ``rays`` rays,
+    growing the budgets by ``grow(budgets)`` until nothing overflows or
+    ``grow`` gives None (they cover the whole table; one host sync per
+    try); each retry is the span ``tracer_torch.escalate``, its argument
     the escalation's number, its counter ``escalated_rays`` the rays it
     walks again (all of them: known from the shapes, no sync). Counts the
     call in ``trace.checked(kind, ...)``. Returns (result,
     escalations)."""
-    cull = tables.cull
-    k0, k = max_groups, max_candidates
     escalations = 0
-    out, overflow = query(k0, k)
-    while True:
-        done = k0 >= cull.num_groups and k >= cull.leaves_per_chunk
-        if not bool(overflow) or done:
-            trace.checked(kind, escalations)
-            return out, escalations
-        k0 = min(2 * k0, cull.num_groups)
-        k = min(2 * k, cull.leaves_per_chunk)
+    out, overflow = query(*budgets)
+    while bool(overflow):
+        budgets = grow(budgets)
+        if budgets is None:
+            break
         escalations += 1
         with trace.span("escalate", escalations):
             trace.count(escalated_rays=rays)
-            out, overflow = query(k0, k)
+            out, overflow = query(*budgets)
+    trace.checked(kind, escalations)
+    return out, escalations
+
+
+def _doubled_budgets(tables):
+    """The leaf walks' growth rule for :func:`_escalate` over ``tables``:
+    (max_groups, max_candidates) both doubled, each up to what covers the
+    table; None once both do."""
+    G, lpc = tables.cull.num_groups, tables.cull.leaves_per_chunk
+
+    def grow(budgets):
+        k0, k = budgets
+        if k0 >= G and k >= lpc:
+            return None
+        return min(2 * k0, G), min(2 * k, lpc)
+    return grow
 
 
 def nearest_hit_leafcull(rays, scene: Scene, tables, max_groups: int = 48,
@@ -739,8 +709,8 @@ def nearest_hit_leafcull_checked(rays, scene: Scene, tables,
     n = rays.origin.numel() // 3
     trace.count_outermost(rays=n)
     return _escalate(lambda k0, k: nearest_hit_leafcull(
-        rays, scene, tables, k0, k, **kw), n, tables, max_groups,
-        max_candidates)
+        rays, scene, tables, k0, k, **kw), n, (max_groups, max_candidates),
+        _doubled_budgets(tables))
 
 
 @torch.no_grad()
@@ -811,5 +781,5 @@ def occluded_leafcull_checked(rays, tables, t_max, max_groups: int = 48,
     n = rays.origin.numel() // 3
     trace.count_outermost(rays=n)
     return _escalate(lambda k0, k: occluded_leafcull(
-        rays, tables, t_max, k0, k, **kw), n, tables, max_groups,
-        max_candidates, kind="shadow")
+        rays, tables, t_max, k0, k, **kw), n, (max_groups, max_candidates),
+        _doubled_budgets(tables), kind="shadow")

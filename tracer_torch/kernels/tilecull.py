@@ -33,7 +33,8 @@ from tracer_torch.intersect.cull import LANES, LeafTable, tile_candidates
 from tracer_torch.intersect.sphere import EPSILON
 from tracer_torch.kernels import _lib, tilewalk
 from tracer_torch.kernels.cull import cull_tiles
-from tracer_torch.kernels.leafcull import (FEAT, _BIG, _NOSLOT, _pad_edge,
+from tracer_torch.kernels.leafcull import (FEAT, _BIG, _NOSLOT, _escalate,
+                                           _pad_edge,
                                            pack_ray_features as _pack_feats,
                                            ray_prim_u)
 from tracer_torch.kernels.traverse import PackedBVH
@@ -151,29 +152,18 @@ def tilecull_cuda(feats: Tensor, cand: Tensor, prims: Tensor):
 
     Same arguments and (t, slot) outputs as :func:`tilecull_plain`. Raises
     for tensors that are not on one CUDA device. Reads no device value on
-    the host. Adds one to ``tilecull_cuda.launches`` per launch.
+    the host.
     """
-    _lib.require_cuda("tilecull_cuda", feats, cand, prims)
+    dev = _lib.require_cuda("tilecull_cuda", feats, cand, prims)
     _check_args(feats, cand, prims)
-    return _tilecull_launch(feats, cand, prims, tilewalk.CHUNK)
-
-
-def _tilecull_launch(feats: Tensor, cand: Tensor, prims: Tensor,
-                     chunk: int):
-    """:func:`tilecull_cuda` with items of ``chunk`` listed tiles."""
-    dev = feats.device
     G, S, SP, _ = feats.shape
     P, kp = G * S, cand.shape[-1]
+    chunk = tilewalk.CHUNK
     feats, cand, prims = (x.contiguous() for x in (feats, cand, prims))
     starts = tilewalk.plan_items(walked_tiles(cand), chunk)
     keys = torch.full((P * SP,), MISS_KEY, dtype=torch.int64, device=dev)
-    lib = _lib.load()
-    with torch.cuda.device(dev):
-        rc = lib.tracer_tilecull(
-            _lib.ptr(feats), _lib.ptr(cand), _lib.ptr(prims), _lib.ptr(starts),
-            _lib.ptr(keys), P, kp, chunk, _lib.stream(dev))
-    _lib.check(lib, rc, "tilecull_cuda")
-    tilecull_cuda.launches += 1
+    _lib.launch("tilecull_cuda", "tracer_tilecull", dev, feats, cand, prims,
+                starts, keys, P, kp, chunk)
     return results_from_keys(keys, G, S)
 
 
@@ -191,9 +181,6 @@ def results_from_keys(keys: Tensor, G: int, S: int):
     t, slot = tilewalk.unpack_keys(keys.reshape(G, S, SUBPACKET)
                                    .permute(0, 2, 1))
     return t.contiguous(), slot.to(torch.int32).contiguous()
-
-
-tilecull_cuda.launches = 0
 
 
 @trace.spanned("walk")
@@ -243,16 +230,13 @@ def nearest_hit_tilecull_checked(rays: Ray, scene: Scene, packed: PackedBVH,
     """Escalating driver: doubles the candidate budget until no subpacket
     overflows, as the JAX driver does. Returns (HitRecord, escalations):
     how many times the budget was doubled (one host sync per try)."""
-    trace.count_outermost(rays=rays.origin.numel() // 3)
-    k = max_candidates
+    n = rays.origin.numel() // 3
+    trace.count_outermost(rays=n)
     T = table.num_tiles
-    escalations = 0
-    while True:
-        rec, overflow = nearest_hit_tilecull(
-            rays, scene, packed, table, max_candidates=k,
-            subpackets=subpackets)
-        if not bool(overflow) or k >= T:
-            trace.checked("closest", escalations)
-            return rec, escalations
-        k = min(2 * k, -(-T // LANES) * LANES)
-        escalations += 1
+
+    def grow(budgets):
+        (k,) = budgets
+        return None if k >= T else (min(2 * k, -(-T // LANES) * LANES),)
+    return _escalate(lambda k: nearest_hit_tilecull(
+        rays, scene, packed, table, max_candidates=k, subpackets=subpackets),
+        n, (max_candidates,), grow)

@@ -24,9 +24,7 @@ import struct
 import torch
 from torch import Tensor
 
-from tracer_torch.kernels import _lib
-
-CHUNK = 4   # W, listed tiles per item: the fastest of 4, 8, 16 (chip_smoke.py)
+CHUNK = 4   # W, listed tiles per item: the fastest of 4, 8, 16 on the card
 _LOW = 0xFFFFFFFF
 
 
@@ -74,10 +72,3 @@ def item_table(starts: Tensor, walked: Tensor, chunk: int = CHUNK):
                     max=chunk)
     return row, first, n
 
-
-def grid(walk: str, device: torch.device) -> int:
-    """The persistent grid the ``walk`` kernel ("tilecull" or "cull")
-    launches on ``device``: SMs x resident 128-thread CTAs."""
-    lib = _lib.load()
-    with torch.cuda.device(device):
-        return getattr(lib, f"tracer_{walk}_grid")()

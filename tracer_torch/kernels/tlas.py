@@ -65,8 +65,8 @@ from tracer_torch.kernels.leafcull import (FEAT, MISS_KEY, _BIG, _NOSLOT,
 # g-block rows merged at a time: bounds the gathered (rows, kc, SP*S)
 # temporaries (the JAX _tlas_merge's row_block).
 _MERGE_ROWS = 64
-# Prims per item of the routed walk: the fastest of 128/256/512 on the 10M
-# rows (chip_smoke.py sweeps them), where the render's leaf walks keep 128.
+# Prims per item of the routed walk: the fastest of 128/256/512 in an
+# on-card sweep of the 10M rows, where the render's leaf walks keep 128.
 ROUTED_ITEM_PRIMS = 256
 
 
@@ -323,25 +323,17 @@ def routed_cuda(pair_c: Tensor, pair_gb: Tensor, cand: Tensor,
 
     Same arguments and (Np, SP, S) outputs as :func:`routed_plain`. Raises
     for tensors that are not on one CUDA device. Reads no device value on
-    the host. Adds one to ``routed_cuda.launches`` per launch.
+    the host.
     """
-    _lib.require_cuda("routed_cuda", pair_c, pair_gb, cand, feats, prims)
+    dev = _lib.require_cuda("routed_cuda", pair_c, pair_gb, cand, feats,
+                            prims)
     _check_routed_args(pair_c, pair_gb, cand, feats, prims, leaf_size,
                        leaves_per_chunk)
-    return _routed_launch(pair_c, pair_gb, cand, feats, prims, leaf_size,
-                          leaves_per_chunk, leaves_per_group,
-                          item_leaves(leaf_size, ROUTED_ITEM_PRIMS))
-
-
-def _routed_launch(pair_c: Tensor, pair_gb: Tensor, cand: Tensor,
-                   feats: Tensor, prims: Tensor, leaf_size: int,
-                   leaves_per_chunk: int, leaves_per_group: int, chunk: int):
-    """:func:`routed_cuda` with items of ``chunk`` walked leaves."""
-    dev = feats.device
     npairs, S, rowlen = cand.shape
     SP = feats.shape[2]
     if not 1 <= SP <= 1024:
         raise ValueError(f"subpacket {SP} is not a valid CTA size")
+    chunk = item_leaves(leaf_size, ROUTED_ITEM_PRIMS)
     pair_c, pair_gb, cand, feats, prims = (
         x.contiguous() for x in (pair_c, pair_gb, cand, feats, prims))
     starts = tilewalk.plan_items(walked_leaves(cand, leaves_per_group), chunk)
@@ -349,19 +341,10 @@ def _routed_launch(pair_c: Tensor, pair_gb: Tensor, cand: Tensor,
                       device=dev)
     t = torch.empty((npairs, SP, S), dtype=torch.float32, device=dev)
     slot = torch.empty((npairs, SP, S), dtype=torch.int32, device=dev)
-    lib = _lib.load()
-    with torch.cuda.device(dev):
-        rc = lib.tracer_routed(
-            _lib.ptr(pair_c), _lib.ptr(pair_gb), _lib.ptr(feats),
-            _lib.ptr(cand), _lib.ptr(prims), _lib.ptr(starts), _lib.ptr(keys),
-            _lib.ptr(t), _lib.ptr(slot), npairs, S, SP, rowlen, leaf_size,
-            leaves_per_chunk, leaves_per_group, chunk, _lib.stream(dev))
-    _lib.check(lib, rc, "routed_cuda")
-    routed_cuda.launches += 1
+    _lib.launch("routed_cuda", "tracer_routed", dev, pair_c, pair_gb, feats,
+                cand, prims, starts, keys, t, slot, npairs, S, SP, rowlen,
+                leaf_size, leaves_per_chunk, leaves_per_group, chunk)
     return t, slot
-
-
-routed_cuda.launches = 0
 
 
 @trace.spanned("walk")

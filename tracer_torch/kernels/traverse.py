@@ -47,11 +47,11 @@ from tracer_torch.scene.scene import Scene
 PACKET = 1024          # rays per packet
 RAY_COLS = 8           # per-ray columns: ox oy oz dx dy dz 0 0
 _HUGE = 3.0e38         # 1/d stand-in where d == 0
-# The kernel's split (chip_smoke.py sweeps them on the render's walks): the
-# first launch's step cap and the resume launch's cluster size.
+# The kernel's split, the fastest in an on-card sweep of caps 64/256/1024
+# and clusters of 1-16 CTAs on the render's walks: the first launch's step
+# cap and the resume launch's cluster size (1, 2, 4, 8 or 16).
 STEP_CAP = 256
 CLUSTER = 8
-CLUSTERS = (1, 2, 4, 8, 16)   # the cluster sizes the kernel takes
 
 
 @dataclass
@@ -259,57 +259,23 @@ def traverse_cuda(rays: Tensor, packed: PackedBVH):
 
     Same arguments and (t, slot, steps) outputs as :func:`traverse_plain`.
     Raises for tensors that are not on one CUDA device, and when the card
-    refuses a launch. Reads no device value on the host. Adds one to
-    ``traverse_cuda.launches`` per call.
+    refuses a launch. Reads no device value on the host.
     """
-    _lib.require_cuda("traverse_cuda", rays, packed.nodes, packed.links,
-                      packed.prims)
+    dev = _lib.require_cuda("traverse_cuda", rays, packed.nodes,
+                            packed.links, packed.prims)
     _check_args(rays, packed)
-    return _traverse_launch(rays, packed, CLUSTER, STEP_CAP)
-
-
-def _traverse_launch(rays: Tensor, packed: PackedBVH, cluster: int,
-                     cap: int):
-    """:func:`traverse_cuda` with the resume launch's cluster size and the
-    step cap of the first launch (0: one launch walks every packet to its
-    end)."""
-    if cluster not in CLUSTERS:
-        raise ValueError(f"cluster size {cluster} not in {CLUSTERS}")
     if not 1 <= packed.leaf_size <= 32:
         raise ValueError(f"leaf_size {packed.leaf_size} not in 1..32")
-    dev = rays.device
     g = rays.shape[0]
     rays = rays.contiguous()
     t = torch.empty((g, PACKET), dtype=torch.float32, device=dev)
     slot = torch.empty((g, PACKET), dtype=torch.int32, device=dev)
     steps = torch.empty((g,), dtype=torch.int32, device=dev)
     scratch = torch.empty((1 + 2 * g,), dtype=torch.int32, device=dev)
-    lib = _lib.load()
-    with torch.cuda.device(dev):
-        rc = lib.tracer_traverse(
-            _lib.ptr(rays), _lib.ptr(packed.nodes), _lib.ptr(packed.links),
-            _lib.ptr(packed.prims), _lib.ptr(t), _lib.ptr(slot),
-            _lib.ptr(steps), _lib.ptr(scratch), g, packed.num_nodes,
-            packed.leaf_size, cluster, cap, _lib.stream(dev))
-    _lib.check(lib, rc, "traverse_cuda")
-    traverse_cuda.launches += 1
+    _lib.launch("traverse_cuda", "tracer_traverse", dev, rays, packed.nodes,
+                packed.links, packed.prims, t, slot, steps, scratch, g,
+                packed.num_nodes, packed.leaf_size, CLUSTER, STEP_CAP)
     return t, slot, steps
-
-
-traverse_cuda.launches = 0
-
-
-def resume_clusters(cluster: int, leaf_size: int,
-                    device: torch.device) -> int:
-    """Clusters of ``cluster`` CTAs the resume launch keeps resident on
-    ``device`` (the occupancy query; its grid is this many clusters, or
-    the packet count when smaller). Raises when the query fails."""
-    lib = _lib.load()
-    with torch.cuda.device(device):
-        n = lib.tracer_traverse_clusters(cluster, leaf_size)
-    if n < 0:
-        _lib.check(lib, -n, "traverse_cuda occupancy query")
-    return n
 
 
 @trace.spanned("walk")
