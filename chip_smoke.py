@@ -25,6 +25,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
    spheres in 8 chunks, where the routed query must also equal the dense
    multi-chunk one, and on skewed routed rows (the first row of each
    chunk's first pair walks every group, the others 1-2 leaves);
+3c. prep (``prep_slice``): ``prep_cuda`` against the torch operations it
+   replaces (``prep_feats_plain``), rows as bits and dest equal, at the
+   shapes of the cells that run it (``PREP_SHAPES``: query_100k's 524,288
+   rays at cell bits 9, query_10m's 131,072, path_100k's 480,000 with
+   98.8 % parked at +x, and a shadow prep with t_max), each call
+   ``PREP_LAUNCHES`` launches, its ``prep`` span reading ``prep_kernel``
+   1; both timed on CUDA events and by the
+   profiler's device time, and the bound;
 4. the closest-hit slice at full size: 100k spheres x 512k origin rays
    through prep, phase A and the leaf walk, its kernel launches counted
    (``_lib.launches``) from just before to just after; overflow, hit
@@ -211,7 +219,10 @@ the differentiable path (phase 7c): the headline query no longer calls
 it; every other kernel's is its own path's count. ``phase_a_cuda``'s
 ``ms``, ``plain_ms`` and ``bound_ms`` are the headline's (phase 4), with
 the 10M rows' (``*_10m``) and the render's three-chunk camera rows at the
-render's budgets (``*_chunks``, phase 7a) beside them.
+render's budgets (``*_chunks``, phase 7a) beside them. ``prep_cuda``'s
+are those of query_100k's shape (phase 3c), with query_10m's (``*_10m``)
+and path_100k's (``*_path``) beside them; its ``ms`` is the whole call,
+the sort's launches included.
 
 Each kernel's ``ms`` in the per-kernel line is its wrapper's call timed
 on CUDA events over back-to-back calls; ``compact_cuda``'s is summed over
@@ -520,6 +531,116 @@ def tie_breaks(device):
             raise AssertionError(f"tie-break: slots {slot.unique()} and "
                                  f"{plain.unique()}, want {want}")
     log("walk tie-breaks: lowest slot, then lowest chunk")
+
+
+# Prep's shapes (phase 3c): (name, rays, subpackets, subpacket, cell bits,
+# share of live rays, the rest parked at +x from 1e18 as the renderer parks
+# dead rays, and whether each ray has a t_max).
+PREP_SHAPES = (("query_100k", 524_288, 8, 128, 9, 1.0, False),
+               ("query_10m", 131_072, 8, 128, 8, 1.0, False),
+               ("path_100k", 480_000, 8, 64, 8, 0.012, False),
+               ("shadow t_max", 524_288, 8, 64, 8, 1.0, True))
+PREP_LAUNCHES = 3       # prep_cuda's own launches a call, the sort's aside
+
+
+def prep_rays(n, live, gen, device):
+    """(o, d, t_max) of ``n`` rays: the first ``live`` share from origins
+    uniform in the 1000-unit world with cube-uniform unit directions, the
+    rest parked at +x from 1e18; t_max uniform in [1, 1000)."""
+    import torch
+    k = int(round(n * live))
+    o = torch.rand((n, 3), generator=gen, device=device) * 1000 - 500
+    d = torch.rand((n, 3), generator=gen, device=device) * 2 - 1
+    d = d / d.norm(dim=1, keepdim=True)
+    o[k:] = 1e18
+    d[k:] = torch.tensor([1.0, 0.0, 0.0], device=device)
+    return o, d, torch.rand(n, generator=gen, device=device) * 999 + 1
+
+
+@uncounted()
+def prep_check(name, n, S, SP, cell_bits, live, with_t_max, dev):
+    """``prep_cuda`` against ``prep_feats_plain`` on the same rays, rows
+    (as bits) and dest equal, ``PREP_LAUNCHES`` launches a call, the
+    ``prep`` span of ``prep_feats_bucketed`` reading ``prep_kernel`` 1;
+    then both
+    timed on CUDA events, their device time a call by torch.profiler
+    (prep's three kernels and the radix sort's apart), and the bound:
+    o, d, perm (and t_max) read once, the rows and dest written once.
+    Returns the results row."""
+    import torch
+    from tracer_torch.bench.profile import profile_calls
+    from tracer_torch.bench.timing import time_cuda
+    from tracer_torch import trace
+    from tracer_torch.kernels import _lib
+    from tracer_torch.kernels.leafcull import (prep_cuda, prep_feats_bucketed,
+                                               prep_feats_plain)
+    gen = torch.Generator(device=dev).manual_seed(23 + n)
+    o, d, tm = prep_rays(n, live, gen, dev)
+    args = (o, d, S, SP, cell_bits, tm if with_t_max else None)
+    before = _lib.launches["prep_cuda"]
+    feats, dest = prep_cuda(*args)
+    launched = _lib.launches["prep_cuda"] - before
+    pfeats, pdest = prep_feats_plain(*args)
+    torch.cuda.synchronize()
+    if launched != PREP_LAUNCHES:
+        raise AssertionError(f"prep {name}: {launched} prep_cuda launches")
+    if feats.shape != pfeats.shape:
+        raise AssertionError(f"prep {name}: rows {tuple(feats.shape)}, "
+                             f"plain {tuple(pfeats.shape)}")
+    rows_equal = (feats.view(torch.int32) == pfeats.view(torch.int32)) \
+        .reshape(-1, feats.shape[-1]).all(1)
+    if not bool(rows_equal.all()) or not torch.equal(dest, pdest):
+        raise AssertionError(
+            f"prep {name}: prep_cuda differs from the plain version on "
+            f"{int((~rows_equal).sum())} of {rows_equal.numel()} rows and "
+            f"{int((dest != pdest).sum())} of {n} dest")
+    trace.reset()
+    with trace.enabled():
+        prep_feats_bucketed(*args)
+    kernel = [s["counters"].get("prep_kernel") for r in trace.records()
+              for s in r["spans"] if s["name"] == "tracer_torch.prep"]
+    trace.reset()
+    if kernel != [1]:
+        raise AssertionError(f"prep {name}: prep spans read prep_kernel "
+                             f"{kernel}")
+    ms = time_cuda(prep_cuda, *args)
+    plain_ms = time_cuda(prep_feats_plain, *args, warmup=1, iters=3)
+    kr = profile_calls(prep_cuda, *args, iters=5,
+                       names=("prep_", "RadixSort"))
+    pr = profile_calls(prep_feats_plain, *args, iters=3)
+    perm_bytes = n * 8
+    bms, bby = bound(nbytes(o, d, feats, dest) + perm_bytes
+                     + (nbytes(tm) if with_t_max else 0), 0)
+
+    def dev_ms(r, key):
+        return None if r["shares"] is None else r["shares"][key] \
+            * r["window_ms"]
+    log(f"prep {name} ({n} rays, S {S} x SP {SP}, cell bits {cell_bits}, "
+        f"live {live}, t_max {with_t_max}): rows and dest bit for bit the "
+        f"plain version's on {feats.shape[0] * S * SP} slots; "
+        f"{launched} prep_cuda launches, the prep span reading prep_kernel "
+        f"1; cuda {ms:.4f} ms (events), device "
+        f"{fmt_ms(kr['device_ms'])} a call in {kr['launches']} launches "
+        f"(prep's kernels {fmt_ms(dev_ms(kr, 'prep_'))}, radix sort "
+        f"{fmt_ms(dev_ms(kr, 'RadixSort'))}); plain {plain_ms:.4f} ms "
+        f"(events), device {fmt_ms(pr['device_ms'])} in {pr['launches']} "
+        f"launches; bound {bms:.4f} ms ({bby})")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bms,
+                bound_by=bby, max_abs_err=0, launches=launched,
+                device_ms=kr["device_ms"])
+
+
+def prep_slice(dev, results):
+    """Phase 3c: ``prep_cuda`` at each of ``PREP_SHAPES``; the results row
+    is query_100k's, with the 10M query's (``*_10m``) and the path frame's
+    (``*_path``) beside it."""
+    rows = {name: prep_check(name, *shape, dev)
+            for name, *shape in PREP_SHAPES}
+    results["prep_cuda"] = rows["query_100k"]
+    for suffix, name in (("_10m", "query_10m"), ("_path", "path_100k")):
+        results["prep_cuda"].update(
+            {f"{k}{suffix}": rows[name][k]
+             for k in ("ms", "plain_ms", "bound_ms", "device_ms")})
 
 
 def masked_rows(P, M, gen, device):
@@ -1387,7 +1508,9 @@ def phase_a_check(name, bounds, tables, S, budgets, pairs=(), timed=True):
 def phase_a_calls(name, frame, tables):
     """One frame (``frame()``) with ``cone_candidates``' calls recorded and
     the trace on; each call must launch ``phase_a_cuda`` once, and each
-    ``phase_a`` span read ``phase_a_kernel`` 1; the kernel held to the
+    ``phase_a`` span read ``phase_a_kernel`` 1; each of the frame's preps
+    must launch ``prep_cuda`` ``PREP_LAUNCHES`` times, and each ``prep``
+    span read ``prep_kernel`` 1; the kernel held to the
     torch operations, rows and flag bit for bit, on every call's bounds
     at that call's budgets. Returns each bounce's feature planes (its
     first call, at the render's budgets) and those budgets."""
@@ -1402,8 +1525,11 @@ def phase_a_calls(name, frame, tables):
     with recording(kcone, "cone_candidates", calls), trace.enabled():
         frame()
     torch.cuda.synchronize()
-    kernel = [s["counters"].get("phase_a_kernel") for r in trace.records()
-              for s in r["spans"] if s["name"] == "tracer_torch.phase_a"]
+    spans = [s for r in trace.records() for s in r["spans"]]
+    kernel = [s["counters"].get("phase_a_kernel") for s in spans
+              if s["name"] == "tracer_torch.phase_a"]
+    prep = [s["counters"].get("prep_kernel") for s in spans
+            if s["name"] == "tracer_torch.prep"]
     trace.reset()
     launched = _lib.launches["phase_a_cuda"] - before["phase_a_cuda"]
     if launched != len(calls):
@@ -1412,10 +1538,17 @@ def phase_a_calls(name, frame, tables):
     if kernel != [1] * len(calls):
         raise AssertionError(f"{name}: phase_a spans read phase_a_kernel "
                              f"{kernel}")
+    prepped = _lib.launches["prep_cuda"] - before["prep_cuda"]
+    if not prep or prep != [1] * len(prep) \
+            or prepped != PREP_LAUNCHES * len(prep):
+        raise AssertionError(f"{name}: prep spans read prep_kernel {prep}, "
+                             f"{prepped} prep_cuda launches")
     log(f"{name}: {cull.num_chunks} chunks of "
         f"{cull.num_groups // cull.num_chunks} groups, {len(calls)} phase A "
         f"calls a frame, each one phase_a_cuda launch and a phase_a span "
-        f"reading phase_a_kernel 1")
+        f"reading phase_a_kernel 1; {len(prep)} preps, each "
+        f"{PREP_LAUNCHES} prep_cuda launches and a prep span reading "
+        f"prep_kernel 1")
     bounces = []
     for i, (feats, _, mg, mc) in enumerate(calls):
         if (mg, mc) == tuple(calls[0][2:4]):
@@ -2198,8 +2331,9 @@ def time_compactor(name, ids, sentinel, keep):
 
 # The kernels each row path of the sweep launches per query.
 SWEEP_KERNELS = {"dense_brute_fast": set(),
-                 "hybrid_feats": {"leafcull_cuda", "phase_a_cuda"},
-                 "tlas_routed": {"routed_cuda", "compact_cuda",
+                 "hybrid_feats": {"prep_cuda", "leafcull_cuda",
+                                  "phase_a_cuda"},
+                 "tlas_routed": {"prep_cuda", "routed_cuda", "compact_cuda",
                                  "phase_a_cuda"}}
 TOOLS_RENDER = ["render", "--scene", "benchmark", "--spheres", "100000",
                 "--compact"]   # path/auto, 800x600, depth 5
@@ -2442,7 +2576,7 @@ def sweep_slice(comp):
     rows.clear()
     torch.cuda.empty_cache()
     log(f"sweep complexity: {json.dumps(rec['complexity'])}")
-    missing = {"leafcull_cuda", "compact_cuda", "routed_cuda",
+    missing = {"prep_cuda", "leafcull_cuda", "compact_cuda", "routed_cuda",
                "phase_a_cuda"} - set(launches)
     if missing:
         raise AssertionError(f"the sweep launched no {sorted(missing)}")
@@ -2630,9 +2764,10 @@ def dist_slice(dev, scene, tables, o, d):
     (ts, ids, ovf), n = run_counted(nearest_hit_sharded, rays, scene, mesh,
                                     head)
     log(f"dist sharded headline query launches: {n}")
-    if n != {"leafcull_cuda": 1, "phase_a_cuda": 1}:
-        raise AssertionError("the sharded query did not launch phase A and "
-                             "the leaf walk once each")
+    if n != {"prep_cuda": PREP_LAUNCHES, "leafcull_cuda": 1,
+             "phase_a_cuda": 1}:
+        raise AssertionError("the sharded query did not launch prep, phase "
+                             "A and the leaf walk once each")
     tu, idu, ovu = head(rays, scene)
     if bool(ovf.any()) or bool(ovu.any()):
         raise AssertionError("the headline query overflowed")
@@ -2648,7 +2783,8 @@ def dist_slice(dev, scene, tables, o, d):
     log(f"dist measure_scaling: {json.dumps(rows)}")
 
     # -- the sharded path frames ----------------------------------------------
-    for impl, kernels in (("auto", ("leafcull_cuda", "phase_a_cuda")),
+    for impl, kernels in (("auto", ("prep_cuda", "leafcull_cuda",
+                                    "phase_a_cuda")),
                           ("pallas", ("traverse_cuda",))):
         args = [a for a in brender.argv("path", impl) if a != "--compact"]
         sess = cli.prepare(cli.build_parser().parse_args(args))
@@ -2976,6 +3112,7 @@ def main(argv=None) -> int:
     skewed_leaf_walks(dev)
     packet_and_tile_walks(dev)
     packet_cull_walks(dev)
+    prep_slice(dev, results)
 
     # -- 4. the closest-hit slice at full size -----------------------------
     scene, tables, o, d, build_ms = headline.benchmark_inputs(dev)
@@ -2986,11 +3123,14 @@ def main(argv=None) -> int:
     with comp.record():
         t, slot, dest, overflow = headline.query(o, d, tables)
     torch.cuda.synchronize()
-    launches = launches_since(before, "leafcull_cuda", "phase_a_cuda")
+    launches = launches_since(before, "prep_cuda", "leafcull_cuda",
+                              "phase_a_cuda")
     log(f"closest-hit slice launches: {launches}")
     comp.check("headline", timed=2)
-    if min(launches.values()) < 1:
-        raise AssertionError("the slice did not run through every kernel")
+    if launches != {"prep_cuda": PREP_LAUNCHES, "leafcull_cuda": 1,
+                    "phase_a_cuda": 1}:
+        raise AssertionError("the slice did not run prep, phase A and the "
+                             "walk through their kernels")
     if bool(overflow):
         raise AssertionError("phase A overflowed at the bench budgets")
     tr, sr = t[dest], slot[dest]
@@ -3036,10 +3176,12 @@ def main(argv=None) -> int:
     with comp.record():
         occ, sdest, s_overflow = headline.shadow_query(o, d, tables)
     torch.cuda.synchronize()
-    s_launches = launches_since(before, "anyhit_cuda", "phase_a_cuda")
+    s_launches = launches_since(before, "prep_cuda", "anyhit_cuda",
+                                "phase_a_cuda")
     log(f"shadow slice launches: {s_launches}")
     comp.check("shadow")
-    if min(s_launches.values()) < 1:
+    if min(s_launches.values()) < 1 \
+            or s_launches["prep_cuda"] != PREP_LAUNCHES:
         raise AssertionError("the shadow slice did not run through every "
                              "kernel")
     if bool(s_overflow):
@@ -3106,11 +3248,12 @@ def main(argv=None) -> int:
     with comp.record():
         bt, bslot, bdest, b_overflow = large.query(bo, bd, btables, budget)
     torch.cuda.synchronize()
-    b_launches = launches_since(before, "routed_cuda", "compact_cuda",
-                                "phase_a_cuda")
+    b_launches = launches_since(before, "prep_cuda", "routed_cuda",
+                                "compact_cuda", "phase_a_cuda")
     log(f"TLAS slice launches: {b_launches}")
     comp.check("10M TLAS", timed=3)
-    if min(b_launches.values()) < 1:
+    if min(b_launches.values()) < 1 \
+            or b_launches["prep_cuda"] != PREP_LAUNCHES:
         raise AssertionError("the TLAS slice did not run through every "
                              "kernel")
     if bool(b_overflow):
@@ -3234,6 +3377,9 @@ def main(argv=None) -> int:
                          "none (XLA operations: tracer/kernels/conecull.py "
                          "cone_candidates, tracer/kernels/tlas.py "
                          "tlas_candidates)"),
+        "prep_cuda": ("tracer_torch/csrc/prep.cu",
+                      "none (XLA operations: tracer/kernels/leafcull.py:475 "
+                      "prep_feats_bucketed)"),
     }
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
@@ -3242,7 +3388,7 @@ def main(argv=None) -> int:
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          **{k: results[name][k] for k in keys},
          **{k: v for k, v in results[name].items()
-            if k.endswith(("_10m", "_chunks"))}}
+            if k.endswith(("_10m", "_chunks", "_path"))}}
         for name, (src, rep) in meta.items()]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

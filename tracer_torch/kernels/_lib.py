@@ -50,6 +50,8 @@ def nvcc() -> str:
 def load() -> ctypes.CDLL:
     """Build the kernels if stale, load them once per process."""
     global _lib, build_seconds, build_log
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             t0 = time.perf_counter()
@@ -79,6 +81,12 @@ def load() -> ctypes.CDLL:
             lib.tracer_phase_a.argtypes = [vp] * 9 + [i] * 12 + [vp]
             lib.tracer_phase_a_chunks.restype = i
             lib.tracer_phase_a_chunks.argtypes = [vp] * 6 + [i] * 12 + [vp]
+            lib.tracer_prep_keys.restype = i
+            lib.tracer_prep_keys.argtypes = [vp] * 2 + [i] + [vp]
+            lib.tracer_prep_cells.restype = i
+            lib.tracer_prep_cells.argtypes = [vp] * 2 + [i] * 3 + [vp]
+            lib.tracer_prep_rows.restype = i
+            lib.tracer_prep_rows.argtypes = [vp] * 8 + [i] * 4 + [vp]
             lib.tracer_cuda_error_string.restype = ctypes.c_char_p
             lib.tracer_cuda_error_string.argtypes = [i]
             _lib = lib
@@ -91,12 +99,15 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
 
 
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def ptr(t: torch.Tensor) -> int:
+    return t.data_ptr()
 
 
-def stream(device: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+def stream(device: torch.device) -> int:
+    """The raw ``cudaStream_t`` of ``device``'s current stream."""
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def launch(name: str, entry: str, device: torch.device, *args) -> None:

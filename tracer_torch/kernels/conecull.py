@@ -669,11 +669,10 @@ def kernel_order_dest(dest: Tensor, subpackets: int, subpacket: int) -> Tensor:
     """Map prep ``dest`` (padded-stream slots) to the leaf walk's raw output
     order: padded slot b = (g*S + s)*SP + r sits at g*SP*S + r*S + s."""
     S, SP = subpackets, subpacket
-    g = dest // (S * SP)
-    rem = dest - g * (S * SP)
-    s = rem // SP
-    r = rem - s * SP
-    return g * (SP * S) + r * S + s
+    q = dest // SP                                  # g*S + s
+    r = torch.add(dest, q, alpha=-SP)
+    # g*SP*S + r*S + s = b + r*(S - 1) - s*(SP - 1)
+    return torch.add(dest, r, alpha=S - 1).sub_(q % S, alpha=SP - 1)
 
 
 @trace.spanned("nearest")

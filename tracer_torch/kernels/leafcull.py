@@ -19,6 +19,11 @@ persistent grid; the closest hit merges each ray's best by an
 ``atomicMin`` on the key (float bits of -u) << 32 | slot, the any hit ORs
 its flags.
 
+Prep (:func:`prep_feats_bucketed`: the octahedral sort, the cell bucket
+padding and the feature rows) is hand-written CUDA and ``torch.sort`` on
+CUDA tensors (``prep_cuda``, ``csrc/prep.cu``) and the torch operations on
+CPU tensors (``prep_feats_plain``), bit for bit alike.
+
 Number semantics follow the reference acceptance rule (disc > 0, near root
 only, t > EPSILON; src/hit.c:19-39) in f32, on the reference's sums over
 oc = o - c (:func:`ray_prim_u`), so rays from anywhere get its answers.
@@ -212,17 +217,14 @@ def pack_ray_features(o: Tensor, d: Tensor, subpackets: int, subpacket: int,
     return feats.reshape(g, subpackets, subpacket, FEAT), g, pad
 
 
-@trace.spanned("prep")
-def prep_feats_bucketed(o: Tensor, d: Tensor, subpackets: int,
-                        subpacket: int, cell_bits: int = 8,
-                        t_max: Tensor | None = None):
-    """Sort + bucket-pad + feature pack, with the ray permutation applied
-    once as a (bp, FEAT) row gather.
-
-    Returns (feats (G, S, SP, FEAT), dest (B,) int64): dest maps each input
-    ray to its slot in the padded stream (``conecull.kernel_order_dest``
-    maps that to the leaf walk's raw output order).
-    """
+def prep_feats_plain(o: Tensor, d: Tensor, subpackets: int,
+                     subpacket: int, cell_bits: int = 8,
+                     t_max: Tensor | None = None):
+    """:func:`prep_feats_bucketed` as torch operations: the octahedral
+    codes, a stable sort, ``plan_bucket_pad``, the feature rows gathered
+    through the ray permutation once as a (bp, FEAT) row gather, padded to
+    the step with the last row, and dest scattered through the
+    permutation. What CPU tensors run, and the kernels' yardstick."""
     step = subpackets * subpacket
     codes = octahedral_codes(d)
     sc, perm = torch.sort(codes, stable=True)
@@ -232,6 +234,86 @@ def prep_feats_bucketed(o: Tensor, d: Tensor, subpackets: int,
     feats = _feature_rows(o, d, t_max)[perm[src]]         # (bp, FEAT)
     feats = _pad_edge(feats, (-feats.shape[0]) % step)
     return feats.reshape(-1, subpackets, subpacket, FEAT), dest
+
+
+PREP_MAX_CELL_BITS = 12   # the cell table of csrc/prep.cu: 48 KB of ints
+
+
+def _check_prep_args(o: Tensor, d: Tensor, subpackets: int, subpacket: int,
+                     cell_bits: int, t_max: Tensor | None) -> None:
+    b = o.shape[0]
+    if o.dim() != 2 or tuple(d.shape) != (b, 3) or o.shape[1] != 3 \
+            or o.dtype != torch.float32 or d.dtype != torch.float32:
+        raise ValueError(f"o and d must be (B, 3) float32, got "
+                         f"{tuple(o.shape)} {o.dtype}, {tuple(d.shape)} "
+                         f"{d.dtype}")
+    if t_max is not None and (t_max.numel() != b
+                              or t_max.dtype != torch.float32):
+        raise ValueError(f"t_max must hold {b} float32 values, got "
+                         f"{tuple(t_max.shape)} {t_max.dtype}")
+    if not 0 <= cell_bits <= PREP_MAX_CELL_BITS:
+        raise ValueError(f"cell_bits {cell_bits} outside 0.."
+                         f"{PREP_MAX_CELL_BITS}")
+    if b < 1 or subpackets < 1 or subpacket < 1:
+        raise ValueError(f"{b} rays in subpackets {subpackets} x "
+                         f"{subpacket}")
+    step = subpackets * subpacket
+    if -(-(b + (subpacket << cell_bits)) // step) * step >= 2 ** 31:
+        raise ValueError(f"{b} rays pad past 2^31 slots")
+
+
+def prep_cuda(o: Tensor, d: Tensor, subpackets: int, subpacket: int,
+              cell_bits: int = 8, t_max: Tensor | None = None):
+    """:func:`prep_feats_bucketed` as hand-written CUDA (``csrc/prep.cu``)
+    and ``torch.sort``: each ray's octahedral code as an int32 key with its
+    sign bit flipped (one launch), the stable sort of the keys, the cell
+    table of the bucket padding (one block), and one pass over the padded
+    slots that writes every feature row and dest. Three launches besides
+    the sort's; nothing over the slots is planned in device memory.
+    Returns (feats, dest), bit for bit :func:`prep_feats_plain`'s. Raises
+    for tensors that are not on one CUDA device, and for arguments the
+    kernels do not take."""
+    _check_prep_args(o, d, subpackets, subpacket, cell_bits, t_max)
+    dev = _lib.require_cuda("prep_cuda", o, d,
+                            *(() if t_max is None else (t_max,)))
+    b = o.shape[0]
+    step = subpackets * subpacket
+    bp = b + (subpacket << cell_bits)
+    total = -(-bp // step) * step
+    o, d = o.contiguous(), d.contiguous()
+    tm = None if t_max is None else t_max.reshape(-1).contiguous()
+    keys = torch.empty(b, dtype=torch.int32, device=dev)
+    _lib.launch("prep_cuda", "tracer_prep_keys", dev, d, keys, b)
+    sorted_keys, perm = torch.sort(keys, stable=True)
+    cells = torch.empty((3, 1 << cell_bits), dtype=torch.int32, device=dev)
+    _lib.launch("prep_cuda", "tracer_prep_cells", dev, sorted_keys, cells, b,
+                subpacket, cell_bits)
+    feats = torch.empty((total // step, subpackets, subpacket, FEAT),
+                        dtype=torch.float32, device=dev)
+    dest = torch.empty(b, dtype=torch.int64, device=dev)
+    _lib.launch("prep_cuda", "tracer_prep_rows", dev, o, d, tm, sorted_keys,
+                perm, cells, feats, dest, b, total, bp, cell_bits)
+    return feats, dest
+
+
+@trace.spanned("prep")
+def prep_feats_bucketed(o: Tensor, d: Tensor, subpackets: int,
+                        subpacket: int, cell_bits: int = 8,
+                        t_max: Tensor | None = None):
+    """Sort + bucket-pad + feature pack of (B, 3) rays.
+
+    Returns (feats (G, S, SP, FEAT), dest (B,) int64): dest maps each input
+    ray to its slot in the padded stream (``conecull.kernel_order_dest``
+    maps that to the leaf walk's raw output order). CUDA tensors take
+    :func:`prep_cuda`, CPU tensors :func:`prep_feats_plain`; the trace
+    counts which ran as ``prep_kernel`` (1 the kernels, 0 the torch
+    operations).
+    """
+    kernel = o.device.type != "cpu"
+    prep = prep_cuda if kernel else prep_feats_plain
+    feats, dest = prep(o, d, subpackets, subpacket, cell_bits, t_max)
+    trace.count(prep_kernel=int(kernel))
+    return feats, dest
 
 
 # ---------------------------------------------------------------------------
