@@ -396,3 +396,57 @@ def test_render_profile_names_the_spans_and_metrics_keep_the_counts(
                                     "closest_escalations": counters[
                                         "tracer_torch.nearest"]["escalations"]}
         assert counters["tracer_torch.nearest"]["calls"] == calls
+
+
+DIRECT = ["render", "--mode", "direct", "--device", "cpu", "--width", "64",
+          "--height", "48", "--spheres", "1000", "--scene", "benchmark",
+          "--world-size", "40", "--impl", "leafcull"]
+
+
+@pytest.mark.parametrize("compact", [False, True])
+def test_direct_frame_spans_and_shadow_counters(compact):
+    """A traced direct frame (``--impl leafcull``: the checked closest-hit
+    and shadow drivers) is one ``render`` root holding one ``nearest``
+    call (its tries nested inside it) and one ``shadow`` span, with the
+    ``occluded`` call inside it (and the wavefront's compaction, where
+    on); ``shadow`` counts ``live_rays``, the frame's hit pixels, and
+    ``slots``, the shadow query's rays. The frame is bit-equal with the
+    trace off, which counts nothing."""
+    from tracer_torch.scene.camera import camera_rays
+    session = cli.prepare(cli.build_parser().parse_args(
+        DIRECT + ["--compact" if compact else "--no-compact"]))
+    cam, cfg = session.camera, session.config
+    slots = cfg.width * cfg.height
+    hits = int(session.nearest(session.scene)(camera_rays(cam, cfg))
+               .hit.sum())
+    assert 0 < hits < slots
+    trace.reset()
+    off = session.frame(cam, None)
+    assert trace.records() == []
+    with trace.enabled():
+        on = session.frame(cam, None)
+    assert torch.equal(on, off)
+    (root,) = trace.records()
+    assert root["name"] == "tracer_torch.render"
+    by_id = {s["id"]: s for s in root["spans"]}
+
+    def parent(s):
+        return by_id[s["parent"]]["name"]
+
+    def calls(name):
+        """The outermost spans of ``name``: a checked driver's tries are
+        spans of its name inside it."""
+        return [s for s in _spans([root], name) if parent(s) != name]
+
+    (nearest,) = calls("tracer_torch.nearest")
+    (shadow,) = calls("tracer_torch.shadow")
+    (occluded,) = calls("tracer_torch.occluded")
+    assert parent(nearest) == parent(shadow) == "tracer_torch.render"
+    assert parent(occluded) == "tracer_torch.shadow"
+    compaction = _spans([root], "tracer_torch.compaction")
+    assert [parent(s) for s in compaction] == (
+        ["tracer_torch.shadow"] if compact else [])
+    assert shadow["counters"] == {"live_rays": hits, "slots": slots}
+    assert occluded["counters"] == {"rays": slots, "calls": 1,
+                                    "escalations": 0}
+    assert nearest["counters"]["rays"] == slots

@@ -214,13 +214,17 @@ def make_nearest(args, scene, cam, device, counts: dict,
 
 
 def make_occluded(args, scene, device, counts: dict):
-    """Shadow query for --mode direct: the any-hit leaf walk on the card
-    above 4000 spheres (over a leaf-size-32 tree, as the JAX command
-    builds), checked, its calls and escalations tallied into ``counts``;
-    else the dense oracle."""
+    """Shadow query for --mode direct: the any-hit leaf walk (over a
+    leaf-size-32 tree, as the JAX command builds), checked, its calls and
+    escalations tallied into ``counts``; else the dense oracle. ``--impl
+    leafcull`` takes the leaf walk on any device (its plain version on the
+    CPU), as :func:`make_nearest` does; every other ``--impl`` takes it on
+    the card above 4000 spheres. Without ``--bvh`` the oracle."""
     from tracer_torch.intersect.brute import any_hit_brute
     n = int(scene.centers.shape[0])
-    if device.type == "cuda" and args.bvh and n > DENSE_MAX_SPHERES:
+    walk = args.impl == "leafcull" or (device.type == "cuda"
+                                       and n > DENSE_MAX_SPHERES)
+    if args.bvh and walk:
         from tracer_torch.bvh.builder import build_bvh
         from tracer_torch.kernels.conecull import build_cone_tables
         from tracer_torch.kernels.leafcull import occluded_leafcull_checked

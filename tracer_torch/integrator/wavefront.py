@@ -181,6 +181,10 @@ def trace_direct(nearest_hit: NearestHitFn, occluded: OccludedFn,
     (light - point) with t_max = 1, so one any-hit covers exactly the
     segment; a miss pixel's point is its own origin. ``compact=True``
     parks the shadow rays of miss pixels (:func:`_compact_rays`).
+    The shadow query (compaction, the occlusion call, the un-permute) is
+    the span ``tracer_torch.shadow``; where the trace is on it counts
+    ``live_rays``, the hit pixels whose shadow rays matter (one
+    reduction), and ``slots``, the query's rays.
     """
     batch_shape = rays.batch_shape
     rec = nearest_hit(rays)
@@ -189,12 +193,16 @@ def trace_direct(nearest_hit: NearestHitFn, occluded: OccludedFn,
     tmax = torch.ones(batch_shape, dtype=torch.float32,
                       device=rays.origin.device)
     srays = Ray(origin=rec.point, direction=to_light)
-    if compact:
-        crays, inv = _compact_rays(srays, rec.hit)
-        occ = occluded(crays, tmax.reshape(-1))
-        occ = occ.reshape(-1)[inv].reshape(batch_shape)
-    else:
-        occ = occluded(srays, tmax)
+    with trace.span("shadow"):
+        if trace.on():
+            with trace.counting():
+                trace.count(live_rays=rec.hit.sum(), slots=rec.hit.numel())
+        if compact:
+            crays, inv = _compact_rays(srays, rec.hit)
+            occ = occluded(crays, tmax.reshape(-1))
+            occ = occ.reshape(-1)[inv].reshape(batch_shape)
+        else:
+            occ = occluded(srays, tmax)
 
     dist = torch.linalg.vector_norm(to_light, dim=-1, keepdim=True)
     l = to_light / torch.clamp(dist, min=1e-12)

@@ -3,9 +3,10 @@
 A span is a ``torch.profiler.record_function`` range named
 ``tracer_torch.<layer>`` around one call into a layer (prep, the
 closest-hit call, the shadow call, phase A, routing, the compactor, a
-walk, a frame, a bounce, wavefront compaction, an escalation retry), so
-it sits on the profiler's clock beside the device operations it launched
-and shows in ``render --profile``'s Chrome trace. Each span is also kept
+walk, a frame, a bounce, a direct frame's shadow query, wavefront
+compaction, an escalation retry), so it sits on the profiler's clock
+beside the device operations it launched and shows in ``render
+--profile``'s Chrome trace. Each span is also kept
 in memory: its name, argument, host start and end
 (``time.perf_counter_ns``), the span that opened it, and the id of its
 root span, which every span of one outermost call shares. A counter is taken inside the span where the
