@@ -1178,15 +1178,14 @@ def recording(module, fn_name, into):
 
 def frame_walks(captured):
     """The render slice's walks on the arguments the frames gave them:
-    each leaf walk of the path/auto frame (its rows, time and bound; every
-    launch of an escalating query is kept, the last at each bounce is the
-    budget it settled on), the direct/auto frame's any-hit walk, and the
+    each leaf walk of the path/auto frame (its rows, time and bound; one
+    a bounce, at the budgets its escalation settled on), the direct/auto
+    frame's any-hit walk, and the
     path/pallas frame's packet walks (each bounce against its plain
     version, its steps per packet, time, time per step of its longest
     packet and bound; then the split's sweep over the five) and the
     direct/pallas frame's against its plain version."""
     import types
-    import torch
     from tracer_torch.bench.timing import time_cuda
     from tracer_torch.kernels.leafcull import anyhit_cuda, leafcull_cuda
     from tracer_torch.kernels.traverse import traverse_cuda
@@ -1201,11 +1200,7 @@ def frame_walks(captured):
     heaviest = None
     for i, a in enumerate(calls):
         feats, rows = a[0], a[1]
-        nxt = calls[i + 1][0] if i + 1 < len(calls) else None
-        settled = nxt is None or nxt.shape != feats.shape \
-            or not torch.equal(nxt, feats)
-        name = (f"path/auto leaf walk {i} ("
-                f"{'settled' if settled else 'escalates'})")
+        name = f"path/auto leaf walk {i}"
         leaf_rows(f"{name} rows", rows, a[5])
         ms = time_cuda(leafcull_cuda, *a)
         walked = walked_leaves(rows, a[5])
@@ -1213,8 +1208,7 @@ def frame_walks(captured):
                               rows[..., 0].numel() * feats.shape[2] * 8)
         log(f"{name}: cuda {ms:.4f} ms, bound {bms:.4f} ms ({bby})")
         total_ms, total_bound = total_ms + ms, total_bound + bms
-        if settled and (heaviest is None
-                        or int(walked.sum()) > heaviest[0]):
+        if heaviest is None or int(walked.sum()) > heaviest[0]:
             heaviest = (int(walked.sum()), i)
     log(f"path/auto frame: {len(calls)} leafcull_cuda launches, {total_ms:.4f}"
         f" ms in all, bound {total_bound:.4f} ms")

@@ -12,6 +12,7 @@ same torch operations there.
 """
 
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -224,7 +225,32 @@ def escalation_ladder(cull, mg=48, mc=119):
     return rungs
 
 
-MULTI_CHUNK = ["sorted", "crossing", "leaf_budget", "keep_l", "past_k0",
+# The cull tables' sizes at the render's leaf 16 at 100k: three chunks of
+# 185 groups, 2,960 leaves a chunk.
+RENDER_CULL = types.SimpleNamespace(num_groups=555, leaves_per_chunk=2960,
+                                    leaves_per_group=16)
+
+
+@pytest.mark.parametrize("rung", range(6))
+def test_render_ladder_keeps_512_groups_until_rung_four(rung):
+    """On the render's tables kg is every group of a chunk on every rung,
+    so a group-mode row is never cut at kg, and the group prefix K0 stays
+    at 512 < G on rungs 0-3 and covers G from rung 4: overflow,
+    ``(gcnt > kg) | (gtotal > K0)``, fires only where a subpacket meets
+    more than 512 of the 555 groups, and then on every rung up to 4. An
+    escalating call climbs exactly four rungs."""
+    rungs = escalation_ladder(RENDER_CULL)
+    assert rungs == [(48, 119), (96, 238), (192, 476), (384, 952),
+                     (555, 1904), (555, 2960)]
+    k0, k, kg, K_l, K0, rowlen = tc.cone_budgets(RENDER_CULL, *rungs[rung])
+    gpc = RENDER_CULL.leaves_per_chunk // RENDER_CULL.leaves_per_group
+    assert kg == gpc == 185
+    assert (k0, K0) == [(48, 512), (96, 512), (192, 512), (384, 512),
+                        (560, 640), (560, 640)][rung]
+    assert (K0 < RENDER_CULL.num_groups) == (rung < 4)
+
+
+MULTI_CHUNK =["sorted", "crossing", "leaf_budget", "keep_l", "past_k0",
                "overflow", "empty_chunk", "free"] + \
     [f"rung{i}" for i in range(6)]
 

@@ -318,7 +318,9 @@ def test_escalations_count_the_rays_they_walk_again(escalating,
                                                     escalating_tiles, kind):
     """Each retry of an escalating checked driver, the span
     ``tracer_torch.escalate``, counts ``escalated_rays``: every ray of the
-    call, which the retry walks again; no other span counts it."""
+    call, which the retry takes again (the leaf walks' drivers through
+    phase A alone, the tile and packet culls' through the whole call); no
+    other span counts it."""
     with trace.enabled():
         _, esc = _checked_driver(kind, escalating, escalating_tiles)()
     (root,) = trace.records()

@@ -686,11 +686,18 @@ def nearest_hit_hybrid_feats(feats: Tensor, tables: ConeTables,
     miss; overflow 0-d bool tensor). Index with ``kernel_order_dest`` for
     ray order and map slots with ``tables.cull.slot_to_sphere``.
     """
-    cull = tables.cull
     g, S, SP, _ = feats.shape
     rows, _, overflow = cone_candidates(feats, tables, max_groups,
                                         max_candidates)
     trace.count_outermost(rays=g * S * SP)
+    return (*closest_from_rows(feats, rows, tables.cull), overflow)
+
+
+def closest_from_rows(feats: Tensor, rows: Tensor, cull: CullTables):
+    """The leaf walk over phase A's rows (C, P, rowlen), as
+    :func:`cone_candidates` gives them: (t, slot) in raw output order, as
+    :func:`nearest_hit_hybrid_feats` returns them."""
+    g, S = feats.shape[:2]
     rows = rows.reshape(cull.num_chunks, g, S, rows.shape[-1])
     t_k, slot = leafcull_call(feats, rows, cull.prims, cull.leaf_size,
                               cull.leaves_per_chunk, cull.leaves_per_group)
@@ -698,7 +705,7 @@ def nearest_hit_hybrid_feats(feats: Tensor, tables: ConeTables,
     hit = slot < _NOSLOT
     t = torch.where(hit, t_k.reshape(-1),
                     torch.full_like(t_k.reshape(-1), float("inf")))
-    return t, torch.where(hit, slot, torch.full_like(slot, -1)), overflow
+    return t, torch.where(hit, slot, torch.full_like(slot, -1))
 
 
 def occluded_hybrid_feats(feats: Tensor, tables: ConeTables,
@@ -710,14 +717,20 @@ def occluded_hybrid_feats(feats: Tensor, tables: ConeTables,
     1 where a sphere blocks the segment (EPSILON, t_max); overflow 0-d bool
     tensor). Index with ``kernel_order_dest`` for ray order.
     """
-    cull = tables.cull
-    g, S, _, _ = feats.shape
     rows, _, overflow = cone_candidates(feats, tables, max_groups,
                                         max_candidates)
+    return occluded_from_rows(feats, rows, tables.cull), overflow
+
+
+def occluded_from_rows(feats: Tensor, rows: Tensor, cull: CullTables):
+    """The any-hit walk over phase A's rows (C, P, rowlen): occluded
+    (G*SP*S,) i32 in raw output order, as :func:`occluded_hybrid_feats`
+    returns it."""
+    g, S = feats.shape[:2]
     rows = rows.reshape(cull.num_chunks, g, S, rows.shape[-1])
     occ = anyhit_call(feats, rows, cull.prims, cull.leaf_size,
                       cull.leaves_per_chunk, cull.leaves_per_group)
-    return occ.reshape(-1), overflow
+    return occ.reshape(-1)
 
 
 def nearest_hit_hybrid_raw(rays: Ray, tables: ConeTables,

@@ -718,10 +718,14 @@ def _escalate(query, rays: int, budgets: tuple, grow,
     growing the budgets by ``grow(budgets)`` until nothing overflows or
     ``grow`` gives None (they cover the whole table; one host sync per
     try); each retry is the span ``tracer_torch.escalate``, its argument
-    the escalation's number, its counter ``escalated_rays`` the rays it
-    walks again (all of them: known from the shapes, no sync). Counts the
-    call in ``trace.checked(kind, ...)``. Returns (result,
-    escalations)."""
+    the escalation's number, its counter ``escalated_rays`` the call's
+    rays, all of which the retry takes again (known from the shapes, no
+    sync). Counts the call in ``trace.checked(kind, ...)``. Returns
+    (result, escalations).
+
+    The leaf walks' checked drivers pass phase A alone as ``query``
+    (:func:`_phase_a_query`): a retry reruns phase A, and no ray is walked
+    again. The tile, packet and phase-B drivers pass their whole call."""
     escalations = 0
     out, overflow = query(*budgets)
     while bool(overflow):
@@ -750,6 +754,33 @@ def _doubled_budgets(tables):
     return grow
 
 
+def _phase_a_query(feats: Tensor, tables):
+    """:func:`_escalate`'s query for the leaf walks' checked drivers:
+    phase A alone (``conecull.cone_candidates``) over the prepped
+    ``feats`` at budgets (k0, k) -> (rows, overflow)."""
+    from tracer_torch.kernels.conecull import cone_candidates
+
+    def phase_a(k0: int, k: int):
+        rows, _, overflow = cone_candidates(feats, tables, k0, k)
+        return rows, overflow
+    return phase_a
+
+
+def _hit_record(o: Tensor, d: Tensor, slot: Tensor, dest: Tensor,
+                scene: Scene, tables, subpackets: int, subpacket: int):
+    """The closest hit's epilogue: raw-order slots to ray order
+    (``kernel_order_dest`` over prep's ``dest``), slot to sphere, and t
+    recomputed from the sphere with the reference formulation
+    (``record_from_ids``), so autograd reaches the scene. (B,) records."""
+    from tracer_torch.intersect.brute import record_from_ids
+    from tracer_torch.kernels.conecull import kernel_order_dest
+    with torch.no_grad():
+        slot = slot[kernel_order_dest(dest, subpackets, subpacket)]
+        idx = torch.where(slot >= 0, tables.cull.slot_to_sphere[
+            torch.clamp(slot, min=0).long()], torch.full_like(slot, -1))
+    return record_from_ids(o, d, idx, scene)
+
+
 def nearest_hit_leafcull(rays, scene: Scene, tables, max_groups: int = 48,
                          max_candidates: int = 119, subpackets: int = 8,
                          subpacket: int = 64, cell_bits: int = 8):
@@ -763,10 +794,7 @@ def nearest_hit_leafcull(rays, scene: Scene, tables, max_groups: int = 48,
     ``(HitRecord, overflow)``; on overflow re-dispatch with larger budgets
     (:func:`nearest_hit_leafcull_checked` does).
     """
-    from tracer_torch.intersect.brute import record_from_ids
-    from tracer_torch.kernels.conecull import (kernel_order_dest,
-                                               nearest_hit_hybrid_feats)
-    batch_shape = rays.batch_shape
+    from tracer_torch.kernels.conecull import nearest_hit_hybrid_feats
     o = rays.origin.reshape(-1, 3)
     d = rays.direction.reshape(-1, 3)
     with torch.no_grad():
@@ -774,25 +802,36 @@ def nearest_hit_leafcull(rays, scene: Scene, tables, max_groups: int = 48,
                                           subpacket, cell_bits=cell_bits)
         _, slot, overflow = nearest_hit_hybrid_feats(
             feats, tables, max_groups, max_candidates)
-        slot = slot[kernel_order_dest(dest, subpackets, subpacket)]
-        idx = torch.where(slot >= 0, tables.cull.slot_to_sphere[
-            torch.clamp(slot, min=0).long()], torch.full_like(slot, -1))
-    rec = record_from_ids(o, d, idx, scene).reshape(batch_shape)
-    return rec, overflow
+    rec = _hit_record(o, d, slot, dest, scene, tables, subpackets, subpacket)
+    return rec.reshape(rays.batch_shape), overflow
 
 
 @trace.spanned("nearest")
 def nearest_hit_leafcull_checked(rays, scene: Scene, tables,
                                  max_groups: int = 48,
-                                 max_candidates: int = 119, **kw):
-    """Escalating driver over :func:`nearest_hit_leafcull`: doubles both
-    candidate budgets until no subpacket overflows. Returns (HitRecord,
-    escalations)."""
-    n = rays.origin.numel() // 3
+                                 max_candidates: int = 119,
+                                 subpackets: int = 8, subpacket: int = 64,
+                                 cell_bits: int = 8):
+    """:func:`nearest_hit_leafcull` with escalation: prep once, then phase
+    A at both candidate budgets doubled (:func:`_escalate`) until no
+    subpacket overflows, then one leaf walk over the last try's rows and
+    the epilogue. A retry reruns phase A alone and walks no ray again; the
+    result equals bit for bit :func:`nearest_hit_leafcull`'s at the
+    budgets the ladder ends on. Returns (HitRecord, escalations)."""
+    from tracer_torch.kernels.conecull import closest_from_rows
+    o = rays.origin.reshape(-1, 3)
+    d = rays.direction.reshape(-1, 3)
+    n = o.shape[0]
     trace.count_outermost(rays=n)
-    return _escalate(lambda k0, k: nearest_hit_leafcull(
-        rays, scene, tables, k0, k, **kw), n, (max_groups, max_candidates),
-        _doubled_budgets(tables))
+    with torch.no_grad():
+        feats, dest = prep_feats_bucketed(o.detach(), d.detach(), subpackets,
+                                          subpacket, cell_bits=cell_bits)
+        rows, escalations = _escalate(
+            _phase_a_query(feats, tables), n, (max_groups, max_candidates),
+            _doubled_budgets(tables))
+        _, slot = closest_from_rows(feats, rows, tables.cull)
+    rec = _hit_record(o, d, slot, dest, scene, tables, subpackets, subpacket)
+    return rec.reshape(rays.batch_shape), escalations
 
 
 @torch.no_grad()
@@ -841,27 +880,47 @@ def occluded_leafcull(rays, tables, t_max, max_groups: int = 48,
     (through ``conecull.occluded_hybrid_feats``)."""
     from tracer_torch.kernels.conecull import (kernel_order_dest,
                                                occluded_hybrid_feats)
-    batch_shape = rays.batch_shape
-    o = rays.origin.reshape(-1, 3).detach()
-    d = rays.direction.reshape(-1, 3).detach()
     with torch.no_grad():
-        tm = torch.as_tensor(t_max, dtype=torch.float32, device=o.device)
-        tm = tm.reshape(-1).expand(o.shape[0]).contiguous()
-        feats, dest = prep_feats_bucketed(o, d, subpackets, subpacket,
-                                          cell_bits=cell_bits, t_max=tm)
+        feats, dest = _shadow_prep(rays, t_max, subpackets, subpacket,
+                                   cell_bits)
         occ, overflow = occluded_hybrid_feats(feats, tables, max_groups,
                                               max_candidates)
         occ = occ[kernel_order_dest(dest, subpackets, subpacket)] > 0
-    return occ.reshape(batch_shape), overflow
+    return occ.reshape(rays.batch_shape), overflow
+
+
+def _shadow_prep(rays, t_max, subpackets: int, subpacket: int,
+                 cell_bits: int):
+    """Prep of shadow rays: ``t_max`` (a scalar or one value per ray) as
+    each ray's (B,) f32 segment end, then :func:`prep_feats_bucketed`."""
+    o = rays.origin.reshape(-1, 3).detach()
+    d = rays.direction.reshape(-1, 3).detach()
+    tm = torch.as_tensor(t_max, dtype=torch.float32, device=o.device)
+    tm = tm.reshape(-1).expand(o.shape[0]).contiguous()
+    return prep_feats_bucketed(o, d, subpackets, subpacket,
+                               cell_bits=cell_bits, t_max=tm)
 
 
 @trace.spanned("occluded")
 def occluded_leafcull_checked(rays, tables, t_max, max_groups: int = 48,
-                              max_candidates: int = 119, **kw):
-    """Escalating driver over :func:`occluded_leafcull`. Returns
-    (occluded, escalations)."""
+                              max_candidates: int = 119,
+                              subpackets: int = 8, subpacket: int = 64,
+                              cell_bits: int = 8):
+    """:func:`occluded_leafcull` with escalation: prep once, phase A at
+    doubling budgets until no subpacket overflows (a retry reruns phase A
+    alone and walks no ray again), then one any-hit walk over the last
+    try's rows. Equals bit for bit :func:`occluded_leafcull` at the
+    budgets the ladder ends on. Returns (occluded, escalations)."""
+    from tracer_torch.kernels.conecull import (kernel_order_dest,
+                                               occluded_from_rows)
     n = rays.origin.numel() // 3
     trace.count_outermost(rays=n)
-    return _escalate(lambda k0, k: occluded_leafcull(
-        rays, tables, t_max, k0, k, **kw), n, (max_groups, max_candidates),
-        _doubled_budgets(tables), kind="shadow")
+    with torch.no_grad():
+        feats, dest = _shadow_prep(rays, t_max, subpackets, subpacket,
+                                   cell_bits)
+        rows, escalations = _escalate(
+            _phase_a_query(feats, tables), n, (max_groups, max_candidates),
+            _doubled_budgets(tables), kind="shadow")
+        occ = occluded_from_rows(feats, rows, tables.cull)
+        occ = occ[kernel_order_dest(dest, subpackets, subpacket)] > 0
+    return occ.reshape(rays.batch_shape), escalations
