@@ -2007,11 +2007,11 @@ def plain_compactor():
 def diff_slice(dev, scene, tables, o, d, comp):
     """Phase 7c: the differentiable path on the headline's 100k scene.
 
-    The bench extra's fwd+bwd once (131,072 rays through
-    prep_rays_bucketed at subpacket 64, the leaf-order sparse soft image
-    over the single-chunk headline tables at 16 leaves a subpacket, the
-    gradient of its mean with respect to the centres) with its launches
-    counted, and its compactions checked
+    The bench extra's fwd+bwd once (the checked soft evaluation of
+    131,072 rays at subpacket 64, escalated from 16 leaves a subpacket,
+    over single-chunk tables from radii inflated to the logit clip, the
+    gradient of its mean image with respect to the centres) with its
+    launches counted, and its compactions checked
     (``comp``); leaf_candidates at that shape equal with compact_cuda and
     with the plain compactor, and timed; on tables from radii inflated by
     soft_radius_scale, 1,024 of the sorted rays at 64 leaves a subpacket:
@@ -2027,7 +2027,7 @@ def diff_slice(dev, scene, tables, o, d, comp):
     losses and state equal the straight run's bit for bit; the camera fit
     from a perturbed pose; the identity
     refit of the 100k tree equal to its build, and timed. The bench
-    extra's fwd+bwd, its forward and one fit step are profiled (device
+    extra's fwd+bwd and one fit step are profiled (device
     time, idle share, launches, top kernels). Returns the compactor's
     launches on the path."""
     import tempfile
@@ -2058,13 +2058,15 @@ def diff_slice(dev, scene, tables, o, d, comp):
     sp, ml = headline.DIFF_SP, headline.DIFF_LEAVES
 
     # The main path, once, with its launches counted.
+    dtables = headline.diff_tables(scene)
     before = _lib.launches.copy()
     with comp.record():
-        grad, overflow = headline.diff_fwd_bwd(scene, cull, po, pd)
+        grad, escalations = headline.diff_fwd_bwd(scene, dtables, o, d)
     torch.cuda.synchronize()
+    del dtables
     launches = _lib.launches["compact_cuda"] - before["compact_cuda"]
     log(f"diff path launches: {{'compact_cuda': {launches}}}; "
-        f"{po.shape[0] // sp} subpackets, overflow {bool(overflow)}")
+        f"{po.shape[0] // sp} subpackets, {escalations} escalations")
     comp.check("diff", timed=2)
     if launches < 1:
         raise AssertionError("the diff path did not run compact_cuda")
@@ -2164,12 +2166,12 @@ def diff_slice(dev, scene, tables, o, d, comp):
 
     # The bench extra's measurement, and where its time and a fit step's
     # go.
-    rec = headline.measure_diff(scene, cull, o, d)
+    rec = headline.measure_diff(scene, o, d)
     log(json.dumps(rec))
     if not (rec["diff_grad_finite"] and rec["diff_grad_nonzero"]):
         raise AssertionError("the bench extra's gradient is not finite or "
                              "is all zero")
-    stages = {**diff_stages(scene, cull, o, d), "fit_step": fit_stage(dev)}
+    stages = {**diff_stages(scene, o, d), "fit_step": fit_stage(dev)}
     for name, (fn, *args) in stages.items():
         log(describe(name, profile_calls(fn, *args, iters=3)))
 

@@ -452,3 +452,104 @@ def test_direct_frame_spans_and_shadow_counters(compact):
     assert occluded["counters"] == {"rays": slots, "calls": 1,
                                     "escalations": 0}
     assert nearest["counters"]["rays"] == slots
+
+
+@pytest.fixture(scope="module")
+def soft_setup():
+    """The checked soft evaluation's inputs: 1,500 spheres in a cube of
+    side 100, single-chunk tables over radii inflated at widths 30,
+    2,048 origin rays and a target image; from (8, 2) the ladder
+    escalates."""
+    from tracer_torch.diff import sparse
+    from tracer_torch.diff.soft import SoftParams
+    scene = _scene(1500, 100.0, 21)
+    scale = sparse.soft_radius_scale(SoftParams(), widths=30.0)
+    tables = tt.build_cull_tables(scene, tt.build_bvh(
+        scene.centers, scene.radii * scale, leaf_size=32, device="cpu"))
+    d = _dirs(2048, 22)
+    rays = tt.Ray(origin=torch.zeros_like(d), direction=d)
+    target = torch.full((2048, 3), 0.5)
+    return scene, tables, rays, target
+
+
+def _soft(soft_setup, **kw):
+    from tracer_torch.diff import sparse
+    scene, tables, rays, target = soft_setup
+    return sparse.soft_loss_grad_sparse(scene, rays, target, tables,
+                                        max_groups=8, max_leaves=2,
+                                        cell_bits=CELL_BITS, **kw)
+
+
+SOFT_TREE = {"tracer_torch.prep": "tracer_torch.soft",
+             "tracer_torch.phase_a": ("tracer_torch.soft",
+                                      "tracer_torch.escalate"),
+             "tracer_torch.compact": "tracer_torch.phase_a",
+             "tracer_torch.escalate": "tracer_torch.soft",
+             "tracer_torch.composite": "tracer_torch.soft",
+             "tracer_torch.backward": "tracer_torch.soft"}
+
+
+def test_soft_root_spans_and_counters(soft_setup):
+    """A traced soft evaluation is one ``soft`` root (``rays``, the
+    caller's rays; ``blocks``; the checked call and its escalations)
+    holding ``prep``, a ``phase_a`` a try (the retries inside their
+    ``escalate`` spans, each counting every ray as ``escalated_rays``;
+    phase A's ``phase_a_kernel``, ``rows`` and ``group_rows``), then a
+    ``composite`` and a ``backward`` a block. ``lanes`` and
+    ``candidates`` equal a recount from phase A's rows at the budgets
+    that held: the rays times the block's candidate slots, and the real
+    (ray, sphere) pairs of each subpacket's own leaves."""
+    from tracer_torch.diff import sparse
+    scene, tables, rays, _ = soft_setup
+    with trace.enabled():
+        _, _, _, esc = _soft(soft_setup)
+    (root,) = trace.records()
+    assert root["name"] == "tracer_torch.soft" and root["parent"] is None
+    assert esc >= 1
+    assert root["counters"] == {"rays": 2048, "calls": 1,
+                                "escalations": esc, "blocks": 1}
+    by_id = {s["id"]: s for s in root["spans"]}
+    for s in root["spans"][1:]:
+        want = SOFT_TREE[s["name"]]
+        want = want if isinstance(want, tuple) else (want,)
+        assert by_id[s["parent"]]["name"] in want, s["name"]
+        assert s["root"] == root["id"]
+    tries = _spans([root], "tracer_torch.phase_a")
+    retries = _spans([root], "tracer_torch.escalate")
+    assert len(tries) == esc + 1 and len(retries) == esc
+    assert all(s["counters"] == {"escalated_rays": 2048} for s in retries)
+    padded, _ = tt.prep_rays_bucketed(rays, 64, CELL_BITS)
+    P = padded.origin.shape[0] // 64
+    for t in tries:
+        assert t["counters"]["phase_a_kernel"] == 0
+        assert t["counters"]["rows"] == P
+        assert 0 <= t["counters"]["group_rows"] <= P
+    k0, k = sparse.soft_budgets(tables, esc, 8, 2)
+    ids, _ = sparse.candidate_sphere_ids(padded.origin, padded.direction,
+                                         tables, k0, k)
+    _, valid, _ = sparse.candidate_leaf_ids(padded.origin, padded.direction,
+                                            tables, k0, k)
+    (comp,) = _spans([root], "tracer_torch.composite")
+    assert comp["counters"] == {
+        "lanes": P * 64 * int(valid.sum(1).max()) * tables.leaf_size,
+        "candidates": int((ids >= 0).sum()) * 64}
+    (back,) = _spans([root], "tracer_torch.backward")
+    assert back["counters"] == {}
+
+
+def test_soft_evaluation_bit_equal_with_the_trace_on_and_off(soft_setup):
+    """The trace changes nothing of the evaluation, and off it records
+    nothing; ``trace.tallied`` counts the call and its escalations as the
+    kind ``soft`` either way."""
+    trace.reset()
+    off = _soft(soft_setup)
+    assert trace.records() == []
+    with trace.enabled():
+        on = _soft(soft_setup)
+    assert torch.equal(on[0], off[0]) and torch.equal(on[1], off[1])
+    for a, b in zip(on[2], off[2]):
+        assert torch.equal(a, b)
+    assert on[3] == off[3] >= 1
+    counts = {}
+    trace.tallied(counts, lambda: (_soft(soft_setup), 0))()
+    assert counts == {"soft_calls": 1, "soft_escalations": off[3]}

@@ -18,9 +18,12 @@ trees are built on the CUDA device unless ``device`` names another.
 
 The differentiable path: ``soft_render`` (dense soft model),
 ``soft_render_sparse`` and its packet forms over ``leaf_candidates``
-(BVH-sparsified), ``fit_scene`` (inverse rendering; ``python -m
-tracer_torch.cli fit``), ``refit_bvh`` and ``save_state``/``load_state``
-(checkpoints in the JAX package's file layout).
+(BVH-sparsified), ``soft_loss_grad_sparse`` (one checked evaluation: the
+soft image's loss and its gradients, phase A escalated until nothing is
+truncated, the exact composite in blocks), ``fit_scene`` (inverse
+rendering; ``python -m tracer_torch.cli fit``), ``refit_bvh`` and
+``save_state``/``load_state`` (checkpoints in the JAX package's file
+layout).
 
 The tooling: the BVH-against-brute-force sweep (``bench.harness.run_sweep``;
 ``python -m tracer_torch.cli bench``), ``bvh.flat.bvh_stats``, the
@@ -104,7 +107,8 @@ from tracer_torch.integrator.wavefront import (Accumulator, bounce_noise,
                                                trace_radiance)
 from tracer_torch.kernels.leafcull import leaf_candidates
 from tracer_torch.diff.soft import SoftParams, soft_render
-from tracer_torch.diff.sparse import (soft_radius_scale, soft_render_sparse,
+from tracer_torch.diff.sparse import (soft_loss_grad_sparse,
+                                      soft_radius_scale, soft_render_sparse,
                                       soft_render_sparse_leaforder)
 from tracer_torch.diff.fit import FitResult, fit_scene
 from tracer_torch.bvh.refit import RefitPlan, build_refit_plan, refit_bvh
@@ -141,8 +145,9 @@ __all__ = [
     "sort_rays_by_direction", "tile_candidates", "cull_call",
     "nearest_hit_cull", "nearest_hit_cull_checked", "leaf_candidates",
     "SoftParams", "soft_render", "soft_radius_scale", "soft_render_sparse",
-    "soft_render_sparse_leaforder", "FitResult", "fit_scene", "RefitPlan",
-    "build_refit_plan", "refit_bvh", "load_state", "save_state",
+    "soft_render_sparse_leaforder", "soft_loss_grad_sparse", "FitResult",
+    "fit_scene", "RefitPlan", "build_refit_plan", "refit_bvh", "load_state",
+    "save_state",
     "nearest_hit_leafcull_t", "RAY_AXIS", "SCENE_AXIS", "init_distributed",
     "ray_mesh", "scene_mesh", "nearest_hit_sharded", "render_sharded",
     "nearest_hit_ring", "ShardedBVH", "build_sharded_bvh", "AdamState",

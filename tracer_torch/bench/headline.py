@@ -12,13 +12,15 @@ segment (EPSILON, 500) for the same rays, prep with t_max inside the timed
 call; ``shadow_mrays``, ``shadow_occluded_fraction``), the device LBVH
 (``bvh_build_device_ms``; ``lbvh_e2e_mrays``, the same query on cone tables
 built from the LBVH tree with leaf size 32), and the differentiable path
-(``diff_fwd_bwd_mrays``, ``bench.py:300-326``): the first 131,072 rays
-through ``prep_rays_bucketed`` at subpacket 64 (8 cell bits, so 2,304
-subpackets), ``soft_render_sparse_leaforder`` over the headline's
-single-chunk cull tables with 16 leaves a subpacket (K = 512 candidates),
-and the gradient of the mean image with respect to the centres, phase A
-included; timed on CUDA events with its forward apart (``diff_fwd_ms``;
-``diff_bwd_ms`` is the rest) and its peak memory.
+(``diff_fwd_bwd_mrays``, ``bench.py:300-326``): the mean soft image of the
+first 131,072 rays and its gradient through the checked soft evaluation
+(``soft_loss_grad_sparse``: prep at subpacket 64, phase A escalated from 16
+leaves a subpacket until no subpacket is truncated, the exact per-ray
+composite and its backward), over single-chunk cull tables of a tree built
+from radii inflated to the soft model's logit clip (``diff_tables``); timed
+on CUDA events, with the escalations, the leaves a subpacket that held
+(``diff_escalations``, ``diff_leaves``; ``diff_overflow`` is false, as the
+evaluation raises rather than truncate) and its peak memory.
 
 Run ``python -m tracer_torch.bench``: it prints one JSON line and exits
 non-zero on any failure, including the absence of a CUDA device.
@@ -33,21 +35,21 @@ import time
 import numpy as np
 import torch
 
-from dataclasses import replace
-
 from tracer_torch.bench.timing import time_cuda
 from tracer_torch.bvh.builder import build_bvh
 from tracer_torch.bvh.device import build_bvh_device
 from tracer_torch.core.sort import prep_rays_bucketed
 from tracer_torch.core.types import Ray
 from tracer_torch.diff.soft import SoftParams
-from tracer_torch.diff.sparse import soft_render_sparse_leaforder
+from tracer_torch.diff.sparse import (soft_budgets, soft_loss_grad_sparse,
+                                      soft_radius_scale)
 from tracer_torch.kernels.conecull import (build_cone_tables,
                                            cone_candidates,
                                            kernel_order_dest,
                                            nearest_hit_hybrid_feats,
                                            occluded_hybrid_feats)
-from tracer_torch.kernels.leafcull import leafcull_call, prep_feats_bucketed
+from tracer_torch.kernels.leafcull import (build_cull_tables, leafcull_call,
+                                           prep_feats_bucketed)
 from tracer_torch.scene.scene import benchmark_scene
 
 METRIC = "bvh_closest_hit_throughput_100k_spheres_e2e"
@@ -63,8 +65,9 @@ LEAF_SIZE = 32
 SCENE_SEED, RAY_SEED = 1, 0
 SHADOW_T_MAX = 500.0
 DIFF_RAYS = 131_072  # the differentiable extra's rays, leaves a subpacket
-DIFF_LEAVES = 16     # and subpacket (bench.py:300-326)
+DIFF_LEAVES = 16     # to start from and subpacket (bench.py:300-326)
 DIFF_SP = 64
+DIFF_WIDTHS = 30.0   # the extra's table inflation: the logit clip
 
 
 def log(*a):
@@ -121,54 +124,59 @@ def shadow_query(o, d, tables, max_groups: int = MG,
 
 
 def diff_rays(o, d):
-    """The differentiable extra's rays: the first DIFF_RAYS, sorted and
-    bucket-padded to subpackets of DIFF_SP; (o, d) each (Bp, 3)."""
+    """The first DIFF_RAYS rays, sorted and bucket-padded to subpackets of
+    DIFF_SP (as the extra's prep makes them); (o, d) each (Bp, 3)."""
     padded, _ = prep_rays_bucketed(
         Ray(origin=o[:DIFF_RAYS], direction=d[:DIFF_RAYS]), DIFF_SP)
     return padded.origin, padded.direction
 
 
-def diff_forward(scene, cull, po, pd):
-    """(mean image, overflow, centres): the leaf-order sparse soft image's
-    mean, recorded for autograd with respect to fresh centres."""
-    centers = scene.centers.detach().requires_grad_(True)
-    img, overflow = soft_render_sparse_leaforder(
-        replace(scene, centers=centers), po, pd, cull, SoftParams(),
-        max_leaves=DIFF_LEAVES, subpacket=DIFF_SP)
-    return img.mean(), overflow, centers
+def diff_tables(scene):
+    """The extra's single-chunk cull tables: a native SAH tree (leaf
+    LEAF_SIZE) over radii inflated by ``soft_radius_scale`` at
+    DIFF_WIDTHS, the soft model's logit clip."""
+    scale = soft_radius_scale(SoftParams(), widths=DIFF_WIDTHS)
+    bvh = build_bvh(scene.centers, scene.radii * scale, leaf_size=LEAF_SIZE,
+                    backend="native", device=scene.centers.device)
+    return build_cull_tables(scene, bvh)
 
 
-def diff_fwd_bwd(scene, cull, po, pd):
-    """(d mean image / d centres, overflow)."""
-    loss, overflow, centers = diff_forward(scene, cull, po, pd)
-    (grad,) = torch.autograd.grad(loss, centers)
-    return grad, overflow
+def diff_fwd_bwd(scene, tables, o, d):
+    """(d mean image / d centres, escalations): ``soft_loss_grad_sparse``
+    of the mean image of the first DIFF_RAYS rays o, d, from DIFF_LEAVES
+    leaves a subpacket of DIFF_SP rays, over ``tables``
+    (:func:`diff_tables`)."""
+    _, _, grads, escalations = soft_loss_grad_sparse(
+        scene, Ray(origin=o[:DIFF_RAYS], direction=d[:DIFF_RAYS]), None,
+        tables, SoftParams(), max_leaves=DIFF_LEAVES, subpacket=DIFF_SP)
+    return grads[0], escalations
 
 
-def measure_diff(scene, cull, o, d) -> dict:
-    """The ``diff_fwd_bwd_mrays`` extra with its forward and backward
-    times and its peak memory (above what was allocated before it)."""
-    po, pd = diff_rays(o, d)
-    ms = time_cuda(diff_fwd_bwd, scene, cull, po, pd)
-    fwd_ms = time_cuda(diff_forward, scene, cull, po, pd)
+def measure_diff(scene, o, d) -> dict:
+    """The ``diff_fwd_bwd_mrays`` extra, its budgets and its peak memory
+    (above what was allocated before it), over :func:`diff_tables`."""
+    tables = diff_tables(scene)
+    ms = time_cuda(diff_fwd_bwd, scene, tables, o, d)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
-    grad, overflow = diff_fwd_bwd(scene, cull, po, pd)
+    grad, escalations = diff_fwd_bwd(scene, tables, o, d)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
+    _, leaves = soft_budgets(tables, escalations, max_leaves=DIFF_LEAVES)
     rec = {"diff_fwd_bwd_mrays": DIFF_RAYS / (ms * 1e-3) / 1e6,
-           "diff_fwd_bwd_ms": ms, "diff_fwd_ms": fwd_ms,
-           "diff_bwd_ms": ms - fwd_ms,
+           "diff_fwd_bwd_ms": ms,
            "diff_peak_mib": peak / 2 ** 20,
            "diff_peak_above_inputs_mib": (peak - before) / 2 ** 20,
-           "diff_overflow": bool(overflow),
+           "diff_overflow": False,
+           "diff_escalations": escalations,
+           "diff_leaves": leaves,
            "diff_grad_finite": bool(torch.isfinite(grad).all()),
            "diff_grad_nonzero": bool((grad != 0).any())}
-    log(f"sparse diff fwd+bwd (leaf-order path): {ms:.3f} ms (forward "
-        f"{fwd_ms:.3f}) for {DIFF_RAYS} rays -> "
-        f"{rec['diff_fwd_bwd_mrays']:.3f} Mrays/s; peak "
-        f"{rec['diff_peak_mib']:.1f} MiB")
+    log(f"checked soft evaluation fwd+bwd: {ms:.3f} ms for {DIFF_RAYS} rays "
+        f"-> {rec['diff_fwd_bwd_mrays']:.3f} Mrays/s; {escalations} "
+        f"escalations to {leaves} leaves; peak {rec['diff_peak_mib']:.1f} "
+        f"MiB")
     return rec
 
 
@@ -225,7 +233,7 @@ def measure(scene, tables, o, d, build_ms: float) -> dict:
         "bvh_build_device_ms": build_device_ms,
         "lbvh_e2e_mrays": b / (lbvh_ms * 1e-3) / 1e6,
         "lbvh_overflow": bool(l_overflow),
-        **measure_diff(scene, tables.cull, o, d),
+        **measure_diff(scene, o, d),
         "device": torch.cuda.get_device_name(o.device),
     }
 

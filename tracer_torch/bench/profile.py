@@ -2,8 +2,8 @@
 
 Run ``python -m tracer_torch.bench.profile`` on a CUDA machine. For the
 whole query, for each stage (prep, phase A, leaf walk), for the shadow
-query at the headline size, for the differentiable extra (its fwd+bwd and
-its forward alone) and for one step of ``cli fit`` at its full size
+query at the headline size, for the differentiable extra (the checked
+soft evaluation, fwd+bwd) and for one step of ``cli fit`` at its full size
 (800x600, 20 spheres; ``fit_scene`` with one step, its set-up included) it
 profiles ``ITERS`` back-to-back calls and prints, per call: the window's time on CUDA events, the summed device time
 of its kernels and copies, the device's idle share of the window, the
@@ -76,11 +76,11 @@ def describe(name: str, r: dict) -> str:
                         for key, ms, count in r["top"]])
 
 
-def diff_stages(scene, cull, o, d) -> dict:
-    """The differentiable extra's fwd+bwd and its forward, as stages."""
-    po, pd = headline.diff_rays(o, d)
-    return {"diff_fwd_bwd": (headline.diff_fwd_bwd, scene, cull, po, pd),
-            "diff_forward": (headline.diff_forward, scene, cull, po, pd)}
+def diff_stages(scene, o, d) -> dict:
+    """The differentiable extra's checked soft evaluation (fwd+bwd) as a
+    stage, over its own inflated-radius tables."""
+    return {"diff_fwd_bwd": (headline.diff_fwd_bwd, scene,
+                             headline.diff_tables(scene), o, d)}
 
 
 def fit_stage(device) -> tuple:
@@ -113,7 +113,7 @@ def main() -> int:
         "walk": (leafcull_call, feats, rows, cull.prims, cull.leaf_size,
                  cull.leaves_per_chunk, cull.leaves_per_group),
         "shadow": (headline.shadow_query, o, d, tables),
-        **diff_stages(scene, cull, o, d),
+        **diff_stages(scene, o, d),
         "fit_step": fit_stage(dev),
     }
     out = {"device": torch.cuda.get_device_name(0)}

@@ -34,12 +34,15 @@ from __future__ import annotations
 import torch
 from torch import Tensor
 
+from tracer_torch import trace
 from tracer_torch.core import vecmath
 from tracer_torch.core.sort import prep_rays_bucketed
 from tracer_torch.core.types import Ray
 from tracer_torch.diff.soft import (SoftParams, _sigmoid, clip,
                                     composite_sorted, maximum, soft_terms)
-from tracer_torch.kernels.leafcull import CullTables, leaf_candidates
+from tracer_torch.kernels.leafcull import (CullTables, _doubled_cull_budgets,
+                                           _escalate, leaf_candidate_rows,
+                                           leaf_candidates)
 from tracer_torch.scene.scene import Scene
 
 _PARKED = 1.0e15   # centre of the slots that hold no sphere
@@ -65,9 +68,17 @@ def candidate_leaf_ids(o: Tensor, d: Tensor, tables: CullTables,
     """
     if tables.num_chunks != 1:
         raise ValueError("sparse soft rendering expects single-chunk tables")
+    rows, overflow = leaf_candidates(o, d, tables, max_groups, max_leaves,
+                                     subpacket)
+    return _leaf_ids(rows, overflow, tables, max_leaves)[:3]
+
+
+def _leaf_ids(rows: Tensor, overflow: Tensor, tables: CullTables, k: int):
+    """Phase A's single-chunk rows -> (leaf_ids, valid, overflow, n_eff),
+    :func:`candidate_leaf_ids`' outputs and each subpacket's count of
+    listed leaves (P,) i32: its valid leaves all lie in the first n_eff
+    columns."""
     lpg = tables.leaves_per_group
-    k = max_leaves
-    rows, overflow = leaf_candidates(o, d, tables, max_groups, k, subpacket)
     row = rows[0]                                       # (P, rowlen)
     cnt = row[:, 0]
     j = torch.arange(k, dtype=torch.int32, device=row.device)
@@ -80,7 +91,7 @@ def candidate_leaf_ids(o: Tensor, d: Tensor, tables: CullTables,
     leaf_ids = torch.where(leaf_mode[:, None], ids_leaf, ids_group)
     valid = (j[None, :] < n_eff[:, None]) \
         & (leaf_ids < tables.num_real_leaves) & (leaf_ids >= 0)
-    return torch.where(valid, leaf_ids, 0), valid, overflow
+    return torch.where(valid, leaf_ids, 0), valid, overflow, n_eff
 
 
 def candidate_sphere_ids(o: Tensor, d: Tensor, tables: CullTables,
@@ -376,3 +387,236 @@ def soft_render_sparse_fast(scene: Scene, o: Tensor, d: Tensor,
     img = [clip(torch.sum(w * s, dim=1)[:, None] + t_total * bg, 0.0, 1.0)
            for s, bg in zip(shade, sky_bg)]
     return torch.cat(img, dim=1), overflow
+
+
+# ---------------------------------------------------------------------------
+# The checked soft evaluation: loss, image and gradients in blocks
+# ---------------------------------------------------------------------------
+#
+# Inverse rendering asks, per step, the loss of the soft image against a
+# target and its gradient. The evaluation preps once, runs phase A alone
+# under the escalation ladder of the closest-hit drivers
+# (``leafcull._escalate``) until no subpacket's candidates are truncated,
+# then computes the exact model of :func:`soft_render_sparse_packets`
+# (each ray's candidates composited in its own t order) in the scalar
+# layout, over blocks of subpackets sized to a byte budget: each block's
+# forward, then its backward, before the next. The loss is a sum over
+# rays, so the blocks' gradients add up to the whole one's.
+
+# Device bytes a (ray, candidate) lane of a block holds at the block's
+# peak: the forward's planes and those autograd keeps for the backward
+# (182 measured on an NVIDIA H100, rounded up).
+LANE_BYTES = 192
+
+
+def _soft_phase_a(o: Tensor, d: Tensor, tables: CullTables,
+                  subpacket: int):
+    """:func:`leafcull._escalate`'s query for the soft evaluation: phase A
+    at budgets (k0, k) and the read of its overflow and per-subpacket leaf
+    counts on the host (the ladder's one sync a try), all in the span
+    ``tracer_torch.phase_a``. Returns ((leaf_ids, valid, n_eff as a list,
+    overflow), overflow)."""
+    def phase_a(k0: int, k: int):
+        with trace.span("phase_a"):
+            rows, overflow = leaf_candidate_rows(o, d, tables, k0, k,
+                                                 subpacket)
+            leaf_ids, valid, overflow, n_eff = _leaf_ids(rows, overflow,
+                                                         tables, k)
+            host = torch.cat([overflow.reshape(1).to(n_eff.dtype),
+                              n_eff]).tolist()
+        over = bool(host[0])
+        return (leaf_ids, valid, host[1:], over), over
+    return phase_a
+
+
+def soft_budgets(tables: CullTables, escalations: int,
+                 max_groups: int = 48, max_leaves: int = 16):
+    """The (max_groups, max_leaves) at which :func:`soft_loss_grad_sparse`
+    composites after ``escalations`` escalations from the asked budgets,
+    each at most what covers the single chunk (0: where it starts)."""
+    budgets = (min(max_groups, tables.num_groups),
+               min(max_leaves, tables.leaves_per_chunk))
+    grow = _doubled_cull_budgets(tables)
+    for _ in range(escalations):
+        budgets = grow(budgets)
+    return budgets
+
+
+def _blocks(widths: list, subpacket: int, leaf_size: int,
+            block_bytes: int):
+    """Cut subpackets of ascending ``widths`` (leaves), in that order, into
+    blocks (start, stop, leaves): each as many as fit ``block_bytes`` at
+    :data:`LANE_BYTES` a lane, as wide as its widest (last) subpacket, at
+    least one subpacket and one leaf."""
+    lane = subpacket * leaf_size * LANE_BYTES
+    out, start = [], 0
+    for i, w in enumerate(widths):
+        if i > start and (i + 1 - start) * max(w, 1) * lane > block_bytes:
+            out.append((start, i, max(widths[i - 1], 1)))
+            start = i
+    if widths:
+        out.append((start, len(widths), max(widths[-1], 1)))
+    return out
+
+
+def _soft_block(centers: Tensor, radii: Tensor, albedo: Tensor, o: Tensor,
+                d: Tensor, leaf_ids: Tensor, valid: Tensor,
+                tables: CullTables, params: SoftParams, subpacket: int):
+    """The exact soft image of one block of subpackets, (p * SP, 3), for
+    autograd: each subpacket's candidate spheres (its leaves' slots)
+    gathered from the scene, sigma, t_soft and mirror.y in the scalar
+    layout (p, SP, K), then each ray's candidates composited in its own
+    stable t order (``soft.composite_sorted``); the weights are scattered
+    back to the candidates' order, where the shade is read. Also returns
+    which of the (p, K) candidate slots hold a real sphere."""
+    p, w = leaf_ids.shape
+    ls = tables.leaf_size
+    K = w * ls
+    slots = leaf_ids[:, :, None] * ls \
+        + torch.arange(ls, dtype=torch.int32, device=leaf_ids.device)
+    sid = tables.slot_to_sphere[slots.reshape(p, K).long()]
+    real = valid[:, :, None].expand(p, w, ls).reshape(p, K) & (sid >= 0)
+    safe = torch.where(real, sid, 0).long().reshape(-1)
+
+    # Attribute-major gathers, each (p, 1, K) contiguous; their backward
+    # is index_add_ (atomics on CUDA).
+    def take(x):
+        return torch.index_select(x, -1, safe).reshape(*x.shape[:-1], p,
+                                                        1, K)
+    cx, cy, cz = take(centers.t())
+    a0, a1, a2 = take(albedo.t())
+    # Padding candidates keep a unit radius (see
+    # soft_render_sparse_packets); the masks erase them.
+    r = take(radii)
+    m = real[:, None, :]
+    r = torch.where(m, r, torch.ones_like(r))
+    op = o.reshape(p, subpacket, 3)
+    dp = d.reshape(p, subpacket, 3)
+    sigma, t_soft, my = _sigma_t_scalar(cx, cy, cz, r, *_ray_scalars(op, dp),
+                                        params)
+    sigma = torch.where(m, sigma, torch.zeros_like(sigma))
+    t_soft = torch.where(m, t_soft, torch.full_like(t_soft, _FAR_T))
+
+    order = torch.argsort(t_soft, dim=2, stable=True)
+    sig_s = torch.gather(sigma * (1.0 - 1e-6), 2, order)
+    log1m = torch.log1p(-sig_s)
+    log_t = torch.cumsum(log1m, dim=2) - log1m          # exclusive
+    w_s = sig_s * torch.exp(log_t)
+    wgt = torch.zeros_like(w_s).scatter(2, order, w_s)
+    t_total = torch.exp(torch.sum(log1m, dim=2))        # (p, SP)
+    # The shade's sky takes 1 for blue, the background's (1 - t) + t.
+    sky = _sky_channels(my)[:2] + [torch.ones_like(my)]
+    sky_bg = _sky_channels(dp[:, :, 1])
+    img = [clip(torch.sum(wgt * (a + 0.5 * s), dim=2) + t_total * bg,
+                0.0, 1.0)
+           for a, s, bg in zip((a0, a1, a2), sky, sky_bg)]
+    return torch.stack(img, dim=-1).reshape(-1, 3), real
+
+
+@trace.spanned("soft")
+def soft_loss_grad_sparse(scene: Scene, rays: Ray, target: Tensor | None,
+                          tables: CullTables,
+                          params: SoftParams | None = None,
+                          max_groups: int = 48, max_leaves: int = 16,
+                          subpacket: int = 64, cell_bits: int = 8,
+                          block_bytes: int = 4 << 30):
+    """One checked inverse-rendering evaluation: (loss, image, grads,
+    escalations).
+
+    ``loss`` (0-d) is the mean squared difference of the soft image and
+    ``target`` (batch..., 3) over every ray and channel, or the image's
+    mean where ``target`` is None; ``image`` (batch..., 3) is the soft
+    image in the caller's ray order (no graph); ``grads`` is d loss / d
+    (centres, radii, albedo). ``tables`` are single-chunk cull tables,
+    their tree built from radii inflated by :func:`soft_radius_scale`
+    (widths 30 reach the logit clip of ``soft._sigmoid``: every sphere
+    whose sigma is above the clip's floor lies in a candidate leaf).
+
+    Prep runs once (``prep_rays_bucketed`` at ``cell_bits``); phase A
+    runs alone, from (max_groups, max_leaves) doubled on each try
+    (``leafcull._escalate``, kind "soft", each try the span
+    ``tracer_torch.phase_a``), until no subpacket's candidates are
+    truncated; the exact per-ray depth-ordered composite then runs once,
+    over the subpackets in ascending order of their candidate leaves, cut
+    into blocks of at most ``block_bytes`` (:data:`LANE_BYTES` a lane; a
+    block is as wide as its widest subpacket), each block's forward and
+    backward (the spans ``tracer_torch.composite`` and
+    ``tracer_torch.backward``) before the next. Any cut into blocks gives
+    the one-block result up to float32 rounding. An evaluation that
+    overflows at budgets covering the whole table raises RuntimeError: it
+    never returns a truncated image.
+
+    Gradients come through the gathers, whose backward accumulates with
+    atomics on CUDA: they are not bitwise run to run on the card.
+    """
+    if params is None:
+        params = SoftParams()
+    if tables.num_chunks != 1:
+        raise ValueError("sparse soft rendering expects single-chunk tables")
+    batch_shape = rays.batch_shape
+    o = rays.origin.reshape(-1, 3).detach()
+    d = rays.direction.reshape(-1, 3).detach()
+    n = o.shape[0]
+    trace.count(rays=n)
+    with torch.no_grad():
+        with trace.span("prep"):
+            padded, dest = prep_rays_bucketed(Ray(origin=o, direction=d),
+                                              subpacket, cell_bits)
+        po, pd = padded.origin, padded.direction
+        (leaf_ids, valid, n_eff, over), escalations = _escalate(
+            _soft_phase_a(po, pd, tables, subpacket), n,
+            soft_budgets(tables, 0, max_groups, max_leaves),
+            _doubled_cull_budgets(tables), kind="soft")
+        if over:
+            raise RuntimeError("the soft evaluation's candidates overflow "
+                               "budgets that cover the whole table")
+        # The subpackets in ascending order of their leaves, so that a
+        # block is about as wide as each of its subpackets; each padded
+        # slot's caller ray (n for bucket padding: the image's spare row).
+        P = leaf_ids.shape[0]
+        order = sorted(range(P), key=n_eff.__getitem__)
+        widths = [n_eff[i] for i in order]
+        perm = torch.as_tensor(order, device=po.device)
+        owner = torch.full((po.shape[0],), n, dtype=torch.long,
+                           device=po.device)
+        owner[dest] = torch.arange(n, device=po.device)
+        owner = owner.reshape(P, subpacket)[perm].reshape(-1)
+        po = po.reshape(P, subpacket, 3)[perm].reshape(-1, 3)
+        pd = pd.reshape(P, subpacket, 3)[perm].reshape(-1, 3)
+        leaf_ids, valid = leaf_ids[perm], valid[perm]
+        if target is not None:
+            target = target.reshape(-1, 3).detach()
+    leaves = [x.detach().requires_grad_(True)
+              for x in (scene.centers, scene.radii, scene.albedo)]
+    blocks = _blocks(widths, subpacket, tables.leaf_size, block_bytes)
+    trace.count(blocks=len(blocks))
+    img = torch.empty((n + 1, 3), dtype=po.dtype, device=po.device)
+    loss = torch.zeros((), dtype=po.dtype, device=po.device)
+    for start, stop, width in blocks:
+        lo, hi = start * subpacket, stop * subpacket
+        own = owner[lo:hi]
+        with torch.enable_grad():
+            with trace.span("composite"):
+                img_b, real = _soft_block(
+                    *leaves, po[lo:hi], pd[lo:hi],
+                    leaf_ids[start:stop, :width], valid[start:stop, :width],
+                    tables, params, subpacket)
+                keep = (own < n)[:, None]
+                if target is None:
+                    term = torch.where(keep, img_b, torch.zeros_like(img_b))
+                else:
+                    diff = img_b - target[torch.clamp(own, max=n - 1)]
+                    term = torch.where(keep, diff * diff,
+                                       torch.zeros_like(diff))
+                loss_b = torch.sum(term) / (3 * n)
+                if trace.on():
+                    with trace.counting():
+                        trace.count(lanes=real.numel() * subpacket,
+                                    candidates=real.sum() * subpacket)
+            with trace.span("backward"):
+                loss_b.backward()
+        img[own] = img_b.detach()
+        loss += loss_b.detach()
+    grads = tuple(torch.zeros_like(x) if x.grad is None else x.grad
+                  for x in leaves)
+    return loss, img[:n].reshape(*batch_shape, 3), grads, escalations

@@ -328,10 +328,11 @@ def subpacket_bounds(o: Tensor, d: Tensor, subpacket: int):
     return ot.amin(1), ot.amax(1), dt.amin(1), dt.amax(1)
 
 
-@trace.spanned("phase_a")
-def leaf_candidates(o: Tensor, d: Tensor, tables: CullTables,
-                    max_groups: int, max_candidates: int, subpacket: int):
-    """Hierarchical phase A on padded, direction-sorted rays.
+def leaf_candidate_rows(o: Tensor, d: Tensor, tables: CullTables,
+                        max_groups: int, max_candidates: int,
+                        subpacket: int):
+    """Hierarchical phase A on padded, direction-sorted rays; the body of
+    :func:`leaf_candidates`, for callers that open the span themselves.
 
     o/d: (P*subpacket, 3). Returns (rows (C, P, rowlen) i32 per-chunk
     count-embedded relative leaf ids, overflow 0-d bool tensor), in
@@ -353,6 +354,14 @@ def leaf_candidates(o: Tensor, d: Tensor, tables: CullTables,
     trace.count(phase_a_kernel=0)
     count_rows(rows)
     return rows, overflow
+
+
+@trace.spanned("phase_a")
+def leaf_candidates(o: Tensor, d: Tensor, tables: CullTables,
+                    max_groups: int, max_candidates: int, subpacket: int):
+    """:func:`leaf_candidate_rows` as the span ``tracer_torch.phase_a``."""
+    return leaf_candidate_rows(o, d, tables, max_groups, max_candidates,
+                               subpacket)
 
 
 # ---------------------------------------------------------------------------
@@ -725,7 +734,10 @@ def _escalate(query, rays: int, budgets: tuple, grow,
 
     The leaf walks' checked drivers pass phase A alone as ``query``
     (:func:`_phase_a_query`): a retry reruns phase A, and no ray is walked
-    again. The tile, packet and phase-B drivers pass their whole call."""
+    again. So does the checked soft evaluation
+    (``diff.sparse.soft_loss_grad_sparse``, kind "soft"), whose composite
+    runs once at the budgets that hold. The tile, packet and phase-B
+    drivers pass their whole call."""
     escalations = 0
     out, overflow = query(*budgets)
     while bool(overflow):
@@ -741,10 +753,18 @@ def _escalate(query, rays: int, budgets: tuple, grow,
 
 
 def _doubled_budgets(tables):
-    """The leaf walks' growth rule for :func:`_escalate` over ``tables``:
-    (max_groups, max_candidates) both doubled, each up to what covers the
-    table; None once both do."""
-    G, lpc = tables.cull.num_groups, tables.cull.leaves_per_chunk
+    """The leaf walks' growth rule for :func:`_escalate` over ``tables``
+    (``ConeTables``): :func:`_doubled_cull_budgets` of their cull
+    tables."""
+    return _doubled_cull_budgets(tables.cull)
+
+
+def _doubled_cull_budgets(cull: CullTables):
+    """A growth rule for :func:`_escalate` over single-chunk or chunked
+    ``cull`` tables: (max_groups, max_candidates) both doubled, each up to
+    what covers the table (its groups, a chunk's leaves); None once both
+    do."""
+    G, lpc = cull.num_groups, cull.leaves_per_chunk
 
     def grow(budgets):
         k0, k = budgets

@@ -4,7 +4,8 @@ A span is a ``torch.profiler.record_function`` range named
 ``tracer_torch.<layer>`` around one call into a layer (prep, the
 closest-hit call, the shadow call, phase A, routing, the compactor, a
 walk, a frame, a bounce, a direct frame's shadow query, wavefront
-compaction, an escalation retry), so it sits on the profiler's clock
+compaction, an escalation retry, a soft evaluation and its blocks'
+composite and backward), so it sits on the profiler's clock
 beside the device operations it launched and shows in ``render
 --profile``'s Chrome trace. Each span is also kept
 in memory: its name, argument, host start and end
@@ -23,9 +24,10 @@ launch, no ``record_function``. The store keeps the last ``ROOTS`` root
 spans of the process (one thread), read by :func:`records` and emptied
 by :func:`reset`; it writes no file.
 
-The checked (budget-doubling) queries count their calls and escalations
-whether the trace is on or not (:func:`checked`): into the open span, and
-into the dict of each open :func:`tallied` scope.
+The checked (budget-doubling) queries and the checked soft evaluation
+count their calls and escalations whether the trace is on or not
+(:func:`checked`): into the open span, and into the dict of each open
+:func:`tallied` scope.
 """
 
 from __future__ import annotations
@@ -178,10 +180,13 @@ def counting():
 
 
 def checked(kind: str, escalations: int) -> None:
-    """One call of a checked ``kind`` query ("closest" or "shadow") that
-    escalated ``escalations`` times: always added to every open tally as
-    ``<kind>_calls`` and ``<kind>_escalations``, and to the innermost open
-    span as ``calls`` and ``escalations``."""
+    """One call of a checked ``kind`` query ("closest" or "shadow"), or of
+    the checked soft evaluation ("soft",
+    ``diff.sparse.soft_loss_grad_sparse``, whose phase A alone escalates),
+    that escalated ``escalations`` times: always added to every open tally
+    as ``<kind>_calls`` and ``<kind>_escalations``, and to the innermost
+    open span as ``calls`` and ``escalations`` (the ``soft`` root for an
+    evaluation)."""
     for t in _store.tallies:
         t[f"{kind}_calls"] = t.get(f"{kind}_calls", 0) + 1
         t[f"{kind}_escalations"] = t.get(f"{kind}_escalations", 0) \
