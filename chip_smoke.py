@@ -133,6 +133,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
    returned as passed; the fwd+bwd, its forward and
    a fit step profiled; the identity refit of the 100k tree equal to the
    build, and timed;
+7d. the soft evaluation's kernel (``soft_slice``): the checked soft
+   evaluation at grad_131k's shapes through ``soft_cuda``
+   (``csrc/soft.cu``), its plain version on the card and autograd over
+   ``diff.sparse._soft_block``; image, loss and gradients held to each
+   other, every ``composite`` span reading ``soft_kernel`` 1, the
+   kernel's launches an evaluation, the composite and backward of each
+   timed on CUDA events, the kernels by name on the profiler's device
+   time, and the bound;
 8. the headline measurement (``tracer_torch.bench``, with its shadow,
    LBVH and differentiable extras) and the large-scene measurement
    (``tracer_torch.bench.large``), one JSON line each;
@@ -2294,6 +2302,184 @@ def camera_fit_check(dev):
     log("fit without optimize_camera: the camera returned as passed")
 
 
+# The soft evaluation's kernel against its plain version and autograd on
+# the card (phase 7d), at grad_131k's shapes: image absolute, loss
+# relative, gradients relative L2. The three sum in other orders, and the
+# kernel adds its gradients with atomics (measured 6e-8, 1e-7 and 1.5e-7
+# kernel vs plain, measured on one H100).
+SOFT_IMG_ATOL, SOFT_LOSS_RTOL, SOFT_GRAD_RTOL = 1e-5, 1e-5, 1e-4
+SOFT_RAYS = 131_072
+# Work of a real (ray, candidate) pair in one forward and one backward:
+# float32 operations and special-function ones (exp, log1p, sqrt, the
+# divisions' reciprocals), and the special-function units' rate on one
+# H100 SXM (16 a clock on each of 132 SMs at 1.98 GHz).
+SOFT_OPS_PER_PAIR, SOFT_SFU_PER_PAIR = 200, 16
+SFU_OPS_PER_S = 132 * 16 * 1.98e9
+
+
+def soft_slice(dev, scene, results):
+    """Phase 7d: the checked soft evaluation (``soft_loss_grad_sparse``)
+    at grad_131k's shapes: ``scene``'s spheres moved as ``cli fit`` moves
+    them, tables from radii inflated at widths 30, 131,072 origin rays, a
+    target, subpacket 64, cell bits 8, from (48, 16), blocks of 4 GiB.
+    The kernel path, its plain version on the card and autograd over
+    ``_soft_block`` (both through ``sparse.soft_paths``): image, loss and
+    gradients held to each other; every ``composite`` span reads
+    ``soft_kernel`` 1; the kernel's launches an evaluation; the composite
+    and backward of each timed on CUDA events, the kernels by name on the
+    profiler's device time, and the bound (operations of the real pairs
+    and the candidate rows' bytes)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from tracer_torch import trace
+    from tracer_torch.bench import headline
+    from tracer_torch.core.types import Ray
+    from tracer_torch.diff import sparse
+    from tracer_torch.diff.soft import SoftParams
+    from tracer_torch.kernels import _lib
+    from tracer_torch.scene.scene import Scene
+    params = SoftParams()
+    g = torch.Generator(device=dev).manual_seed(27)
+    moved = Scene(
+        centers=scene.centers + 0.1 * torch.mean(scene.radii) * torch.randn(
+            scene.centers.shape, generator=g, device=dev),
+        radii=scene.radii,
+        albedo=torch.clamp(scene.albedo + 0.2, 0.05, 0.95))
+    tables = headline.diff_tables(moved)
+    d = torch.rand((SOFT_RAYS, 3), generator=g, device=dev) * 2.0 - 1.0
+    d = d / torch.linalg.vector_norm(d, dim=1, keepdim=True)
+    rays = Ray(origin=torch.zeros_like(d), direction=d)
+    target = torch.rand((SOFT_RAYS, 3), generator=g, device=dev)
+    paths = sparse.soft_paths
+
+    def autograd_composite(sc, o, dd, ids, valid, widths, own, tgt, n, tb,
+                           prm, sp):
+        leaves = [x.detach().requires_grad_(True)
+                  for x in (sc.centers, sc.radii, sc.albedo)]
+        with torch.enable_grad():
+            img, real = sparse._soft_block(*leaves, o, dd, ids, valid, tb,
+                                           prm, sp)
+            keep = (own < n)[:, None]
+            diff = img - tgt[torch.clamp(own, max=n - 1)]
+            term = torch.sum(torch.where(keep, diff * diff,
+                                         torch.zeros_like(diff)))
+        return img.detach(), term.detach(), real.sum(1), (term, leaves, n)
+
+    def autograd_backward(state, grads, prm):
+        term, leaves, n = state
+        with torch.enable_grad():     # the evaluation's blocks run no_grad
+            (term / (3 * n)).backward()
+        for gr, x in zip(grads, leaves):
+            gr += x.grad
+
+    def run(kind):
+        """One evaluation by ``kind``, its composite and backward between
+        CUDA events: (loss, image, grads, ms)."""
+        comp, back, lane = {
+            "kernel": paths(True), "plain": paths(False),
+            "autograd": (autograd_composite, autograd_backward,
+                         sparse.LANE_BYTES)}[kind]
+        marks = []
+
+        def timed_comp(*a):
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
+            return comp(*a)
+
+        def timed_back(*a):
+            back(*a)
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
+        sparse.soft_paths = lambda kernel: (timed_comp, timed_back, lane)
+        try:
+            loss, img, grads, _ = sparse.soft_loss_grad_sparse(
+                moved, rays, target, tables, params, 48, 16, 64, 8, 4 << 30)
+        finally:
+            sparse.soft_paths = paths
+        torch.cuda.synchronize()
+        ms = sum(a.elapsed_time(b) for a, b in zip(marks[::2], marks[1::2]))
+        return loss, img, grads, ms
+
+    run("kernel")
+    before = _lib.launches.copy()
+    k_loss, k_img, k_grads, _ = run("kernel")
+    launched = launches_since(before, "soft_cuda")["soft_cuda"]
+    k_ms = sorted(run("kernel")[3] for _ in range(5))[2]
+    t0 = time.perf_counter()
+    for _ in range(3):
+        sparse.soft_loss_grad_sparse(moved, rays, target, tables, params,
+                                     48, 16, 64, 8, 4 << 30)
+    torch.cuda.synchronize()
+    eval_ms = (time.perf_counter() - t0) / 3 * 1e3
+    trace.reset()
+    with trace.enabled():
+        sparse.soft_loss_grad_sparse(moved, rays, target, tables, params,
+                                     48, 16, 64, 8, 4 << 30)
+    torch.cuda.synchronize()
+    comps = [s for root in trace.records() for s in root["spans"]
+             if s["name"] == "tracer_torch.composite"]
+    if not comps or any(s["counters"]["soft_kernel"] != 1 for s in comps):
+        raise AssertionError("a composite span of the soft evaluation did "
+                             "not run the kernel")
+    pairs = sum(int(s["counters"]["candidates"]) for s in comps)
+    lanes = sum(int(s["counters"]["lanes"]) for s in comps)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sparse.soft_loss_grad_sparse(moved, rays, target, tables, params,
+                                     48, 16, 64, 8, 4 << 30)
+        torch.cuda.synchronize()
+    by_kernel = {}
+    for e in prof.key_averages():
+        if "soft_" in e.key:
+            name = e.key.split("::")[-1].split("(")[0]
+            by_kernel[name] = by_kernel.get(name, 0.0) \
+                + e.device_time_total / 1e3
+    p_loss, p_img, p_grads, p_ms = run("plain")
+    a_loss, a_img, a_grads, a_ms = run("autograd")
+
+    def rel(a, b):
+        return float(torch.linalg.vector_norm(a - b)
+                     / torch.linalg.vector_norm(b))
+    errs = {}
+    for name, (loss, img, grads) in (("plain", (p_loss, p_img, p_grads)),
+                                     ("autograd", (a_loss, a_img, a_grads))):
+        errs[name] = (float((k_img - img).abs().max()),
+                      abs(float(k_loss) - float(loss)) / float(loss),
+                      max(rel(x, y) for x, y in zip(k_grads, grads)))
+    ops_s = pairs * (SOFT_OPS_PER_PAIR / FP32_OPS_PER_S
+                     + SOFT_SFU_PER_PAIR / SFU_OPS_PER_S)
+    # The candidate rows written and read, the rays read, the image and
+    # the gradients' atomics once.
+    n_bytes = pairs // 64 * 32 * 2 + SOFT_RAYS * (24 + 12) \
+        + pairs // 64 * 28
+    bms, bby = (ops_s * 1e3, "operations") \
+        if ops_s >= n_bytes / HBM_BYTES_PER_S \
+        else (n_bytes / HBM_BYTES_PER_S * 1e3, "bytes")
+    log(f"soft {SOFT_RAYS} rays x {scene.centers.shape[0]} spheres: "
+        f"{pairs} real pairs of {lanes} lanes (fill {pairs / lanes:.4f}); "
+        f"{launched} soft_cuda launches an evaluation, every composite "
+        f"span soft_kernel 1; composite + backward on events: kernel "
+        f"{k_ms:.4f} ms (median of 5), plain {p_ms:.4f} ms, autograd "
+        f"{a_ms:.4f} ms; the kernels' device time "
+        f"{json.dumps({k: round(v, 4) for k, v in by_kernel.items()})}; "
+        f"evaluation {eval_ms:.2f} ms; bound {bms:.4f} ms ({bby}); kernel "
+        f"vs plain image {errs['plain'][0]:.3g}, loss {errs['plain'][1]:.3g}"
+        f", grads {errs['plain'][2]:.3g}; vs autograd image "
+        f"{errs['autograd'][0]:.3g}, loss {errs['autograd'][1]:.3g}, grads "
+        f"{errs['autograd'][2]:.3g}")
+    for name, (img_err, loss_err, grad_err) in errs.items():
+        if img_err > SOFT_IMG_ATOL or loss_err > SOFT_LOSS_RTOL \
+                or grad_err > SOFT_GRAD_RTOL:
+            raise AssertionError(f"the soft kernel is off its {name} "
+                                 f"version: {img_err}, {loss_err}, "
+                                 f"{grad_err}")
+    results["soft_cuda"] = dict(
+        ms=k_ms, plain_ms=p_ms, library_ms=None, bound_ms=bms, bound_by=bby,
+        max_abs_err=errs["plain"][0], launches=launched,
+        autograd_ms=a_ms, device_ms=sum(by_kernel.values()))
+    del moved, tables, rays, target
+    torch.cuda.empty_cache()
+
+
 def time_compactor(name, ids, sentinel, keep):
     """compact_cuda vs its plain version on one plane, exactly, and the
     plane timed on CUDA events over back-to-back calls: (ms, plain_ms,
@@ -3335,6 +3521,9 @@ def main(argv=None) -> int:
     diff_launches = diff_slice(dev, scene, tables, o, d, comp)
     results["compact_cuda"]["launches"] += diff_launches
 
+    # -- 7d. the soft evaluation's kernel at grad_131k's shapes -------------
+    soft_slice(dev, scene, results)
+
     # -- 7b. the compactor over the main paths -------------------------------
     comp.summary()
 
@@ -3376,6 +3565,9 @@ def main(argv=None) -> int:
         "prep_cuda": ("tracer_torch/csrc/prep.cu",
                       "none (XLA operations: tracer/kernels/leafcull.py:475 "
                       "prep_feats_bucketed)"),
+        "soft_cuda": ("tracer_torch/csrc/soft.cu",
+                      "none (XLA operations: tracer/diff/sparse.py, the "
+                      "soft composite and its autodiff)"),
     }
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")

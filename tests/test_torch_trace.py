@@ -497,8 +497,9 @@ def test_soft_root_spans_and_counters(soft_setup):
     phase A's ``phase_a_kernel``, ``rows`` and ``group_rows``), then a
     ``composite`` and a ``backward`` a block. ``lanes`` and
     ``candidates`` equal a recount from phase A's rows at the budgets
-    that held: the rays times the block's candidate slots, and the real
-    (ray, sphere) pairs of each subpacket's own leaves."""
+    that held: the rays times each subpacket's own listed slots, and the
+    real (ray, sphere) pairs of each subpacket's own leaves;
+    ``soft_kernel`` is 0 (the plain version ran)."""
     from tracer_torch.diff import sparse
     scene, tables, rays, _ = soft_setup
     with trace.enabled():
@@ -527,11 +528,12 @@ def test_soft_root_spans_and_counters(soft_setup):
     k0, k = sparse.soft_budgets(tables, esc, 8, 2)
     ids, _ = sparse.candidate_sphere_ids(padded.origin, padded.direction,
                                          tables, k0, k)
-    _, valid, _ = sparse.candidate_leaf_ids(padded.origin, padded.direction,
-                                            tables, k0, k)
+    (_, _, n_eff, _), _ = sparse._soft_phase_a(
+        padded.origin, padded.direction, tables, 64)(k0, k)
     (comp,) = _spans([root], "tracer_torch.composite")
     assert comp["counters"] == {
-        "lanes": P * 64 * int(valid.sum(1).max()) * tables.leaf_size,
+        "soft_kernel": 0,
+        "lanes": 64 * sum(n_eff) * tables.leaf_size,
         "candidates": int((ids >= 0).sum()) * 64}
     (back,) = _spans([root], "tracer_torch.backward")
     assert back["counters"] == {}

@@ -22,8 +22,11 @@ bitwise run to run on the card) and the camera pose through the ray values;
 the candidate sets are piecewise constant, like the hard path's argmin.
 
 Phase A compacts its rows with the hand-written CUDA compactor on CUDA
-tensors (``conecull.compact_ascending_rows``); everything after it is plain
-torch with autograd. Deviation from the JAX package:
+tensors (``conecull.compact_ascending_rows``); the image functions after
+it are plain torch with autograd. The checked evaluation
+(:func:`soft_loss_grad_sparse`) composites and differentiates by hand:
+on CUDA tensors in ``csrc/soft.cu``, on CPU tensors in the plain version
+of the same arithmetic. Deviation from the JAX package:
 :func:`soft_render_sparse_fast` selects its top M with ``torch.topk``, which
 is exact (recall 1.0) where the JAX function asks ``approx_max_k`` for a
 recall target.
@@ -40,6 +43,7 @@ from tracer_torch.core.sort import prep_rays_bucketed
 from tracer_torch.core.types import Ray
 from tracer_torch.diff.soft import (SoftParams, _sigmoid, clip,
                                     composite_sorted, maximum, soft_terms)
+from tracer_torch.kernels import _lib
 from tracer_torch.kernels.leafcull import (CullTables, _doubled_cull_budgets,
                                            _escalate, leaf_candidate_rows,
                                            leaf_candidates)
@@ -251,11 +255,14 @@ def _ray_scalars(op: Tensor, dp: Tensor):
     return ox, oy, oz, dx, dy, dz, a
 
 
+_ZENITH = (128.0 / 255.0, 178.0 / 255.0, 1.0)
+
+
 def _sky_channels(y: Tensor):
     """The sky colour keyed to a direction's y, channel by channel, as
     (1 - t) + t * zenith with t = 0.5 (y + 1)."""
     t = 0.5 * (y + 1.0)
-    return [(1.0 - t) + t * c for c in (128.0 / 255.0, 178.0 / 255.0, 1.0)]
+    return [(1.0 - t) + t * c for c in _ZENITH]
 
 
 def leaf_order(o: Tensor, d: Tensor, tables: CullTables, leaf_ids: Tensor,
@@ -403,11 +410,15 @@ def soft_render_sparse_fast(scene: Scene, o: Tensor, d: Tensor,
 # forward, then its backward, before the next. The loss is a sum over
 # rays, so the blocks' gradients add up to the whole one's.
 
-# Device bytes a (ray, candidate) lane of a block holds at the block's
-# peak: the forward's planes and those autograd keeps for the backward
-# (182 measured on an NVIDIA H100, rounded up).
+# Device bytes a (ray, candidate) lane of a block held at the block's
+# peak on the eager autograd path (182 measured on an NVIDIA H100, rounded
+# up); the plain version (:func:`soft_composite_plain`, planes of the
+# same lanes without autograd) cuts its blocks at it.
 LANE_BYTES = 192
-
+# The kernel path's (:func:`soft_composite_cuda`): the (gsigma, w) plane of
+# 8 bytes a lane, and a candidate slot's two gathered rows, 32 bytes over
+# the subpacket's rays.
+KERNEL_LANE_BYTES = 9
 
 def _soft_phase_a(o: Tensor, d: Tensor, tables: CullTables,
                   subpacket: int):
@@ -443,12 +454,12 @@ def soft_budgets(tables: CullTables, escalations: int,
 
 
 def _blocks(widths: list, subpacket: int, leaf_size: int,
-            block_bytes: int):
+            block_bytes: int, lane_bytes: int = LANE_BYTES):
     """Cut subpackets of ascending ``widths`` (leaves), in that order, into
     blocks (start, stop, leaves): each as many as fit ``block_bytes`` at
-    :data:`LANE_BYTES` a lane, as wide as its widest (last) subpacket, at
+    ``lane_bytes`` a lane, as wide as its widest (last) subpacket, at
     least one subpacket and one leaf."""
-    lane = subpacket * leaf_size * LANE_BYTES
+    lane = subpacket * leaf_size * lane_bytes
     out, start = [], 0
     for i, w in enumerate(widths):
         if i > start and (i + 1 - start) * max(w, 1) * lane > block_bytes:
@@ -459,16 +470,12 @@ def _blocks(widths: list, subpacket: int, leaf_size: int,
     return out
 
 
-def _soft_block(centers: Tensor, radii: Tensor, albedo: Tensor, o: Tensor,
-                d: Tensor, leaf_ids: Tensor, valid: Tensor,
-                tables: CullTables, params: SoftParams, subpacket: int):
-    """The exact soft image of one block of subpackets, (p * SP, 3), for
-    autograd: each subpacket's candidate spheres (its leaves' slots)
-    gathered from the scene, sigma, t_soft and mirror.y in the scalar
-    layout (p, SP, K), then each ray's candidates composited in its own
-    stable t order (``soft.composite_sorted``); the weights are scattered
-    back to the candidates' order, where the shade is read. Also returns
-    which of the (p, K) candidate slots hold a real sphere."""
+def _block_candidates(centers: Tensor, radii: Tensor, albedo: Tensor,
+                      leaf_ids: Tensor, valid: Tensor, tables: CullTables):
+    """A block's candidate slots in the scalar layout: (sid (p, K) with
+    the real slots' spheres, real (p, K), attributes cx cy cz r a0 a1 a2
+    each (p, 1, K), gathered from the scene at sphere 0 where a slot holds
+    no sphere, its radius 1)."""
     p, w = leaf_ids.shape
     ls = tables.leaf_size
     K = w * ls
@@ -488,8 +495,26 @@ def _soft_block(centers: Tensor, radii: Tensor, albedo: Tensor, o: Tensor,
     # Padding candidates keep a unit radius (see
     # soft_render_sparse_packets); the masks erase them.
     r = take(radii)
+    r = torch.where(real[:, None, :], r, torch.ones_like(r))
+    return safe, real, (cx, cy, cz, r, a0, a1, a2)
+
+
+def _soft_block(centers: Tensor, radii: Tensor, albedo: Tensor, o: Tensor,
+                d: Tensor, leaf_ids: Tensor, valid: Tensor,
+                tables: CullTables, params: SoftParams, subpacket: int):
+    """The exact soft image of one block of subpackets, (p * SP, 3), for
+    autograd: each subpacket's candidate spheres (its leaves' slots)
+    gathered from the scene, sigma, t_soft and mirror.y in the scalar
+    layout (p, SP, K), then each ray's candidates composited in its own
+    stable t order (``soft.composite_sorted``); the weights are scattered
+    back to the candidates' order, where the shade is read. Also returns
+    which of the (p, K) candidate slots hold a real sphere. The oracle of
+    the plain version and the kernel (:func:`soft_composite_plain`,
+    :func:`soft_composite_cuda`)."""
+    p = leaf_ids.shape[0]
+    _, real, (cx, cy, cz, r, a0, a1, a2) = _block_candidates(
+        centers, radii, albedo, leaf_ids, valid, tables)
     m = real[:, None, :]
-    r = torch.where(m, r, torch.ones_like(r))
     op = o.reshape(p, subpacket, 3)
     dp = d.reshape(p, subpacket, 3)
     sigma, t_soft, my = _sigma_t_scalar(cx, cy, cz, r, *_ray_scalars(op, dp),
@@ -513,6 +538,394 @@ def _soft_block(centers: Tensor, radii: Tensor, albedo: Tensor, o: Tensor,
     return torch.stack(img, dim=-1).reshape(-1, 3), real
 
 
+# ---------------------------------------------------------------------------
+# The composite's hand-written backward: the plain version of csrc/soft.cu
+# ---------------------------------------------------------------------------
+#
+# The loss is a sum over rays, each ray's image a clipped sum over its
+# candidates in its own stable t order:
+#
+#   s_i = sigma_i (1 - 1e-6),  L_i = log1p(-s_i),  E_i = sum_{k<i} L_k,
+#   w_i = s_i exp(E_i),  T = exp(sum_k L_k),
+#   x_c = sum_i w_i shade_ic + T bg_c,  img_c = clip(x_c, 0, 1).
+#
+# With g_c = d loss / d img_c (clip's 0.5 on either bound),
+# G_i = sum_c g_c shade_ic and the reverse scan
+# R_i = sum_{k>i} w_k G_k + T sum_c g_c bg_c,
+#
+#   d loss / d s_i = exp(E_i) G_i - R_i / (1 - s_i),
+#   d loss / d albedo_ic = g_c w_i,
+#   d loss / d mirror.y_i = w_i (0.25 sum_{c<2} g_c (z_c - 1)),
+#
+# z the sky's zenith colour; sigma and mirror.y then go back to the centre
+# and radius through :func:`_lane_backward`, lane by lane. The forward
+# (:func:`_lane_forward`) is ``_sigma_t_scalar``'s operations in its
+# order, each rounded once, and keeps what the backward reads; maxima and
+# clips give half the gradient at a tie, as ``soft.maximum`` does.
+
+_KEEP = 1.0 - 1e-6
+# d loss / d mirror.y over w: 0.25 sum_{c<2} g_c (z_c - 1).
+_MY_TERMS = (_ZENITH[0] - 1.0, _ZENITH[1] - 1.0)
+
+
+def _tie(x: Tensor, c: float) -> Tensor:
+    """d maximum(x, c) / dx: 1 above c, 0.5 at it, 0 below."""
+    return torch.where(x > c, 1.0, torch.where(x == c, 0.5, 0.0))
+
+
+def _sig_parts(x: Tensor):
+    """``soft._sigmoid(x)`` with what its derivative reads: (v, e, y) for
+    v = -x before the clip, e = exp(clip(v, -30, 30)), y = 1 / (1 + e)."""
+    v = -x
+    e = torch.exp(clip(v, -30.0, 30.0))
+    return v, e, 1.0 / (1.0 + e)
+
+
+def _sig_grad(gy: Tensor, v: Tensor, e: Tensor, y: Tensor) -> Tensor:
+    """d loss / dx of y = sigmoid(x) from d loss / dy: gy y^2 e times the
+    clip's derivative at v = -x."""
+    return gy * (y * y) * e * (_tie(v, -30.0) * _tie(-v, -30.0))
+
+
+def _lane_forward(cx, cy, cz, r, ox, oy, oz, dx, dy, dz, a,
+                  params: SoftParams) -> dict:
+    """sigma, t_soft and mirror.y of broadcastable scalar operands, as
+    :func:`_sigma_t_scalar` computes them, with the values the backward
+    reads (a dict of tensors)."""
+    es, se = params.edge_sharpness, params.smooth_eps
+    f = {}
+    inva = 1.0 / maximum(a, 1e-30)
+    ocx, ocy, ocz = cx - ox, cy - oy, cz - oz
+    t_ca = (ocx * dx + ocy * dy + ocz * dz) * inva
+    qx, qy, qz = ocx - t_ca * dx, ocy - t_ca * dy, ocz - t_ca * dz
+    qq = qx * qx + qy * qy + qz * qz
+    perp2 = maximum(qq, 0.0)
+    ser = se * r
+    eps2 = ser * ser
+    perp = torch.sqrt(perp2 + eps2)
+    mr = maximum(r, 1e-6)
+    sdf = (perp - r) / mr
+    v1, e1, y1 = _sig_parts(-sdf * es)
+    disc = r * r - perp2
+    h = torch.sqrt(maximum(disc, 0.0) + eps2)
+    sinva = torch.sqrt(inva)
+    t = t_ca - (h - ser) * sinva
+    v2, e2, y2 = _sig_parts(t * es)
+    px = ox + t * dx - cx
+    py = oy + t * dy - cy
+    pz = oz + t * dz - cz
+    pp = px * px + py * py + pz * pz
+    nn = torch.sqrt(maximum(pp, 1e-20))
+    nx, ny, nz = px / nn, py / nn, pz / nn
+    dn = dx * nx + dy * ny + dz * nz
+    my = dy - 2.0 * dn * ny
+    f.update(inva=inva, sinva=sinva, qx=qx, qy=qy, qz=qz, qq=qq, ser=ser,
+             perp=perp, mr=mr, sdf=sdf, v1=v1, e1=e1, y1=y1, disc=disc, h=h,
+             t=t, v2=v2, e2=e2, y2=y2, px=px, py=py, pz=pz, pp=pp, nn=nn,
+             nx=nx, ny=ny, nz=nz, dn=dn, sigma=y1 * y2, my=my, r=r)
+    return f
+
+
+def _lane_backward(f: dict, dx, dy, dz, gsig: Tensor, gmy: Tensor,
+                   params: SoftParams):
+    """d loss / d (cx, cy, cz, r) of every lane from d loss / d sigma and
+    d loss / d mirror.y, by the chain rule through :func:`_lane_forward`
+    (``csrc/soft.cu`` ``lane_backward`` in the same steps)."""
+    es, se = params.edge_sharpness, params.smooth_eps
+    r, nn = f["r"], f["nn"]
+    # sigma = y1 y2; x1 = -sdf es; x2 = t es.
+    gx1 = _sig_grad(gsig * f["y2"], f["v1"], f["e1"], f["y1"])
+    gx2 = _sig_grad(gsig * f["y1"], f["v2"], f["e2"], f["y2"])
+    gt = gx2 * es
+    # sdf = (perp - r) / max(r, 1e-6).
+    gnum = -(gx1 * es) / f["mr"]
+    gr = -gnum - gnum * f["sdf"] * _tie(r, 1e-6)
+    # perp = sqrt(perp2 + eps2).
+    gpe = gnum * 0.5 / f["perp"]
+    # mirror.y = dy - (2 dn) ny; dn = d . n; n = p / nn.
+    gdn = -2.0 * gmy * f["ny"]
+    gnx = gdn * dx
+    gny = gdn * dy - gmy * (2.0 * f["dn"])
+    gnz = gdn * dz
+    gnn = -(gnx * f["nx"] + gny * f["ny"] + gnz * f["nz"]) / nn
+    gpp = gnn * 0.5 / nn * _tie(f["pp"], 1e-20)
+    gpx = gnx / nn + 2.0 * f["px"] * gpp
+    gpy = gny / nn + 2.0 * f["py"] * gpp
+    gpz = gnz / nn + 2.0 * f["pz"] * gpp
+    # p = o + t d - c; t = t_ca - (h - se r) sinva.
+    gt = gt + (gpx * dx + gpy * dy + gpz * dz)
+    gsq = -gt * f["sinva"]
+    gh = gsq * 0.5 / f["h"]
+    gdisc = gh * _tie(f["disc"], 0.0)
+    # disc = r^2 - perp2; eps2 = (se r)^2.
+    gr = gr - gsq * se + 2.0 * r * gdisc \
+        + (gpe + gh) * 2.0 * f["ser"] * se
+    gqq = (gpe - gdisc) * _tie(f["qq"], 0.0)
+    gqx, gqy, gqz = (2.0 * f[k] * gqq for k in ("qx", "qy", "qz"))
+    # q = oc - t_ca d; t_ca = (oc . d) inva; oc = c - o.
+    gdot = (gt - (gqx * dx + gqy * dy + gqz * dz)) * f["inva"]
+    return (gqx + gdot * dx - gpx, gqy + gdot * dy - gpy,
+            gqz + gdot * dz - gpz, gr)
+
+
+def _loss_grads(x: list, own: Tensor, target: Tensor | None, n: int):
+    """The per-ray loss terms (sum over channels, 0 on bucket padding) and
+    d loss / d x_c (each (p, SP)) of the pre-clip channels ``x``: the mean
+    of (img - target)^2, or of img where ``target`` is None, over n rays
+    and 3 channels."""
+    keep = own < n
+    scale = 1.0 / (3 * n)
+    img = [clip(xc, 0.0, 1.0) for xc in x]
+    if target is None:
+        terms, dimg = img, [torch.ones_like(xc) for xc in x]
+    else:
+        tgt = target[torch.clamp(own, max=n - 1)]
+        diff = [ic - tgt[..., c] for c, ic in enumerate(img)]
+        terms = [df * df for df in diff]
+        dimg = [2.0 * df for df in diff]
+    cd = [_tie(xc, 0.0) * _tie(-torch.clamp(xc, min=0.0), -1.0) for xc in x]
+    g = [torch.where(keep, di * scale * ci, torch.zeros_like(di))
+         for di, ci in zip(dimg, cd)]
+    term = torch.where(keep, terms[0] + terms[1] + terms[2],
+                       torch.zeros_like(terms[0]))
+    return torch.stack(img, dim=-1), term, g
+
+
+def soft_composite_plain(scene: Scene, o: Tensor, d: Tensor,
+                         leaf_ids: Tensor, valid: Tensor, widths: list,
+                         own: Tensor, target: Tensor | None, n: int,
+                         tables: CullTables, params: SoftParams,
+                         subpacket: int):
+    """The plain version of :func:`soft_composite_cuda`, in torch without
+    autograd over the block's (p, SP, K) lanes: its image rows (p * SP,
+    3), the sum of its rays' loss terms (0-d; the loss is that over 3 n),
+    each subpacket's count of real candidates (p,), and what
+    :func:`soft_backward_plain` reads. Padding slots carry sigma 0 and t
+    past every real candidate, so they add exactly 0; ``widths`` is not
+    read."""
+    p = leaf_ids.shape[0]
+    safe, real, (cx, cy, cz, r, a0, a1, a2) = _block_candidates(
+        scene.centers, scene.radii, scene.albedo, leaf_ids, valid, tables)
+    m = real[:, None, :]
+    op = o.reshape(p, subpacket, 3)
+    dp = d.reshape(p, subpacket, 3)
+    ray = _ray_scalars(op, dp)
+    f = _lane_forward(cx, cy, cz, r, *ray, params)
+    t = torch.where(m, f["t"], torch.full_like(f["t"], _FAR_T))
+    s = torch.where(m, f["sigma"] * _KEEP, torch.zeros_like(f["sigma"]))
+    # The shade's sky takes 1 for blue, as in _soft_block.
+    sky = _sky_channels(f["my"])
+    shade = [a0 + 0.5 * sky[0], a1 + 0.5 * sky[1], a2 + 0.5]
+
+    order = torch.argsort(t, dim=2, stable=True)
+    s_s = torch.gather(s, 2, order)
+    log1m = torch.log1p(-s_s)
+    csum = torch.cumsum(log1m, dim=2)
+    e_s = torch.exp(torch.cat([torch.zeros_like(csum[..., :1]),
+                               csum[..., :-1]], dim=2))   # exp(E), exclusive
+    w_s = s_s * e_s
+    w = torch.zeros_like(w_s).scatter(2, order, w_s)
+    t_total = torch.exp(csum[..., -1])                    # (p, SP)
+    bg = _sky_channels(dp[:, :, 1])
+    x = [torch.sum(w * sc, dim=2) + t_total * b for sc, b in zip(shade, bg)]
+    img, term, g = _loss_grads(x, own.reshape(p, subpacket), target, n)
+
+    # The reverse scan, in each ray's t order.
+    big_g = sum(gc[..., None] * sc for gc, sc in zip(g, shade))
+    wg = w_s * torch.gather(big_g, 2, order)
+    suffix = torch.flip(torch.cumsum(torch.flip(wg, [2]), dim=2), [2])
+    r_s = torch.cat([suffix[..., 1:], torch.zeros_like(suffix[..., :1])],
+                    dim=2) + (t_total * sum(gc * b for gc, b in zip(g, bg))
+                              )[..., None]
+    ds = e_s * torch.gather(big_g, 2, order) - r_s / (1.0 - s_s)
+    gsig = torch.zeros_like(ds).scatter(2, order, ds * _KEEP)
+    gsig = torch.where(m, gsig, torch.zeros_like(gsig))
+    state = (f, ray, gsig, w, g, safe, real)
+    return img.reshape(-1, 3), torch.sum(term), real.sum(1), state
+
+
+def soft_backward_plain(state, grads, params: SoftParams) -> None:
+    """The plain version of :func:`soft_backward_cuda`: each lane's
+    derivatives (:func:`_lane_backward`), summed over the subpacket's
+    rays, then added into ``grads`` (centres (N, 3), radii (N,), albedo
+    (N, 3)) at the real candidates' spheres."""
+    f, ray, gsig, w, g, safe, real = state
+    _, _, _, dx, dy, dz, _ = ray
+    gmy = w * (0.25 * (g[0] * _MY_TERMS[0] + g[1] * _MY_TERMS[1]))[..., None]
+    gc = _lane_backward(f, dx, dy, dz, gsig, gmy, params)
+    m = real[:, None, :]
+    keep = real.reshape(-1)
+    idx = safe[keep]
+
+    def add(into: Tensor, lanes: Tensor):
+        lanes = torch.where(m, lanes, torch.zeros_like(lanes))
+        into.index_add_(0, idx, torch.sum(lanes, dim=1).reshape(-1)[keep])
+    for c in range(3):
+        add(grads[0][:, c], gc[c])
+        add(grads[2][:, c], g[c][..., None] * w)
+    add(grads[1], gc[3])
+
+
+# ---------------------------------------------------------------------------
+# The kernel path (csrc/soft.cu)
+# ---------------------------------------------------------------------------
+
+# Keys a team sorts in shared memory: above this a ray's keys go to
+# device memory.
+_SHARED_KEYS = 16384
+_MAX_SUBPACKET = 128    # soft.cu kMaxSP: the backward's rows of rays
+SOFT_CHUNK = 128        # soft.cu kChunk: candidates a backward CTA
+
+
+def _pow2(x: int) -> int:
+    return 1 << max(x - 1, 0).bit_length()
+
+
+def soft_layouts(caps: list):
+    """Phase 1's launches for subpackets of ascending candidate capacities
+    ``caps`` (leaves times leaf size): runs [start, stop) that share a key
+    capacity (a power of two at least 256, the run's largest) and a team
+    per ray, as (start, stop, team, teams a CTA, key capacity, keys in
+    shared memory). A warp a ray up to 2,048 keys, 8 rays a CTA up to
+    1,024 and 4 at 2,048 (64 KB of keys); above, the CTA's 256 threads a
+    ray, the keys in shared memory up to ``_SHARED_KEYS`` (128 KB), in
+    device memory past it."""
+    out = []
+    for i, cap in enumerate(caps):
+        kcap = max(256, _pow2(cap))
+        team, teams = (32, 8 if kcap <= 1024 else 4) if kcap <= 2048 \
+            else (256, 1)
+        layout = (team, teams, kcap, kcap <= _SHARED_KEYS)
+        if out and tuple(out[-1][2:]) == layout:
+            out[-1][1] = i + 1
+        else:
+            out.append([i, i + 1, *layout])
+    return [tuple(x) for x in out]
+
+
+def _check_soft_args(scene: Scene, o: Tensor, d: Tensor, leaf_ids: Tensor,
+                     valid: Tensor, widths: list, own: Tensor,
+                     target: Tensor | None, n: int, tables: CullTables,
+                     subpacket: int) -> torch.device:
+    """The device of :func:`soft_composite_cuda`'s tensors; raises on any
+    other device, dtype, shape or layout than its kernels take."""
+    p = leaf_ids.shape[0]
+    rows = p * subpacket
+    want = [(scene.centers, torch.float32, (scene.centers.shape[0], 3)),
+            (scene.radii, torch.float32, (scene.centers.shape[0],)),
+            (scene.albedo, torch.float32, (scene.centers.shape[0], 3)),
+            (o, torch.float32, (rows, 3)), (d, torch.float32, (rows, 3)),
+            (own, torch.int64, (rows,)),
+            (tables.slot_to_sphere, torch.int32, None)]
+    if target is not None:
+        want.append((target, torch.float32, (n, 3)))
+    for t, dtype, shape in want:
+        if t.dtype != dtype or (shape is not None and tuple(t.shape) != shape):
+            raise ValueError(f"soft_cuda: a {t.dtype} tensor of shape "
+                             f"{tuple(t.shape)}, wants {dtype} {shape}")
+        if not t.is_contiguous():
+            raise ValueError("soft_cuda: a tensor is not contiguous")
+    if leaf_ids.dtype != torch.int32 or valid.dtype != torch.bool \
+            or leaf_ids.shape != valid.shape or leaf_ids.dim() != 2 \
+            or leaf_ids.stride(1) != 1 or leaf_ids.stride() != valid.stride():
+        raise ValueError("soft_cuda: leaf_ids (p, w) int32 and valid (p, w) "
+                         "bool, rows of one stride, columns of unit stride")
+    if len(widths) != p or (p and max(widths) > leaf_ids.shape[1]):
+        raise ValueError(f"soft_cuda: {len(widths)} widths for {p} rows of "
+                         f"{leaf_ids.shape[1]} leaves")
+    if not 1 <= subpacket <= _MAX_SUBPACKET or n < 1:
+        raise ValueError(f"soft_cuda: subpacket {subpacket} outside "
+                         f"1..{_MAX_SUBPACKET}, or {n} rays")
+    if subpacket * tables.leaf_size * sum(widths) >= 2 ** 31:
+        raise ValueError("soft_cuda: the block's lanes pass 2^31")
+    return _lib.require_cuda("soft_cuda", leaf_ids, valid,
+                             *(t for t, _, _ in want))
+
+
+def soft_composite_cuda(scene: Scene, o: Tensor, d: Tensor,
+                        leaf_ids: Tensor, valid: Tensor, widths: list,
+                        own: Tensor, target: Tensor | None, n: int,
+                        tables: CullTables, params: SoftParams,
+                        subpacket: int):
+    """The composite of a block of subpackets as hand-written CUDA
+    (``csrc/soft.cu``): one launch gathers each subpacket's real
+    candidates (its ``widths`` leaves' slots that hold a sphere; padding
+    dropped), then one launch a layout (:func:`soft_layouts`) takes each
+    ray's candidates, sorts their t stably, composites them, forms the
+    ray's loss term and d loss / d image, and runs the reverse scan to
+    d loss / d sigma of each candidate (the (gsigma, w) plane). Returns
+    the block's image rows, the sum of its rays' loss terms, each
+    subpacket's count of real candidates and what
+    :func:`soft_backward_cuda` reads. Raises for tensors the kernels do
+    not take; allocates with ``torch.empty``."""
+    dev = _check_soft_args(scene, o, d, leaf_ids, valid, widths, own,
+                           target, n, tables, subpacket)
+    p = leaf_ids.shape[0]
+    ls = tables.leaf_size
+    caps = [w * ls for w in widths]
+    off = [0]
+    for c in caps:
+        off.append(off[-1] + c)
+    off_t = torch.tensor(off, dtype=torch.int32).to(dev)
+    slots = max(off[-1], 1)
+    cand = torch.empty((slots, 4), dtype=torch.float32, device=dev)
+    alb = torch.empty((slots, 4), dtype=torch.float32, device=dev)
+    count = torch.empty(p, dtype=torch.int32, device=dev)
+    _lib.launch("soft_cuda", "tracer_soft_gather", dev, leaf_ids, valid,
+                tables.slot_to_sphere, scene.centers, scene.radii,
+                scene.albedo, off_t, cand, alb, count, leaf_ids.stride(0),
+                ls, p)
+    rows = p * subpacket
+    own32 = own.to(torch.int32)
+    img = torch.empty((rows, 3), dtype=torch.float32, device=dev)
+    term = torch.empty(rows, dtype=torch.float32, device=dev)
+    gray = torch.empty((rows, 4), dtype=torch.float32, device=dev)
+    plane = torch.empty((subpacket * slots, 2), dtype=torch.float32,
+                        device=dev)
+    es, se = float(params.edge_sharpness), float(params.smooth_eps)
+    layouts = soft_layouts(caps)
+    for start, stop, team, teams, kcap, shared in layouts:
+        while subpacket % teams:
+            teams //= 2
+        keys = None if shared else torch.empty(
+            (stop - start) * subpacket * kcap, dtype=torch.int64, device=dev)
+        _lib.launch("soft_cuda", "tracer_soft_rays", dev, cand, alb, off_t,
+                    count, o, d, own32, target, img, term, gray, plane, keys,
+                    start, stop - start, team, teams, kcap, subpacket, n, es,
+                    se, 1.0 / (3 * n))
+    state = (cand, alb, off_t, count, o, d, gray, plane, layouts, caps, es,
+             se, subpacket)
+    return img, torch.sum(term), count, state
+
+
+def soft_backward_cuda(state, grads, params: SoftParams) -> None:
+    """The composite's backward as hand-written CUDA: one launch a layout
+    of :func:`soft_composite_cuda`, a thread a candidate over the
+    subpacket's rays (each lane's derivatives from the (gsigma, w)
+    plane), then one atomic add a (subpacket, candidate, attribute) into
+    ``grads`` (centres (N, 3), radii (N,), albedo (N, 3), float32,
+    contiguous)."""
+    (cand, alb, off_t, count, o, d, gray, plane, layouts, caps, es, se,
+     subpacket) = state
+    for g in grads:
+        if g.dtype != torch.float32 or not g.is_contiguous():
+            raise ValueError("soft_cuda: gradients are float32, contiguous")
+    dev = _lib.require_cuda("soft_cuda", cand, *grads)
+    for start, stop, *_ in layouts:
+        chunks = -(-max(caps[stop - 1], 1) // SOFT_CHUNK)
+        _lib.launch("soft_cuda", "tracer_soft_grads", dev, cand, alb, off_t,
+                    count, o, d, gray, plane, *grads, start, stop - start,
+                    chunks, subpacket, es, se)
+
+
+def soft_paths(kernel: bool):
+    """(composite, backward, bytes a lane) of the kernels or of their
+    plain versions."""
+    if kernel:
+        return soft_composite_cuda, soft_backward_cuda, KERNEL_LANE_BYTES
+    return soft_composite_plain, soft_backward_plain, LANE_BYTES
+
+
 @trace.spanned("soft")
 def soft_loss_grad_sparse(scene: Scene, rays: Ray, target: Tensor | None,
                           tables: CullTables,
@@ -526,11 +939,11 @@ def soft_loss_grad_sparse(scene: Scene, rays: Ray, target: Tensor | None,
     ``loss`` (0-d) is the mean squared difference of the soft image and
     ``target`` (batch..., 3) over every ray and channel, or the image's
     mean where ``target`` is None; ``image`` (batch..., 3) is the soft
-    image in the caller's ray order (no graph); ``grads`` is d loss / d
-    (centres, radii, albedo). ``tables`` are single-chunk cull tables,
-    their tree built from radii inflated by :func:`soft_radius_scale`
-    (widths 30 reach the logit clip of ``soft._sigmoid``: every sphere
-    whose sigma is above the clip's floor lies in a candidate leaf).
+    image in the caller's ray order; ``grads`` is d loss / d (centres,
+    radii, albedo). ``tables`` are single-chunk cull tables, their tree
+    built from radii inflated by :func:`soft_radius_scale` (widths 30
+    reach the logit clip of ``soft._sigmoid``: every sphere whose sigma is
+    above the clip's floor lies in a candidate leaf).
 
     Prep runs once (``prep_rays_bucketed`` at ``cell_bits``); phase A
     runs alone, from (max_groups, max_leaves) doubled on each try
@@ -538,16 +951,20 @@ def soft_loss_grad_sparse(scene: Scene, rays: Ray, target: Tensor | None,
     ``tracer_torch.phase_a``), until no subpacket's candidates are
     truncated; the exact per-ray depth-ordered composite then runs once,
     over the subpackets in ascending order of their candidate leaves, cut
-    into blocks of at most ``block_bytes`` (:data:`LANE_BYTES` a lane; a
-    block is as wide as its widest subpacket), each block's forward and
-    backward (the spans ``tracer_torch.composite`` and
-    ``tracer_torch.backward``) before the next. Any cut into blocks gives
-    the one-block result up to float32 rounding. An evaluation that
-    overflows at budgets covering the whole table raises RuntimeError: it
-    never returns a truncated image.
+    into blocks of at most ``block_bytes`` (a block is as wide as its
+    widest subpacket), each block's composite and backward (the spans
+    ``tracer_torch.composite`` and ``tracer_torch.backward``) before the
+    next. CUDA tensors take the kernels (:func:`soft_composite_cuda`,
+    :func:`soft_backward_cuda`, :data:`KERNEL_LANE_BYTES` a lane), CPU
+    tensors their plain versions (:func:`soft_composite_plain`,
+    :func:`soft_backward_plain`, :data:`LANE_BYTES` a lane); neither uses
+    autograd, and the trace counts which ran as ``soft_kernel``. Any cut
+    into blocks gives the one-block result up to float32 rounding. An
+    evaluation that overflows at budgets covering the whole table raises
+    RuntimeError: it never returns a truncated image.
 
-    Gradients come through the gathers, whose backward accumulates with
-    atomics on CUDA: they are not bitwise run to run on the card.
+    The gradients are added up with atomics on CUDA: they are not bitwise
+    run to run on the card.
     """
     if params is None:
         params = SoftParams()
@@ -585,38 +1002,34 @@ def soft_loss_grad_sparse(scene: Scene, rays: Ray, target: Tensor | None,
         pd = pd.reshape(P, subpacket, 3)[perm].reshape(-1, 3)
         leaf_ids, valid = leaf_ids[perm], valid[perm]
         if target is not None:
-            target = target.reshape(-1, 3).detach()
-    leaves = [x.detach().requires_grad_(True)
-              for x in (scene.centers, scene.radii, scene.albedo)]
-    blocks = _blocks(widths, subpacket, tables.leaf_size, block_bytes)
+            target = target.reshape(-1, 3).detach().contiguous()
+    kernel = po.device.type != "cpu"
+    composite, backward, lane_bytes = soft_paths(kernel)
+    ls = tables.leaf_size
+    blocks = _blocks(widths, subpacket, ls, block_bytes, lane_bytes)
     trace.count(blocks=len(blocks))
+    grads = tuple(torch.zeros_like(x) for x in
+                  (scene.centers, scene.radii, scene.albedo))
     img = torch.empty((n + 1, 3), dtype=po.dtype, device=po.device)
     loss = torch.zeros((), dtype=po.dtype, device=po.device)
-    for start, stop, width in blocks:
-        lo, hi = start * subpacket, stop * subpacket
-        own = owner[lo:hi]
-        with torch.enable_grad():
+    with torch.no_grad():
+        for start, stop, width in blocks:
+            lo, hi = start * subpacket, stop * subpacket
+            own = owner[lo:hi]
             with trace.span("composite"):
-                img_b, real = _soft_block(
-                    *leaves, po[lo:hi], pd[lo:hi],
+                img_b, term, real, state = composite(
+                    scene, po[lo:hi], pd[lo:hi],
                     leaf_ids[start:stop, :width], valid[start:stop, :width],
-                    tables, params, subpacket)
-                keep = (own < n)[:, None]
-                if target is None:
-                    term = torch.where(keep, img_b, torch.zeros_like(img_b))
-                else:
-                    diff = img_b - target[torch.clamp(own, max=n - 1)]
-                    term = torch.where(keep, diff * diff,
-                                       torch.zeros_like(diff))
-                loss_b = torch.sum(term) / (3 * n)
+                    widths[start:stop], own, target, n, tables, params,
+                    subpacket)
+                trace.count(soft_kernel=int(kernel))
                 if trace.on():
                     with trace.counting():
-                        trace.count(lanes=real.numel() * subpacket,
+                        trace.count(lanes=sum(widths[start:stop]) * ls
+                                    * subpacket,
                                     candidates=real.sum() * subpacket)
             with trace.span("backward"):
-                loss_b.backward()
-        img[own] = img_b.detach()
-        loss += loss_b.detach()
-    grads = tuple(torch.zeros_like(x) if x.grad is None else x.grad
-                  for x in leaves)
+                backward(state, grads, params)
+            img[own] = img_b
+            loss += term / (3 * n)
     return loss, img[:n].reshape(*batch_shape, 3), grads, escalations

@@ -5,7 +5,8 @@ per source, all started together, and the objects are linked into one shared
 library with a plain C interface, ``build/tracer_torch/libtracer_torch_cuda.so``,
 on first use, and loaded with ctypes. Every kernel wrapper launches through
 :func:`launch`: pointers and the CUDA stream go in as ``c_void_p``, every
-entry point returns ``cudaGetLastError()`` after its launch, :func:`check`
+entry point returns ``cudaGetLastError()`` after its launch (floats go in
+as ``c_float``), :func:`check`
 raises on a non-zero code, and ``launches`` counts the launches by wrapper.
 Nothing here runs when the module is imported.
 """
@@ -87,6 +88,15 @@ def load() -> ctypes.CDLL:
             lib.tracer_prep_cells.argtypes = [vp] * 2 + [i] * 3 + [vp]
             lib.tracer_prep_rows.restype = i
             lib.tracer_prep_rows.argtypes = [vp] * 8 + [i] * 4 + [vp]
+            f = ctypes.c_float
+            lib.tracer_soft_gather.restype = i
+            lib.tracer_soft_gather.argtypes = [vp] * 10 + [i] * 3 + [vp]
+            lib.tracer_soft_rays.restype = i
+            lib.tracer_soft_rays.argtypes = [vp] * 13 + [i] * 7 + [f] * 3 \
+                + [vp]
+            lib.tracer_soft_grads.restype = i
+            lib.tracer_soft_grads.argtypes = [vp] * 11 + [i] * 4 + [f] * 2 \
+                + [vp]
             lib.tracer_cuda_error_string.restype = ctypes.c_char_p
             lib.tracer_cuda_error_string.argtypes = [i]
             _lib = lib
