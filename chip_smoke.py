@@ -30,8 +30,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    shapes of the cells that run it (``PREP_SHAPES``: query_100k's 524,288
    rays at cell bits 9, query_10m's 131,072, path_100k's 480,000 with
    98.8 % parked at +x, and a shadow prep with t_max), each call
-   ``PREP_LAUNCHES`` launches, its ``prep`` span reading ``prep_kernel``
-   1; both timed on CUDA events and by the
+   ``PREP_LAUNCHES`` launches, its ``prep`` span counting as many
+   ``kernels``; both timed on CUDA events and by the
    profiler's device time, and the bound;
 4. the closest-hit slice at full size: 100k spheres x 512k origin rays
    through prep, phase A and the leaf walk, its kernel launches counted
@@ -77,8 +77,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    cell's tables (``render_100k``: 100k spheres, leaf 16, three chunks)
    and the CLI render's (three chunks); one frame each with
    ``cone_candidates``' calls recorded and the trace on, each call
-   launching ``phase_a_cuda`` once and its ``phase_a`` span reading
-   ``phase_a_kernel`` 1; the kernel against the torch operations, rows
+   launching ``phase_a_cuda`` once and its ``phase_a`` span counting 1
+   of ``kernels``; the kernel against the torch operations, rows
    and flag bit for bit, on every call's bounds at its budgets; on the
    cell's tables also the camera rays and the rays leaving the first hit
    points at every rung of ``leafcull._escalate``'s ladder up to (G,
@@ -137,10 +137,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
    evaluation at grad_131k's shapes through ``soft_cuda``
    (``csrc/soft.cu``), its plain version on the card and autograd over
    ``diff.sparse._soft_block``; image, loss and gradients held to each
-   other, every ``composite`` span reading ``soft_kernel`` 1, the
+   other, every ``composite`` span counting the kernel's launches, the
    kernel's launches an evaluation, the composite and backward of each
    timed on CUDA events, the kernels by name on the profiler's device
    time, and the bound;
+7e. the trace on the card (``trace_slice``): one request each of the
+   four host-paced cells' paths (the 100k closest-hit query, path/auto
+   and direct/auto frames through the CLI's code path, the checked soft
+   evaluation at grad_131k's shapes) with the trace on, every host sync
+   that torch's sync debug mode counts inside a ``tracer_torch.sync``
+   span (or listed in ``UNWRAPPED_SYNCS``) and nothing on stderr; under
+   the profiler, every span joined to one event by its id, and the
+   spans' ``kernel_ns`` against the profiler's device time of their
+   kernels (``SPAN_KERNELS``), within 10 % for the walks and the soft
+   kernels, the other ratios printed; each request's host time with the
+   trace off and on;
 8. the headline measurement (``tracer_torch.bench``, with its shadow,
    LBVH and differentiable extras) and the large-scene measurement
    (``tracer_torch.bench.large``), one JSON line each;
@@ -569,8 +580,8 @@ def prep_rays(n, live, gen, device):
 def prep_check(name, n, S, SP, cell_bits, live, with_t_max, dev):
     """``prep_cuda`` against ``prep_feats_plain`` on the same rays, rows
     (as bits) and dest equal, ``PREP_LAUNCHES`` launches a call, the
-    ``prep`` span of ``prep_feats_bucketed`` reading ``prep_kernel`` 1;
-    then both
+    ``prep`` span of ``prep_feats_bucketed`` counting them as
+    ``kernels``; then both
     timed on CUDA events, their device time a call by torch.profiler
     (prep's three kernels and the radix sort's apart), and the bound:
     o, d, perm (and t_max) read once, the rows and dest written once.
@@ -605,11 +616,12 @@ def prep_check(name, n, S, SP, cell_bits, live, with_t_max, dev):
     trace.reset()
     with trace.enabled():
         prep_feats_bucketed(*args)
-    kernel = [s["counters"].get("prep_kernel") for r in trace.records()
+    torch.cuda.synchronize()
+    kernel = [s["counters"].get("kernels") for r in trace.records()
               for s in r["spans"] if s["name"] == "tracer_torch.prep"]
     trace.reset()
-    if kernel != [1]:
-        raise AssertionError(f"prep {name}: prep spans read prep_kernel "
+    if kernel != [PREP_LAUNCHES]:
+        raise AssertionError(f"prep {name}: prep spans count kernels "
                              f"{kernel}")
     ms = time_cuda(prep_cuda, *args)
     plain_ms = time_cuda(prep_feats_plain, *args, warmup=1, iters=3)
@@ -626,8 +638,8 @@ def prep_check(name, n, S, SP, cell_bits, live, with_t_max, dev):
     log(f"prep {name} ({n} rays, S {S} x SP {SP}, cell bits {cell_bits}, "
         f"live {live}, t_max {with_t_max}): rows and dest bit for bit the "
         f"plain version's on {feats.shape[0] * S * SP} slots; "
-        f"{launched} prep_cuda launches, the prep span reading prep_kernel "
-        f"1; cuda {ms:.4f} ms (events), device "
+        f"{launched} prep_cuda launches, the prep span counting "
+        f"{launched} kernels; cuda {ms:.4f} ms (events), device "
         f"{fmt_ms(kr['device_ms'])} a call in {kr['launches']} launches "
         f"(prep's kernels {fmt_ms(dev_ms(kr, 'prep_'))}, radix sort "
         f"{fmt_ms(dev_ms(kr, 'RadixSort'))}); plain {plain_ms:.4f} ms "
@@ -1510,9 +1522,9 @@ def phase_a_check(name, bounds, tables, S, budgets, pairs=(), timed=True):
 def phase_a_calls(name, frame, tables):
     """One frame (``frame()``) with ``cone_candidates``' calls recorded and
     the trace on; each call must launch ``phase_a_cuda`` once, and each
-    ``phase_a`` span read ``phase_a_kernel`` 1; each of the frame's preps
+    ``phase_a`` span count 1 of ``kernels``; each of the frame's preps
     must launch ``prep_cuda`` ``PREP_LAUNCHES`` times, and each ``prep``
-    span read ``prep_kernel`` 1; the kernel held to the
+    span count as many; the kernel held to the
     torch operations, rows and flag bit for bit, on every call's bounds
     at that call's budgets. Returns each bounce's feature planes (its
     first call, at the render's budgets) and those budgets."""
@@ -1528,9 +1540,9 @@ def phase_a_calls(name, frame, tables):
         frame()
     torch.cuda.synchronize()
     spans = [s for r in trace.records() for s in r["spans"]]
-    kernel = [s["counters"].get("phase_a_kernel") for s in spans
+    kernel = [s["counters"].get("kernels") for s in spans
               if s["name"] == "tracer_torch.phase_a"]
-    prep = [s["counters"].get("prep_kernel") for s in spans
+    prep = [s["counters"].get("kernels") for s in spans
             if s["name"] == "tracer_torch.prep"]
     trace.reset()
     launched = _lib.launches["phase_a_cuda"] - before["phase_a_cuda"]
@@ -1538,19 +1550,18 @@ def phase_a_calls(name, frame, tables):
         raise AssertionError(f"{name}: {len(calls)} phase A calls, "
                              f"{launched} phase_a_cuda launches")
     if kernel != [1] * len(calls):
-        raise AssertionError(f"{name}: phase_a spans read phase_a_kernel "
+        raise AssertionError(f"{name}: phase_a spans count kernels "
                              f"{kernel}")
     prepped = _lib.launches["prep_cuda"] - before["prep_cuda"]
-    if not prep or prep != [1] * len(prep) \
+    if not prep or prep != [PREP_LAUNCHES] * len(prep) \
             or prepped != PREP_LAUNCHES * len(prep):
-        raise AssertionError(f"{name}: prep spans read prep_kernel {prep}, "
+        raise AssertionError(f"{name}: prep spans count kernels {prep}, "
                              f"{prepped} prep_cuda launches")
     log(f"{name}: {cull.num_chunks} chunks of "
         f"{cull.num_groups // cull.num_chunks} groups, {len(calls)} phase A "
         f"calls a frame, each one phase_a_cuda launch and a phase_a span "
-        f"reading phase_a_kernel 1; {len(prep)} preps, each "
-        f"{PREP_LAUNCHES} prep_cuda launches and a prep span reading "
-        f"prep_kernel 1")
+        f"counting 1 kernel; {len(prep)} preps, each {PREP_LAUNCHES} "
+        f"prep_cuda launches and a prep span counting as many")
     bounces = []
     for i, (feats, _, mg, mc) in enumerate(calls):
         if (mg, mc) == tuple(calls[0][2:4]):
@@ -2324,32 +2335,19 @@ def soft_slice(dev, scene, results):
     target, subpacket 64, cell bits 8, from (48, 16), blocks of 4 GiB.
     The kernel path, its plain version on the card and autograd over
     ``_soft_block`` (both through ``sparse.soft_paths``): image, loss and
-    gradients held to each other; every ``composite`` span reads
-    ``soft_kernel`` 1; the kernel's launches an evaluation; the composite
-    and backward of each timed on CUDA events, the kernels by name on the
-    profiler's device time, and the bound (operations of the real pairs
-    and the candidate rows' bytes)."""
+    gradients held to each other; every ``composite`` span counts the
+    kernel's launches (``kernels``); the kernel's launches an evaluation;
+    the composite and backward of each timed on CUDA events, the kernels
+    by name on the profiler's device time, and the bound (operations of
+    the real pairs and the candidate rows' bytes)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from tracer_torch import trace
-    from tracer_torch.bench import headline
-    from tracer_torch.core.types import Ray
     from tracer_torch.diff import sparse
     from tracer_torch.diff.soft import SoftParams
     from tracer_torch.kernels import _lib
-    from tracer_torch.scene.scene import Scene
     params = SoftParams()
-    g = torch.Generator(device=dev).manual_seed(27)
-    moved = Scene(
-        centers=scene.centers + 0.1 * torch.mean(scene.radii) * torch.randn(
-            scene.centers.shape, generator=g, device=dev),
-        radii=scene.radii,
-        albedo=torch.clamp(scene.albedo + 0.2, 0.05, 0.95))
-    tables = headline.diff_tables(moved)
-    d = torch.rand((SOFT_RAYS, 3), generator=g, device=dev) * 2.0 - 1.0
-    d = d / torch.linalg.vector_norm(d, dim=1, keepdim=True)
-    rays = Ray(origin=torch.zeros_like(d), direction=d)
-    target = torch.rand((SOFT_RAYS, 3), generator=g, device=dev)
+    moved, tables, rays, target = soft_inputs(dev, scene)
     paths = sparse.soft_paths
 
     def autograd_composite(sc, o, dd, ids, valid, widths, own, tgt, n, tb,
@@ -2418,7 +2416,7 @@ def soft_slice(dev, scene, results):
     torch.cuda.synchronize()
     comps = [s for root in trace.records() for s in root["spans"]
              if s["name"] == "tracer_torch.composite"]
-    if not comps or any(s["counters"]["soft_kernel"] != 1 for s in comps):
+    if not comps or any(s["counters"].get("kernels", 0) < 2 for s in comps):
         raise AssertionError("a composite span of the soft evaluation did "
                              "not run the kernel")
     pairs = sum(int(s["counters"]["candidates"]) for s in comps)
@@ -2457,7 +2455,7 @@ def soft_slice(dev, scene, results):
     log(f"soft {SOFT_RAYS} rays x {scene.centers.shape[0]} spheres: "
         f"{pairs} real pairs of {lanes} lanes (fill {pairs / lanes:.4f}); "
         f"{launched} soft_cuda launches an evaluation, every composite "
-        f"span soft_kernel 1; composite + backward on events: kernel "
+        f"span counting its kernels; composite + backward on events: kernel "
         f"{k_ms:.4f} ms (median of 5), plain {p_ms:.4f} ms, autograd "
         f"{a_ms:.4f} ms; the kernels' device time "
         f"{json.dumps({k: round(v, 4) for k, v in by_kernel.items()})}; "
@@ -2478,6 +2476,184 @@ def soft_slice(dev, scene, results):
         autograd_ms=a_ms, device_ms=sum(by_kernel.values()))
     del moved, tables, rays, target
     torch.cuda.empty_cache()
+
+
+# Phase 7e: the substrings of the kernel names each span's launches give
+# (the soft evaluation's are its composite and backward spans'), and the
+# host syncs, by "file:line" of the port, that no ``sync`` span holds
+# (with the reason): none today.
+SPAN_KERNELS = {
+    ("walk",): ("walk_items", "unpack_kernel", "walk_kernel",
+                "resume_kernel"),
+    ("prep",): ("prep_keys", "prep_cells", "prep_rows"),
+    ("phase_a",): ("phase_a_rows", "phase_a_chunk_rows"),
+    ("compact",): ("compact_rows",),
+    ("composite", "backward"): ("soft_gather", "soft_rays", "soft_grads"),
+}
+# The spans whose in-program time must agree with the profiler's to 10 %.
+KERNEL_AGREE = {("walk",), ("composite", "backward")}
+UNWRAPPED_SYNCS: dict[str, str] = {}
+
+
+def soft_inputs(dev, scene):
+    """grad_131k's shapes over ``scene``: its spheres moved as ``cli fit``
+    moves them, single-chunk tables from radii inflated at widths 30,
+    131,072 origin rays and a target. Returns (moved scene, tables, rays,
+    target)."""
+    import torch
+    from tracer_torch.bench import headline
+    from tracer_torch.core.types import Ray
+    from tracer_torch.scene.scene import Scene
+    g = torch.Generator(device=dev).manual_seed(27)
+    moved = Scene(
+        centers=scene.centers + 0.1 * torch.mean(scene.radii) * torch.randn(
+            scene.centers.shape, generator=g, device=dev),
+        radii=scene.radii,
+        albedo=torch.clamp(scene.albedo + 0.2, 0.05, 0.95))
+    tables = headline.diff_tables(moved)
+    d = torch.rand((SOFT_RAYS, 3), generator=g, device=dev) * 2.0 - 1.0
+    d = d / torch.linalg.vector_norm(d, dim=1, keepdim=True)
+    rays = Ray(origin=torch.zeros_like(d), direction=d)
+    target = torch.rand((SOFT_RAYS, 3), generator=g, device=dev)
+    return moved, tables, rays, target
+
+
+def trace_slice(dev, scene, tables, o, d):
+    """Phase 7e: the trace's host syncs and kernel times on the card, one
+    request each of the four host-paced cells' paths (the closest-hit
+    query, path/auto and direct/auto frames through the CLI's code path,
+    the checked soft evaluation at grad_131k's shapes).
+
+    Each request runs once with the trace on: every host sync that torch's
+    sync debug mode counts must lie inside a ``tracer_torch.sync`` span
+    (or be listed in ``UNWRAPPED_SYNCS``), and nothing may reach stderr.
+    Then once under the profiler (CUDA activity): the in-program device
+    time of each span group (``kernel_ns``) against the profiler's device
+    time of the kernels named in ``SPAN_KERNELS`` for the same request,
+    within 10 % for the walks and the soft kernels, the ratio printed for
+    the rest; every span joined to one profiler event by its id. Last the
+    on-cost: each request's host time with the trace off and on
+    (``trace.enabled()``, median of 5)."""
+    import contextlib
+    import io
+    from pathlib import Path
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from tracer_torch import cli, trace
+    from tracer_torch.bench import headline
+    from tracer_torch.bench import render as brender
+    from tracer_torch.diff import sparse
+    from tracer_torch.integrator.wavefront import bounce_noise
+    from tracer_torch.kernels.conecull import nearest_hit_hybrid_feats
+
+    def query():
+        feats, _ = headline.prep(o, d)
+        return nearest_hit_hybrid_feats(feats, tables, headline.MG,
+                                        headline.MC)
+
+    def frame(mode):
+        s = cli.prepare(cli.build_parser().parse_args(
+            brender.argv(mode, "auto")))
+        noise = None if mode == "direct" else bounce_noise(
+            torch.Generator(device=dev).manual_seed(1),
+            (s.config.height, s.config.width), s.config.max_depth, dev)
+        return lambda: s.frame(s.camera, noise)
+
+    moved, stables, rays, target = soft_inputs(dev, scene)
+    requests = {
+        "query_100k": query, "path_100k": frame("path"),
+        "direct_100k": frame("direct"),
+        "grad_100k": lambda: sparse.soft_loss_grad_sparse(
+            moved, rays, target, stables),
+    }
+    root = str(Path(__file__).resolve().parent) + "/"
+    for name, req in requests.items():
+        req()
+        torch.cuda.synchronize()
+        trace.reset()
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err), trace.enabled():
+            req()
+        torch.cuda.synchronize()
+        recs = trace.records()
+        sites = trace.sync_sites()
+        loose = {f"{f.replace(root, '')}:{line}": n
+                 for (span, f, line), n in sites.items()
+                 if span != trace.PREFIX + "sync"}
+        unlisted = {k: n for k, n in loose.items()
+                    if k not in UNWRAPPED_SYNCS}
+        counted = sum(s["counters"].get("syncs", 0) for r in recs
+                      for s in r["spans"])
+        spans = [s for r in recs for s in r["spans"]
+                 if s["name"] == trace.PREFIX + "sync"]
+        if unlisted or err.getvalue() or counted != sum(sites.values()):
+            raise AssertionError(
+                f"trace {name}: syncs outside sync spans {unlisted}, "
+                f"{counted} counted against {sum(sites.values())} seen; "
+                f"stderr {err.getvalue()!r}")
+        args = sorted({s["arg"] for s in spans})
+        log(f"trace {name}: {counted} host syncs, "
+            f"{sum(1 for s in spans if s['counters'].get('syncs'))} of "
+            f"{len(spans)} sync spans ({', '.join(args)}) holding them, "
+            f"{sum(sites.values()) - sum(loose.values())} inside them; "
+            f"listed outside {loose}; "
+            f"host wait {sum((s['end_ns'] - s['start_ns']) for s in spans) / 1e6:.4f} ms; "
+            f"nothing on stderr")
+
+        trace.reset()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            req()
+            torch.cuda.synchronize()
+        recs = trace.records()
+        spans = [s for r in recs for s in r["spans"]]
+        events = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CPU and e.name.startswith(
+                    trace.PREFIX) and e.name != trace.PREFIX + "count":
+                events.setdefault(int(e.concrete_inputs[0]), []).append(e)
+        if sorted(events) != sorted(s["id"] for s in spans) or any(
+                len(v) != 1 for v in events.values()):
+            raise AssertionError(f"trace {name}: {len(spans)} spans, "
+                                 f"{len(events)} profiler ids")
+        dev_ms = {}
+        for e in prof.key_averages():
+            if e.device_time_total > 0:
+                dev_ms[e.key] = dev_ms.get(e.key, 0.0) \
+                    + e.device_time_total / 1e3
+        parts = []
+        for layers, kernels in SPAN_KERNELS.items():
+            ours = [s["counters"]["kernel_ns"] for s in spans
+                    if s["name"][len(trace.PREFIX):] in layers
+                    and "kernel_ns" in s["counters"]]
+            theirs = sum(ms for k, ms in dev_ms.items()
+                         if any(n in k for n in kernels))
+            if not ours and not theirs:
+                continue
+            ratio = sum(ours) / 1e6 / theirs if theirs else float("inf")
+            parts.append(f"{'+'.join(layers)} {sum(ours) / 1e6:.4f} ms "
+                         f"against {theirs:.4f} ({ratio:.3f})")
+            if layers in KERNEL_AGREE and not 0.9 <= ratio <= 1.1:
+                raise AssertionError(f"trace {name}: {parts[-1]}")
+        log(f"trace {name}: {len(spans)} spans joined by id; kernel_ns by "
+            f"span against the profiler's kernels: {'; '.join(parts)}")
+
+        def host_ms(on):
+            times = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                with trace.enabled() if on else contextlib.nullcontext():
+                    req()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                trace.reset()
+            return sorted(times)[2]
+        off, on = host_ms(False), host_ms(True)
+        log(f"trace {name}: request {off:.4f} ms untraced, {on:.4f} ms with "
+            f"the trace on (+{on - off:.4f})")
+    trace.reset()
 
 
 def time_compactor(name, ids, sentinel, keep):
@@ -3523,6 +3699,9 @@ def main(argv=None) -> int:
 
     # -- 7d. the soft evaluation's kernel at grad_131k's shapes -------------
     soft_slice(dev, scene, results)
+
+    # -- 7e. the trace's host syncs and kernel times -------------------------
+    trace_slice(dev, scene, tables, o, d)
 
     # -- 7b. the compactor over the main paths -------------------------------
     comp.summary()

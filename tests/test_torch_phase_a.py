@@ -372,8 +372,8 @@ def test_model_equals_rows_of_any_table_size(shape):
 
 def test_cpu_tensors_take_the_torch_operations(world):
     """CPU tensors run the plain path: the kernel's launch counter stays,
-    ``phase_a_kernel`` reads 0, and the rows are the same with the trace
-    on and off."""
+    the span counts no ``kernels``, and the rows are the same with the
+    trace on and off."""
     feats = world["feats"]
     launches = _lib.launches["phase_a_cuda"]
     one, routed = world["one"], world["routed"]
@@ -388,7 +388,7 @@ def test_cpu_tensors_take_the_torch_operations(world):
             on = call()
         (a,) = [s for r in trace.records() for s in r["spans"]
                 if s["name"] == "tracer_torch.phase_a"]
-        assert a["counters"]["phase_a_kernel"] == 0
+        assert a["counters"].get("kernels", 0) == 0
         assert torch.equal(off[0], on[0]) and bool(off[-1]) == bool(on[-1])
     trace.reset()
     assert _lib.launches["phase_a_cuda"] == launches

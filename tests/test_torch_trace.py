@@ -118,6 +118,7 @@ def _run(case, st):
 # name -> parent's name in each case's tree (roots map to None).
 TREES = {
     "query": {"tracer_torch.prep": None, "tracer_torch.nearest": None,
+              "tracer_torch.sync": "tracer_torch.prep",
               "tracer_torch.phase_a": "tracer_torch.nearest",
               "tracer_torch.compact": "tracer_torch.phase_a",
               "tracer_torch.walk": "tracer_torch.nearest"},
@@ -131,7 +132,10 @@ TREES = {
               "tracer_torch.bounce": "tracer_torch.render",
               "tracer_torch.compaction": "tracer_torch.bounce",
               "tracer_torch.nearest": "tracer_torch.bounce",
-              "tracer_torch.walk": "tracer_torch.nearest"},
+              "tracer_torch.walk": "tracer_torch.nearest",
+              "tracer_torch.sync": ("tracer_torch.render",
+                                    "tracer_torch.bounce",
+                                    "tracer_torch.compaction")},
 }
 ROOTS = {"query": ["tracer_torch.prep", "tracer_torch.nearest"],
          "routed": ["tracer_torch.nearest"], "frame": ["tracer_torch.render"]}
@@ -205,11 +209,11 @@ def test_counters_equal_a_recount(setups, case, monkeypatch):
         cnt = rows[..., 0]
         (a,) = _spans(recs, "tracer_torch.phase_a")
         assert a["counters"] == {
-            "rows": cnt.numel(), "group_rows": int((cnt < 0).sum()),
-            "phase_a_kernel": 0}
+            "rows": cnt.numel(), "group_rows": int((cnt < 0).sum())}
         assert 0 < a["counters"]["group_rows"] < cnt.numel()
         (n,) = _spans(recs, "tracer_torch.nearest")
-        assert n["counters"] == {"rays": feats.shape[0] * S * SP}
+        assert n["counters"] == {"rays": feats.shape[0] * S * SP,
+                                 "syncs": 0}
     elif case == "routed":
         r, f, t = ROUTED, setups["rfeats"], setups["rtables"]
         C, g = t.cull.num_chunks, f.shape[0]
@@ -227,7 +231,7 @@ def test_counters_equal_a_recount(setups, case, monkeypatch):
         (a,) = _spans(recs, "tracer_torch.phase_a")
         assert a["counters"] == {
             "rows": int(active.sum()) * S,
-            "group_rows": int((cnt < 0).sum()), "phase_a_kernel": 0}
+            "group_rows": int((cnt < 0).sum())}
         assert a["counters"]["group_rows"] > 0
     else:
         bounces = _spans(recs, "tracer_torch.bounce")
@@ -305,7 +309,8 @@ def test_checked_drivers_count_rays_and_calls_once(escalating,
     (root,) = trace.records()
     assert root["name"] == root_name
     assert esc >= 1
-    assert root["counters"] == {"rays": 900, "calls": 1, "escalations": esc}
+    assert root["counters"] == {"rays": 900, "calls": 1, "escalations": esc,
+                                "syncs": 0}
     assert len(_spans([root], "tracer_torch.escalate")) == esc
     assert all("rays" not in s["counters"] for s in root["spans"][1:])
     counts = {}
@@ -331,10 +336,20 @@ def test_escalations_count_the_rays_they_walk_again(escalating,
                for s in root["spans"]) == esc
 
 
-@pytest.mark.parametrize("case", CASES)
+def _traced(how: str):
+    """The trace on: inside ``trace.enabled()``, or ("profiled") under a
+    profiler that records shapes, so the ranges take their ids."""
+    if how != "profiled":
+        return trace.enabled()
+    from torch.profiler import ProfilerActivity, profile
+    return profile(activities=[ProfilerActivity.CPU], record_shapes=True)
+
+
+@pytest.mark.parametrize("case", CASES + [c + ".profiled" for c in CASES])
 def test_outputs_are_bit_equal_with_the_trace_on_and_off(setups, case):
+    case, _, how = case.partition(".")
     off = _run(case, setups)
-    with trace.enabled():
+    with _traced(how):
         on = _run(case, setups)
     assert len(on) == len(off)
     for a, b in zip(on, off):
@@ -350,6 +365,8 @@ class _Refused:
 def test_off_records_nothing_and_enters_no_range(setups, case, monkeypatch):
     monkeypatch.setattr(torch.autograd.profiler, "record_function", _Refused)
     monkeypatch.setattr(torch.profiler, "record_function", _Refused)
+    monkeypatch.setattr(torch.autograd, "_record_function_with_args_enter",
+                        _Refused)
     assert not trace.on()
     _run(case, setups)
     assert trace.records() == []
@@ -384,6 +401,14 @@ def test_render_profile_names_the_spans_and_metrics_keep_the_counts(
     names = {e.get("name", "") for e in events["traceEvents"]}
     for span in ("render", "bounce", "nearest", "walk", "compaction"):
         assert f"tracer_torch.{span}" in names, span
+    # Each span is one event of the Chrome trace, by its id.
+    ids = sorted(int(e["args"]["Concrete Inputs"][0])
+                 for e in events["traceEvents"]
+                 if e.get("cat") == "user_annotation"
+                 and e["name"].startswith(trace.PREFIX)
+                 and e["name"] != trace.PREFIX + "count")
+    assert ids == sorted(s["id"] for r in trace.records()
+                         for s in r["spans"])
     m = json.loads((tmp_path / "m.json").read_text())
     assert m["trace"]["roots"] == frames
     counters = m["trace"]["counters"]
@@ -485,6 +510,8 @@ SOFT_TREE = {"tracer_torch.prep": "tracer_torch.soft",
                                       "tracer_torch.escalate"),
              "tracer_torch.compact": "tracer_torch.phase_a",
              "tracer_torch.escalate": "tracer_torch.soft",
+             "tracer_torch.sync": ("tracer_torch.phase_a", "tracer_torch.prep",
+                                   "tracer_torch.soft"),
              "tracer_torch.composite": "tracer_torch.soft",
              "tracer_torch.backward": "tracer_torch.soft"}
 
@@ -494,12 +521,15 @@ def test_soft_root_spans_and_counters(soft_setup):
     caller's rays; ``blocks``; the checked call and its escalations)
     holding ``prep``, a ``phase_a`` a try (the retries inside their
     ``escalate`` spans, each counting every ray as ``escalated_rays``;
-    phase A's ``phase_a_kernel``, ``rows`` and ``group_rows``), then a
+    phase A's ``rows`` and ``group_rows``, and no ``kernels``; each try's
+    read of its overflow and leaf counts a ``sync`` span "phase_a" inside
+    it), then a
     ``composite`` and a ``backward`` a block. ``lanes`` and
     ``candidates`` equal a recount from phase A's rows at the budgets
     that held: the rays times each subpacket's own listed slots, and the
-    real (ray, sphere) pairs of each subpacket's own leaves;
-    ``soft_kernel`` is 0 (the plain version ran)."""
+    real (ray, sphere) pairs of each subpacket's own leaves. The plain
+    version ran: no span counts ``kernels``, and on the CPU no span counts
+    a sync."""
     from tracer_torch.diff import sparse
     scene, tables, rays, _ = soft_setup
     with trace.enabled():
@@ -508,7 +538,7 @@ def test_soft_root_spans_and_counters(soft_setup):
     assert root["name"] == "tracer_torch.soft" and root["parent"] is None
     assert esc >= 1
     assert root["counters"] == {"rays": 2048, "calls": 1,
-                                "escalations": esc, "blocks": 1}
+                                "escalations": esc, "blocks": 1, "syncs": 0}
     by_id = {s["id"]: s for s in root["spans"]}
     for s in root["spans"][1:]:
         want = SOFT_TREE[s["name"]]
@@ -519,10 +549,15 @@ def test_soft_root_spans_and_counters(soft_setup):
     retries = _spans([root], "tracer_torch.escalate")
     assert len(tries) == esc + 1 and len(retries) == esc
     assert all(s["counters"] == {"escalated_rays": 2048} for s in retries)
+    reads = [by_id[s["parent"]]["name"] for s in
+             _spans([root], "tracer_torch.sync") if s["arg"] == "phase_a"]
+    assert reads == ["tracer_torch.phase_a"] * (esc + 1)
+    assert sum(s["counters"].get("syncs", 0) for s in root["spans"]) == 0
+    assert all("kernels" not in s["counters"] for s in root["spans"])
     padded, _ = tt.prep_rays_bucketed(rays, 64, CELL_BITS)
     P = padded.origin.shape[0] // 64
     for t in tries:
-        assert t["counters"]["phase_a_kernel"] == 0
+        assert t["counters"].get("kernels", 0) == 0
         assert t["counters"]["rows"] == P
         assert 0 <= t["counters"]["group_rows"] <= P
     k0, k = sparse.soft_budgets(tables, esc, 8, 2)
@@ -532,7 +567,6 @@ def test_soft_root_spans_and_counters(soft_setup):
         padded.origin, padded.direction, tables, 64)(k0, k)
     (comp,) = _spans([root], "tracer_torch.composite")
     assert comp["counters"] == {
-        "soft_kernel": 0,
         "lanes": 64 * sum(n_eff) * tables.leaf_size,
         "candidates": int((ids >= 0).sum()) * 64}
     (back,) = _spans([root], "tracer_torch.backward")
@@ -540,18 +574,20 @@ def test_soft_root_spans_and_counters(soft_setup):
 
 
 def test_soft_evaluation_bit_equal_with_the_trace_on_and_off(soft_setup):
-    """The trace changes nothing of the evaluation, and off it records
-    nothing; ``trace.tallied`` counts the call and its escalations as the
-    kind ``soft`` either way."""
+    """The trace changes nothing of the evaluation, inside
+    ``trace.enabled()`` or under a profiler, and off it records nothing;
+    ``trace.tallied`` counts the call and its escalations as the kind
+    ``soft`` either way."""
     trace.reset()
     off = _soft(soft_setup)
     assert trace.records() == []
-    with trace.enabled():
-        on = _soft(soft_setup)
-    assert torch.equal(on[0], off[0]) and torch.equal(on[1], off[1])
-    for a, b in zip(on[2], off[2]):
-        assert torch.equal(a, b)
-    assert on[3] == off[3] >= 1
+    for how in ("enabled", "profiled"):
+        with _traced(how):
+            on = _soft(soft_setup)
+        assert torch.equal(on[0], off[0]) and torch.equal(on[1], off[1])
+        for a, b in zip(on[2], off[2]):
+            assert torch.equal(a, b)
+        assert on[3] == off[3] >= 1
     counts = {}
     trace.tallied(counts, lambda: (_soft(soft_setup), 0))()
     assert counts == {"soft_calls": 1, "soft_escalations": off[3]}

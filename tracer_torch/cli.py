@@ -336,8 +336,9 @@ def _profiled(directory: str | None, device: torch.device):
     """A torch.profiler context (CPU and, on the card, CUDA activity)
     writing its Chrome trace to ``directory``/trace.json on exit; a
     no-op without ``directory``. The profiler turns ``tracer_torch.trace``
-    on, so the trace holds the program's spans beside the kernels; the
-    trace's store is emptied on entry, so it then holds this run's."""
+    on, so the trace holds the program's spans beside the kernels, each
+    with its id as its first concrete input (the profiler records shapes);
+    the trace's store is emptied on entry, so it then holds this run's."""
     if directory is None:
         yield
         return
@@ -345,7 +346,7 @@ def _profiled(directory: str | None, device: torch.device):
     acts = [ProfilerActivity.CPU] + (
         [ProfilerActivity.CUDA] if device.type == "cuda" else [])
     trace.reset()
-    with profile(activities=acts) as prof:
+    with profile(activities=acts, record_shapes=True) as prof:
         yield
     os.makedirs(directory, exist_ok=True)
     path = os.path.join(directory, "trace.json")

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 from torch import Tensor
 
+from tracer_torch import trace
 from tracer_torch.core import vecmath
 
 
@@ -24,7 +25,8 @@ def _guard_zero(v: Tensor) -> Tensor:
     """Replace the measure-zero all-zeros draw by +x, as the reference
     guards ``vec3_dot(p,p) != 0``."""
     deg = vecmath.dot(v, v)[..., None] == 0.0
-    x = torch.tensor([1.0, 0.0, 0.0], dtype=v.dtype, device=v.device)
+    with trace.span("sync", "axis"):
+        x = torch.tensor([1.0, 0.0, 0.0], dtype=v.dtype, device=v.device)
     return torch.where(deg, x, v)
 
 

@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 from torch import Tensor
 
+from tracer_torch import trace
 from tracer_torch.core.types import Ray
 
 
@@ -89,11 +90,14 @@ def plan_bucket_pad(sorted_codes: Tensor, subpacket: int,
     dev = sorted_codes.device
     ncells = 1 << cell_bits
     cid = torch.arange(ncells, dtype=torch.int64, device=dev)
-    queries = torch.cat([cid << (32 - cell_bits),
-                         torch.tensor([0xFFFFFFFF], dtype=torch.int64,
-                                      device=dev)])
-    bounds = torch.searchsorted(sorted_codes, queries, side="left")
-    bounds[-1] = b
+    # A copy from pageable host memory and a host int written into a
+    # device tensor: each waits for the device.
+    with trace.span("sync", "cell_bounds"):
+        queries = torch.cat([cid << (32 - cell_bits),
+                             torch.tensor([0xFFFFFFFF], dtype=torch.int64,
+                                          device=dev)])
+        bounds = torch.searchsorted(sorted_codes, queries, side="left")
+        bounds[-1] = b
     cnt = bounds[1:] - bounds[:-1]
     start = bounds[:-1]
     pad = (subpacket - cnt % subpacket) % subpacket

@@ -424,7 +424,8 @@ def _soft_phase_a(o: Tensor, d: Tensor, tables: CullTables,
                   subpacket: int):
     """:func:`leafcull._escalate`'s query for the soft evaluation: phase A
     at budgets (k0, k) and the read of its overflow and per-subpacket leaf
-    counts on the host (the ladder's one sync a try), all in the span
+    counts on the host (the ladder's one sync a try, the span
+    ``tracer_torch.sync`` "phase_a"), all in the span
     ``tracer_torch.phase_a``. Returns ((leaf_ids, valid, n_eff as a list,
     overflow), overflow)."""
     def phase_a(k0: int, k: int):
@@ -434,7 +435,9 @@ def _soft_phase_a(o: Tensor, d: Tensor, tables: CullTables,
             leaf_ids, valid, overflow, n_eff = _leaf_ids(rows, overflow,
                                                          tables, k)
             host = torch.cat([overflow.reshape(1).to(n_eff.dtype),
-                              n_eff]).tolist()
+                              n_eff])
+            with trace.span("sync", "phase_a"):
+                host = host.tolist()
         over = bool(host[0])
         return (leaf_ids, valid, host[1:], over), over
     return phase_a
@@ -866,7 +869,8 @@ def soft_composite_cuda(scene: Scene, o: Tensor, d: Tensor,
     off = [0]
     for c in caps:
         off.append(off[-1] + c)
-    off_t = torch.tensor(off, dtype=torch.int32).to(dev)
+    with trace.span("sync", "offsets"):
+        off_t = torch.tensor(off, dtype=torch.int32).to(dev)
     slots = max(off[-1], 1)
     cand = torch.empty((slots, 4), dtype=torch.float32, device=dev)
     alb = torch.empty((slots, 4), dtype=torch.float32, device=dev)
@@ -958,7 +962,8 @@ def soft_loss_grad_sparse(scene: Scene, rays: Ray, target: Tensor | None,
     :func:`soft_backward_cuda`, :data:`KERNEL_LANE_BYTES` a lane), CPU
     tensors their plain versions (:func:`soft_composite_plain`,
     :func:`soft_backward_plain`, :data:`LANE_BYTES` a lane); neither uses
-    autograd, and the trace counts which ran as ``soft_kernel``. Any cut
+    autograd, and the trace counts the kernels' launches as ``kernels``
+    of their spans. Any cut
     into blocks gives the one-block result up to float32 rounding. An
     evaluation that overflows at budgets covering the whole table raises
     RuntimeError: it never returns a truncated image.
@@ -993,7 +998,8 @@ def soft_loss_grad_sparse(scene: Scene, rays: Ray, target: Tensor | None,
         P = leaf_ids.shape[0]
         order = sorted(range(P), key=n_eff.__getitem__)
         widths = [n_eff[i] for i in order]
-        perm = torch.as_tensor(order, device=po.device)
+        with trace.span("sync", "order"):
+            perm = torch.as_tensor(order, device=po.device)
         owner = torch.full((po.shape[0],), n, dtype=torch.long,
                            device=po.device)
         owner[dest] = torch.arange(n, device=po.device)
@@ -1022,7 +1028,6 @@ def soft_loss_grad_sparse(scene: Scene, rays: Ray, target: Tensor | None,
                     leaf_ids[start:stop, :width], valid[start:stop, :width],
                     widths[start:stop], own, target, n, tables, params,
                     subpacket)
-                trace.count(soft_kernel=int(kernel))
                 if trace.on():
                     with trace.counting():
                         trace.count(lanes=sum(widths[start:stop]) * ls

@@ -43,10 +43,12 @@ def sky_color(direction: Tensor) -> Tensor:
     """Sky gradient keyed to direction.y (src/renderer.c:65-70):
     t = 0.5 * (dir.y + 1); white at the horizon, light blue at the zenith."""
     t = 0.5 * (direction[..., 1] + 1.0)
-    a = torch.tensor(_SKY_HORIZON, dtype=torch.float32,
-                     device=direction.device)
-    b = torch.tensor(_SKY_ZENITH, dtype=torch.float32,
-                     device=direction.device)
+    # Copies from pageable host memory: each waits for the device.
+    with trace.span("sync", "sky"):
+        a = torch.tensor(_SKY_HORIZON, dtype=torch.float32,
+                         device=direction.device)
+        b = torch.tensor(_SKY_ZENITH, dtype=torch.float32,
+                         device=direction.device)
     return (1.0 - t[..., None]) * a + t[..., None] * b
 
 
@@ -79,8 +81,9 @@ def _compact_rays(rays: Ray, active: Tensor):
     inv = torch.argsort(perm, stable=True)
     ap = a[perm][:, None]
     park_o = torch.full((1, 3), _PARK, dtype=torch.float32, device=o.device)
-    park_d = torch.tensor([[1.0, 0.0, 0.0]], dtype=torch.float32,
-                          device=o.device)
+    with trace.span("sync", "park"):
+        park_d = torch.tensor([[1.0, 0.0, 0.0]], dtype=torch.float32,
+                              device=o.device)
     return Ray(origin=torch.where(ap, o[perm], park_o),
                direction=torch.where(ap, d[perm], park_d)), inv
 

@@ -23,6 +23,7 @@ from pathlib import Path
 
 import torch
 
+from tracer_torch import trace
 from tracer_torch._build import build_shared_library
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -113,23 +114,36 @@ def ptr(t: torch.Tensor) -> int:
     return t.data_ptr()
 
 
+def index(device: torch.device) -> int:
+    """The CUDA device index of ``device`` (the current one where it has
+    none)."""
+    return torch.cuda.current_device() if device.index is None \
+        else device.index
+
+
 def stream(device: torch.device) -> int:
     """The raw ``cudaStream_t`` of ``device``'s current stream."""
-    index = torch.cuda.current_device() if device.index is None \
-        else device.index
-    return torch._C._cuda_getCurrentRawStream(index)
+    return torch._C._cuda_getCurrentRawStream(index(device))
 
 
 def launch(name: str, entry: str, device: torch.device, *args) -> None:
     """Call the library's ``entry`` on ``device`` with ``args`` (tensors as
     their pointers, ``None`` as a null pointer, ints as they are) and the
     device's current stream; raise on a non-zero code, else add one to
-    ``launches[name]``."""
+    ``launches[name]``. With a span of the trace open, the launch is
+    timed on its stream between two events and counted in that span
+    (``trace.launch_start``: ``kernels``, ``kernel_ns``)."""
     lib = load()
+    fn = getattr(lib, entry)
+    args = [ptr(a) if isinstance(a, torch.Tensor) else a for a in args]
     with torch.cuda.device(device):
-        rc = getattr(lib, entry)(
-            *(ptr(a) if isinstance(a, torch.Tensor) else a for a in args),
-            stream(device))
+        i = index(device)
+        raw = torch._C._cuda_getCurrentRawStream(i)
+        args.append(raw)
+        timed = trace.launch_start(i, raw)
+        rc = fn(*args)
+        if timed is not None:
+            trace.launch_end(timed)
     check(lib, rc, name)
     launches[name] += 1
 

@@ -215,15 +215,14 @@ def cone_candidates(feats: Tensor, tables: ConeTables, max_groups: int,
 
     On a CUDA device the tables, of one chunk or of several (the render's
     leaf-16 tables at 100k have three), take :func:`phase_a_cuda`, whose
-    rows and flag equal :func:`candidate_rows`'; the trace counts which
-    ran as ``phase_a_kernel`` (1 the kernel, 0 the torch operations).
+    rows and flag equal :func:`candidate_rows`'; the trace counts its
+    launch as ``kernels`` of the span.
     """
     cull = tables.cull
     k0, k, kg, K_l, K0, rowlen = cone_budgets(cull, max_groups,
                                               max_candidates)
     bounds = bounds_from_feats(feats)
-    kernel = feats.device.type != "cpu"
-    if kernel:
+    if feats.device.type != "cpu":
         rows, overflow = phase_a_cuda(torch.cat(bounds, dim=1), tables,
                                       feats.shape[1], k0, k, kg, K_l, K0,
                                       rowlen)
@@ -231,7 +230,6 @@ def cone_candidates(feats: Tensor, tables: ConeTables, max_groups: int,
     else:
         rows, overflow = candidate_rows(bounds, cull, tables.leaf_boxes, k0,
                                         k, rowlen, exact=False)
-    trace.count(phase_a_kernel=int(kernel))
     count_rows(rows)
     return rows, None, overflow
 

@@ -306,14 +306,10 @@ def prep_feats_bucketed(o: Tensor, d: Tensor, subpackets: int,
     ray to its slot in the padded stream (``conecull.kernel_order_dest``
     maps that to the leaf walk's raw output order). CUDA tensors take
     :func:`prep_cuda`, CPU tensors :func:`prep_feats_plain`; the trace
-    counts which ran as ``prep_kernel`` (1 the kernels, 0 the torch
-    operations).
+    counts the kernels' launches as ``kernels`` of the span.
     """
-    kernel = o.device.type != "cpu"
-    prep = prep_cuda if kernel else prep_feats_plain
-    feats, dest = prep(o, d, subpackets, subpacket, cell_bits, t_max)
-    trace.count(prep_kernel=int(kernel))
-    return feats, dest
+    prep = prep_cuda if o.device.type != "cpu" else prep_feats_plain
+    return prep(o, d, subpackets, subpacket, cell_bits, t_max)
 
 
 # ---------------------------------------------------------------------------
@@ -351,7 +347,6 @@ def leaf_candidate_rows(o: Tensor, d: Tensor, tables: CullTables,
                                     leaf_box_rows(tables),
                                     min(max_groups, tables.num_groups), k,
                                     _round_up(k + 17, _ROW_ALIGN), exact=True)
-    trace.count(phase_a_kernel=0)
     count_rows(rows)
     return rows, overflow
 
@@ -740,7 +735,7 @@ def _escalate(query, rays: int, budgets: tuple, grow,
     drivers pass their whole call."""
     escalations = 0
     out, overflow = query(*budgets)
-    while bool(overflow):
+    while _overflowed(overflow):
         budgets = grow(budgets)
         if budgets is None:
             break
@@ -750,6 +745,16 @@ def _escalate(query, rays: int, budgets: tuple, grow,
             out, overflow = query(*budgets)
     trace.checked(kind, escalations)
     return out, escalations
+
+
+def _overflowed(overflow) -> bool:
+    """An escalation's test: the overflow read on the host, a device flag
+    inside the span ``tracer_torch.sync`` "overflow" (the try's one
+    sync)."""
+    if not isinstance(overflow, Tensor):
+        return bool(overflow)
+    with trace.span("sync", "overflow"):
+        return bool(overflow)
 
 
 def _doubled_budgets(tables):

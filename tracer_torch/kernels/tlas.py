@@ -225,8 +225,8 @@ def tlas_candidates(feats: Tensor, tables: ConeTables, max_groups: int,
     overflow). On a CUDA device one launch of ``conecull.phase_a_cuda``
     writes every pair's rows; on the CPU the torch operations take
     ``pair_block`` pairs at a time, which bounds their temporaries and
-    changes no result. The trace counts which ran as ``phase_a_kernel``.
-    No host sync.
+    changes no result. The trace counts the launch as ``kernels`` of the
+    span. No host sync.
     """
     cull = tables.cull
     gpc = cull.leaves_per_chunk // cull.leaves_per_group
@@ -239,8 +239,7 @@ def tlas_candidates(feats: Tensor, tables: ConeTables, max_groups: int,
     pair_c, pair_gb, active, merge_pos, overflow = route_pairs(
         o_lo, o_hi, d_lo, d_hi, tables, S, npairs, kc)
     packed = torch.cat([o_lo, o_hi, d_lo, d_hi], dim=1).reshape(g, S * 12)
-    kernel = feats.device.type != "cpu"
-    if kernel:
+    if feats.device.type != "cpu":
         rows, ovf = phase_a_cuda(packed.reshape(g * S, 12), tables, S, k0,
                                  k, kg, K_l, gkeep, rowlen, pair_c, pair_gb,
                                  active)
@@ -258,7 +257,6 @@ def tlas_candidates(feats: Tensor, tables: ConeTables, max_groups: int,
             blocks.append(rows)
             overflow = overflow | ovf
         rows = torch.cat(blocks)
-    trace.count(phase_a_kernel=int(kernel))
     count_rows(rows, active)
     return rows, pair_c, pair_gb, merge_pos, overflow
 

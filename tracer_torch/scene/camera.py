@@ -15,6 +15,7 @@ from dataclasses import dataclass, replace
 import torch
 from torch import Tensor
 
+from tracer_torch import trace
 from tracer_torch.config import DEFAULT_CONFIG, TracerConfig
 from tracer_torch.core import vecmath
 from tracer_torch.core.device import default_device
@@ -58,8 +59,9 @@ class Camera:
             torch.cos(self.pitch) * torch.cos(self.yaw),
         ]).to(torch.float32)
         forward = vecmath.normalize(forward)
-        world_up = torch.tensor(_WORLD_UP, dtype=torch.float32,
-                                device=forward.device)
+        with trace.span("sync", "world_up"):
+            world_up = torch.tensor(_WORLD_UP, dtype=torch.float32,
+                                    device=forward.device)
         right = vecmath.normalize(vecmath.cross(forward, world_up))
         up = vecmath.normalize(vecmath.cross(right, forward))
         return forward, right, up
